@@ -18,8 +18,9 @@ Phases, each of which raises on failure:
 3. the service path: the port's MatcherService on a unix socket, driven
    through its ServiceMatcher client with the 100K ``mixed_100k``
    subscriptions (one OP_SUB frame each) and nine OP_MATCH requests of
-   8 x 4,096 + 1 x 65,536 topics; every answer is held against the CPU
-   trie;
+   8 x 4,096 + 1 x 65,536 topics, twice: with the batcher's adaptive host
+   bypass (the default), then with the bypass off, where the kernel must
+   serve most topics; every answer is held against the CPU trie;
 4. headline shape: an in-process SigEngine at batch 262,144 on
    ``iot_1m_share`` (fixed_max_rows 14) and ``mixed_100k``, pipelined
    dispatch/collect, every topic through the kernel;
@@ -48,11 +49,16 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
-SUBS = {"mixed_100k": 100_000, "hash_plus_100k": 100_000,
-        "iot_1m_share": 1_000_000}
-HEADLINE_BATCH = 262_144
-CHECK_BATCH = 4_096 + 100          # not a bucket size: pad rows ride along
-SERVICE_ROUNDS = (4_096,) * 8 + (65_536,)
+# The run's sizes: subscriptions per corpus, the kernel-check batch (not a
+# bucket size, so pad rows ride along), the service requests, the
+# warm-up topics sent before them, and the headline batch.
+SIZES = {"subs": {"mixed_100k": 100_000, "hash_plus_100k": 100_000,
+                  "iot_1m_share": 1_000_000},
+         "check_batch": 4_096 + 100,
+         "service_rounds": (4_096,) * 8 + (65_536,),
+         "service_warm": 1_024,
+         "headline_batch": 262_144}
+ENGINE_COUNTERS = ("matches", "host_matches", "fallbacks", "trie_routed")
 KERNEL = {"name": "sig_match_fixed", "route": "cuda",
           "source": "maxmq_tpu_torch/csrc/sig_match.cu",
           "replaces": ("maxmq_tpu/matching/sig_pallas.py:300 "
@@ -116,11 +122,11 @@ def card_line() -> str:
 
 
 class Smoke:
-    """The phases, parameterized by device and scale so the same code can
-    be rehearsed on the CPU at a small fraction of the real sizes (where
-    the kernel wrapper runs its plain version)."""
+    """The phases, parameterized by device and size table (``SIZES`` on
+    the card) so the same code can be rehearsed on the CPU at small sizes,
+    where the kernel wrapper runs its plain version."""
 
-    def __init__(self, device: str = "cuda", scale: float = 1.0) -> None:
+    def __init__(self, device: str = "cuda", sizes: dict = SIZES) -> None:
         import torch
 
         from maxmq_tpu_torch.matching import sig_kernel
@@ -128,13 +134,10 @@ class Smoke:
         self.torch = torch
         self.sig_kernel = sig_kernel
         self.device = torch.device(device)
-        self.scale = scale
+        self.sizes = sizes
         self.corpora = {}
         self.engines = {}
         self.record = {"max_abs_err": 0, "bit_equal": True}
-
-    def n(self, count: int) -> int:
-        return max(int(count * self.scale), 1)
 
     def sync(self) -> None:
         if self.device.type == "cuda":
@@ -170,7 +173,7 @@ class Smoke:
 
         t0 = time.perf_counter()
         filters, gen = build_corpus(
-            self.n(SUBS[name]), seed=42,
+            self.sizes["subs"][name], seed=42,
             share_frac=0.1 if name == "iot_1m_share" else 0.0,
             hash_plus=name == "hash_plus_100k")
         index = TopicIndex()
@@ -198,7 +201,7 @@ class Smoke:
 
     def check_batch(self, name: str) -> list[str]:
         _f, gen, _i = self.corpus(name)
-        topics = gen(self.n(CHECK_BATCH), seed2=7)
+        topics = gen(self.sizes["check_batch"], seed2=7)
         return topics + ["$SYS/a0/b1", "$" + topics[0],
                          "a0/" + "/".join(["b1"] * 130),
                          "/".join(["c2"] * 63) + "/d3", ""]
@@ -291,51 +294,72 @@ class Smoke:
             log(f"[service] {len(filters)} OP_SUB applied and compiled in "
                 f"{time.perf_counter() - t0:.1f} s "
                 f"(index {svc.index.subscription_count})")
-            warm = gen(self.n(1024), seed2=99)
+            warm = gen(self.sizes["service_warm"], seed2=99)
             await asyncio.gather(*(client.enqueue(t) for t in warm))
 
-            base = {k: getattr(engine, k) for k in
-                    ("matches", "host_matches", "fallbacks")}
-            bypass0 = svc.matcher.bypasses
             sk.sig_match_fixed.launches = 0
-            rounds = []
-            answers = []
-            for r, size in enumerate(SERVICE_ROUNDS):
-                topics = gen(self.n(size), seed2=1000 + r)
-                t_req = time.perf_counter()
-                results = await client.subscribers_batch_async(topics)
-                took = time.perf_counter() - t_req
-                rounds.append({"topics": len(topics), "ms": took * 1e3,
-                               "topics_per_s": len(topics) / took})
-                answers.append((topics, results))
+            modes = {}
+            for mode, bypass, seed in (("adaptive", True, 1000),
+                                       ("device", False, 3000)):
+                modes[mode] = await self.service_rounds(
+                    client, svc, engine, gen, mirror, bypass, seed)
             launches = sk.sig_match_fixed.launches
         finally:
             await client.close()
             await svc.close()
 
-        bad = 0
-        checked = 0
-        for topics, results in answers:
+        out = {"launches": launches, **modes}
+        log(f"[service] {json.dumps(out)}")
+        for mode, m in modes.items():
+            if m["mismatches"]:
+                raise AssertionError(f"{m['mismatches']} service answers "
+                                     f"({mode}) differ from the CPU trie")
+        dev = modes["device"]
+        if dev["device_topics"] * 2 <= dev["topics"]:
+            raise AssertionError(
+                f"with the bypass off the device path served only "
+                f"{dev['device_topics']} of {dev['topics']} topics")
+        if self.device.type == "cuda" and (launches <= 0
+                                           or dev["launches"] <= 0):
+            raise AssertionError("the service path launched no kernel")
+        return out
+
+    async def service_rounds(self, client, svc, engine, gen, mirror,
+                             bypass: bool, seed: int) -> dict:
+        """The service requests once, with the batcher's host bypass on
+        or off; each answer is held against the CPU trie. Device-served
+        topics are those the engine matched neither on the host nor from
+        its trie."""
+        sk = self.sig_kernel
+        batcher = svc.matcher
+        batcher.cpu_bypass = bypass
+        base = {k: getattr(engine, k) for k in ENGINE_COUNTERS}
+        bypass0, launches0 = batcher.bypasses, sk.sig_match_fixed.launches
+        rounds, bad, checked = [], 0, 0
+        for r, size in enumerate(self.sizes["service_rounds"]):
+            topics = gen(size, seed2=seed + r)
+            t_req = time.perf_counter()
+            results = await client.subscribers_batch_async(topics)
+            took = time.perf_counter() - t_req
+            rounds.append({"topics": len(topics), "ms": took * 1e3,
+                           "topics_per_s": len(topics) / took})
             for t, got in zip(topics, results):
                 checked += 1
                 if normalize(got) != normalize(mirror.subscribers(t)):
                     bad += 1
-        lat = [r["ms"] for r in rounds[:-1]]     # the 4,096-topic requests
-        out = {"request_ms_p50": statistics.median(lat),
-               "request_ms_max": max(lat),
-               "topics_per_s": (sum(r["topics"] for r in rounds)
-                                / sum(r["ms"] for r in rounds) * 1e3),
-               "rounds": rounds, "launches": launches,
-               "bypasses": svc.matcher.bypasses - bypass0,
-               "checked": checked, "mismatches": bad,
-               **{k: getattr(engine, k) - v for k, v in base.items()}}
-        log(f"[service] {json.dumps(out)}")
-        if bad:
-            raise AssertionError(f"{bad} service answers differ from the "
-                                 "CPU trie")
-        if self.device.type == "cuda" and launches <= 0:
-            raise AssertionError("the service path launched no kernel")
-        return out
+        d = {k: getattr(engine, k) - v for k, v in base.items()}
+        lat = [r["ms"] for r in rounds[:-1]] or [rounds[0]["ms"]]
+        return {"request_ms_p50": statistics.median(lat),
+                "request_ms_max": max(lat),
+                "topics": sum(r["topics"] for r in rounds),
+                "topics_per_s": (sum(r["topics"] for r in rounds)
+                                 / sum(r["ms"] for r in rounds) * 1e3),
+                "rounds": rounds,
+                "launches": sk.sig_match_fixed.launches - launches0,
+                "bypasses": batcher.bypasses - bypass0,
+                "device_topics": (d["matches"] - d["host_matches"]
+                                  - d["fallbacks"] - d["trie_routed"]),
+                "checked": checked, "mismatches": bad, **d}
 
     # -- phase 4 -------------------------------------------------------
 
@@ -346,10 +370,9 @@ class Smoke:
         sk, torch = self.sig_kernel, self.torch
         engine = self.engine(name)
         _f, gen, index = self.corpus(name)
-        batch = self.n(HEADLINE_BATCH)
+        batch = self.sizes["headline_batch"]
         batches = [gen(batch, seed2=2000 + i) for i in range(7)]
-        base = {k: getattr(engine, k) for k in
-                ("matches", "host_matches", "fallbacks", "trie_routed")}
+        base = {k: getattr(engine, k) for k in ENGINE_COUNTERS}
         sk.sig_match_fixed.launches = 0
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
@@ -452,7 +475,7 @@ class Smoke:
         checks = {name: self.kernel_vs_plain(name)
                   for name in ("mixed_100k", "hash_plus_100k",
                                "iot_1m_share")}
-        if self.scale == 1.0 and checks["hash_plus_100k"]["groups"] <= 40:
+        if checks["hash_plus_100k"]["groups"] <= 40:
             raise AssertionError("hash_plus_100k must exceed 40 groups")
         log(f"[kernel] hash_plus_100k device groups: "
             f"{checks['hash_plus_100k']['groups']} (> 40: the TPU's MXU "

@@ -17,6 +17,7 @@ either package's ``SigTables``, so both compute on identical state.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import NamedTuple
 
@@ -37,6 +38,13 @@ _STREAM_CHUNK = 1 << 19    # rows per stream-slice fetch (2 MB of uint32)
 TABLE_ARRAYS = ("topo_coef", "depth_coef", "min_depth", "is_hash",
                 "wild_first", "row_sig", "row_sig16", "group_words",
                 "group_w16", "fold_mult")
+
+
+def _to_host(t: torch.Tensor, non_blocking: bool = False) -> torch.Tensor:
+    """A device tensor's copy on the host (a CPU tensor as it is)."""
+    if t.device.type == "cpu":
+        return t
+    return t.to("cpu", non_blocking=non_blocking)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -135,31 +143,28 @@ def pad_to_bucket(tables, toks8: np.ndarray, lens_enc: np.ndarray):
     return tp, lp
 
 
-def _row_fragment(tables, row: int) -> SubscriberSet:
-    """One row's entries unioned into a SubscriberSet, built once per
-    compiled snapshot (the memo lives on the snapshot)."""
-    frags = tables.__dict__.setdefault("_row_fragments", {})
-    frag = frags.get(row)
+def _row_fragment(tables, fragments: dict, row: int) -> SubscriberSet:
+    """One row's entries unioned into a SubscriberSet, built at first use
+    and kept in ``fragments`` (the snapshot's memo, ``_State.fragments``)."""
+    frag = fragments.get(row)
     if frag is None:
         frag = SubscriberSet()
         _union_pairs([frag], np.zeros(1, dtype=np.int64),
                      np.array([row], dtype=np.int64), tables)
-        frags[row] = frag
+        fragments[row] = frag
     return frag
 
 
-def _union_rowsets(batch: int, ti: np.ndarray, rw: np.ndarray,
-                   tables) -> list[SubscriberSet]:
+def _union_rowsets(batch: int, ti: np.ndarray, rw: np.ndarray, tables,
+                   fragments: dict) -> list[SubscriberSet]:
     """Per-topic SubscriberSets of verified (topic, row) pairs, from
     memoized per-row fragments: a single-row topic gets the row's
-    fragment itself; otherwise the fragments are merged at C speed and
-    only clients found in several rows are merged again in Python, in
-    pair order. The values equal the sequential union's: within a row each
-    client appears once, ``merge_subscription(base, merge_subscription(
-    None, s))`` equals ``merge_subscription(base, s)``, and '$share'
-    (group, filter) keys never repeat across rows. On corpora whose rows
-    carry hundreds of subscriptions ('#' prefixes at 1M subscriptions)
-    this removes the per-entry Python loop."""
+    fragment itself; a multi-row topic merges its rows' fragments in pair
+    order with ``merge_subscription``. The values equal the sequential
+    union's: within a row each client appears once,
+    ``merge_subscription(base, merge_subscription(None, s))`` equals
+    ``merge_subscription(base, s)``, and '$share' (group, filter) keys
+    never repeat across rows."""
     order = np.argsort(ti, kind="stable")        # pair order within a topic
     rows = rw[order].tolist()
     offs = np.zeros(batch + 1, dtype=np.int64)
@@ -171,39 +176,32 @@ def _union_rowsets(batch: int, ti: np.ndarray, rw: np.ndarray,
         if a == b:
             out.append(SubscriberSet())
             continue
-        frags = [_row_fragment(tables, r) for r in rows[a:b]]
-        if len(frags) == 1:
-            out.append(frags[0])
+        if b - a == 1:
+            out.append(_row_fragment(tables, fragments, rows[a]))
             continue
-        big = max(range(len(frags)),
-                  key=lambda i: len(frags[i].subscriptions))
-        subs = dict(frags[big].subscriptions)
-        shared = {}
-        overlap = set()
-        for i, f in enumerate(frags):
-            shared.update(f.shared)
-            if i != big:
-                overlap |= subs.keys() & f.subscriptions.keys()
-                subs.update(f.subscriptions)
-        for cid in overlap:          # clients of several rows: pair order
-            cur = None
-            for g in frags:
-                sub = g.subscriptions.get(cid)
-                if sub is not None:
-                    cur = sub if cur is None else merge_subscription(
-                        cur, sub, sub.filter)
-            subs[cid] = cur
+        subs, shared = {}, {}
+        for r in rows[a:b]:
+            frag = _row_fragment(tables, fragments, r)
+            for cid, sub in frag.subscriptions.items():
+                cur = subs.get(cid)
+                subs[cid] = sub if cur is None else merge_subscription(
+                    cur, sub, sub.filter)
+            shared.update(frag.shared)
         out.append(SubscriberSet(subs, shared))
     return out
 
 
 class _State(NamedTuple):
     """One compiled snapshot. ``program`` is None when the corpus was
-    declined (> MAX_GROUPS groups): the CPU trie serves it."""
+    declined (> MAX_GROUPS groups): the CPU trie serves it.
+    ``fragments`` memoizes each row's entries unioned into a
+    SubscriberSet (row -> set), filled at first use by the decode and
+    dropped with the snapshot."""
 
     tables: SigTables
     program: object
-    dev: dict | None = None     # device_tables output of the snapshot
+    dev: dict | None            # device_tables output of the snapshot
+    fragments: dict
 
 
 class _Fetch(NamedTuple):
@@ -219,14 +217,37 @@ class _Fetch(NamedTuple):
 
 class _Dispatch(NamedTuple):
     """A dispatched batch, as ``collect_fixed`` needs it: the pending
-    fetch, the host-probe rows, the snapshot it ran on, and the padded
-    token matrix and length encoding (for the host verify)."""
+    fetch, the host-probe rows, the snapshot it ran on (its tables and
+    row-fragment memo), and the padded token matrix and length encoding
+    (for the host verify)."""
 
     fetch: _Fetch
     hostrows: list
     tables: SigTables
+    fragments: dict
     toks8: np.ndarray
     lens_enc: np.ndarray
+
+
+class DeviceMatchingDeclined(RuntimeError):
+    """``dispatch_fixed`` on a snapshot whose corpus was declined (more
+    than MAX_GROUPS signature groups): the CPU trie serves it. The one
+    condition the ``subscribers_*`` surface answers from the trie."""
+
+
+@contextlib.contextmanager
+def _device_errors(what: str):
+    """A RuntimeError raised by torch/CUDA inside the block (a kernel
+    fault surfacing at a copy, an event or a synchronise) is re-raised as
+    ``faults.DeviceMatchError``, so no caller mistakes a sick device for a
+    condition the trie may serve."""
+    try:
+        yield
+    except faults.DeviceMatchError:
+        raise
+    except RuntimeError as exc:
+        raise faults.DeviceMatchError(
+            f"{what} failed: {exc!r:.300}") from exc
 
 
 class SigEngine(OverlayedEngine):
@@ -288,7 +309,7 @@ class SigEngine(OverlayedEngine):
                 # pathological corpus (thousands of distinct wildcard
                 # shapes): keep serving EXACTLY via the CPU trie rather
                 # than raising on the publish hot path
-                self._state = _State(tables, None)
+                self._state = _State(tables, None, None, {})
                 return True
             kplan = sig_kernel.plan(tables.group_words, tables.group_w16,
                                     force_width32=self.kernel_width == "32")
@@ -296,7 +317,7 @@ class SigEngine(OverlayedEngine):
             program = sig_kernel.build_fixed_fn(dev, kplan,
                                                 self.fixed_max_rows)
             self.kernel_plan = kplan
-            self._state = _State(tables, program, dev)
+            self._state = _State(tables, program, dev, {})
             self._freeze_heap_if_large()
             return True
 
@@ -348,7 +369,7 @@ class SigEngine(OverlayedEngine):
             self.refresh_soon()
         state = self._state
         if state.program is None:
-            raise RuntimeError(
+            raise DeviceMatchingDeclined(
                 "device matching disabled for this corpus "
                 f"(> {MAX_GROUPS} signature groups); use the subscribers_* "
                 "APIs, which fall back to the CPU trie")
@@ -357,8 +378,10 @@ class SigEngine(OverlayedEngine):
         toks8, lens_enc, hostrows = prepare_batch(tables, topics)
         toks8, lens_enc = pad_to_bucket(tables, toks8, lens_enc)
         counts_dev, stream_dev = state.program(toks8, lens_enc)
-        out = self._start_fetch(counts_dev, stream_dev)
-        return _Dispatch(out, hostrows, tables, toks8, lens_enc)
+        with _device_errors("stream fetch"):
+            out = self._start_fetch(counts_dev, stream_dev)
+        return _Dispatch(out, hostrows, tables, state.fragments, toks8,
+                         lens_enc)
 
     def _start_fetch(self, counts_dev, stream_dev):
         """Start the device->host copies of the counts and of the stream
@@ -374,23 +397,23 @@ class SigEngine(OverlayedEngine):
             n = min(_STREAM_CHUNK, cap - c0)
             if n <= 0:
                 break
-            s = stream_dev[c0:c0 + n]
-            slices.append(s.to("cpu", non_blocking=True) if cuda else s)
+            slices.append(_to_host(stream_dev[c0:c0 + n], non_blocking=True))
             c0 += n
         event = None
+        counts_host = _to_host(counts_dev, non_blocking=True)
         if cuda:
-            counts_host = counts_dev.to("cpu", non_blocking=True)
             event = torch.cuda.Event()
             event.record()
-        else:
-            counts_host = counts_dev
         return _Fetch(counts_host, stream_dev, slices, event)
 
     def _fetch_stream(self, out):
         """Finish the fetch: (cnt int32[B] with 15 = overflow, real
         int64[B] true per-topic counts, flat uint32[total] topic-sorted
         row stream or None when empty). 255 = overflow sentinel -> 15."""
-        counts_host, stream_dev, slices, event = out
+        with _device_errors("stream fetch"):
+            return self._finish_fetch(*out)
+
+    def _finish_fetch(self, counts_host, stream_dev, slices, event):
         if event is not None:
             event.synchronize()
         cnt_u8 = counts_host.numpy()
@@ -407,7 +430,7 @@ class SigEngine(OverlayedEngine):
         cap = stream_dev.shape[0]
         while c0 < total:
             n = min(_STREAM_CHUNK, cap - c0)
-            parts.append(stream_dev[c0:c0 + n].cpu().numpy())
+            parts.append(_to_host(stream_dev[c0:c0 + n]).numpy())
             c0 += n
         flat = parts[0] if len(parts) == 1 else np.concatenate(parts)
         return cnt, real, flat[:total].view(np.uint32)
@@ -444,12 +467,10 @@ class SigEngine(OverlayedEngine):
             return cpu
         try:
             ctx = self.dispatch_fixed(topics)
-        except faults.DeviceMatchError:
-            # a device fault must surface so a supervisor can count it
-            # (it still answers the caller from the trie)
-            raise
-        except RuntimeError:     # state swapped to trie-only mid-call
+        except DeviceMatchingDeclined:   # swapped to trie-only mid-call
             return self._resync_batch(topics)
+        # any other failure (faults.DeviceMatchError above all) surfaces:
+        # a supervisor counts it and answers the caller from its trie
         return self.collect_fixed(topics, ctx)
 
     # The device program is the fixed-slot path; the batch surface is the
@@ -467,7 +488,8 @@ class SigEngine(OverlayedEngine):
         cpu = self._trie_batch(topics)
         if cpu is not None:
             return cpu
-        tables = self._state.tables
+        state = self._state
+        tables = state.tables
         batch = len(topics)
         toks, lens_enc, hostrows = prepare_batch(tables, topics)
         lengths = np.abs(lens_enc.astype(np.int32))
@@ -481,8 +503,8 @@ class SigEngine(OverlayedEngine):
                 .astype(np.int64) if len(ti_h)
                 else np.empty(0, dtype=np.int64))
         ti, rw = _pairs_with_host(batch, ti_h, rw_h, hostrows, fall, tables)
-        return self.decode_pairs(topics, fall, ti, rw, tables, toks,
-                                 lens_enc)
+        return self.decode_pairs(topics, fall, ti, rw, tables,
+                                 state.fragments, toks, lens_enc)
 
     def collect_fixed(self, topics: list[str], ctx) -> list[SubscriberSet]:
         """Decode half of the fixed-slot path: fetch + batch-verify +
@@ -506,12 +528,13 @@ class SigEngine(OverlayedEngine):
         ti, rw = _pairs_with_host(batch, ti_dev, rw_dev, ctx.hostrows,
                                   fall, ctx.tables)
         return self.decode_pairs(topics, fall, ti, rw, ctx.tables,
-                                 ctx.toks8, ctx.lens_enc)
+                                 ctx.fragments, ctx.toks8, ctx.lens_enc)
 
     def decode_pairs(self, topics: list[str], fall, ti, rw, tables,
-                     toks8, lens_enc) -> list[SubscriberSet]:
+                     fragments, toks8, lens_enc) -> list[SubscriberSet]:
         """Host decode of flattened candidate pairs: numpy batch verify +
-        entry union, then the overlay and fallback pass.
+        entry union (through ``fragments``, the snapshot's row memo), then
+        the overlay and fallback pass.
 
         Result contract (the JAX package's native decode has the same):
         returned SubscriberSets may be SHARED across topics and calls —
@@ -532,7 +555,7 @@ class SigEngine(OverlayedEngine):
             toks32[toks32 == pad] = -1
         ok = verify_pairs(tables, toks32, lengths, dollar, ti, rw)
         if removed is None:
-            out = _union_rowsets(batch, ti[ok], rw[ok], tables)
+            out = _union_rowsets(batch, ti[ok], rw[ok], tables, fragments)
         else:
             # overlay window: the union filters removed pairs and
             # merge_delta then mutates the results, so nothing is shared
@@ -631,5 +654,5 @@ class SigEngine(OverlayedEngine):
         return result
 
 
-__all__ = ["SigEngine", "device_tables", "table_arrays", "resolve_device",
+__all__ = ["SigEngine", "DeviceMatchingDeclined", "device_tables", "table_arrays", "resolve_device",
            "pad_to_bucket", "MAX_GROUPS"]

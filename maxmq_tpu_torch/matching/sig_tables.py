@@ -159,6 +159,10 @@ class SigTables:
     row_sig16: np.ndarray = None   # uint16[R_padded] folded row sigs
                                    # (0xFFFF pad poison; 0 for 32-bit
                                    # groups' rows — never compared)
+    # host decode arrays derived from the fields above, built at first
+    # use (``_verify_arrays``, ``_decode_cache``)
+    verify_arrays: tuple = None
+    decode_arrays: tuple = None
 
 
 def compile_sig(index, version: int | None = None,
@@ -575,7 +579,7 @@ def _verify_arrays(tables):
     probe-window position (or PLUS/ANY), the required depth, exactness,
     and the '$'-exclusion flag. Together these reproduce
     ``topics.filter_matches_topic`` as pure array comparisons."""
-    vt = tables.__dict__.get("_verify_arrays")
+    vt = tables.verify_arrays
     if vt is not None:
         return vt
     n_rows = len(tables.row_levels)
@@ -601,7 +605,7 @@ def _verify_arrays(tables):
             # (matches nothing) keeps even that case safe
             tok[r, i] = _VER_PLUS if lv == "+" else vocab.get(lv, -3)
     vt = (tok, min_depth, exact, wild_first, valid)
-    tables.__dict__["_verify_arrays"] = vt
+    tables.verify_arrays = vt
     return vt
 
 
@@ -609,7 +613,7 @@ def _decode_cache(tables):
     """Per-row fast-path decode arrays (cached per snapshot): for rows
     whose single entry is a plain (client, sub) with no v5 subscription
     identifier, the union is two dict ops."""
-    dc = tables.__dict__.get("_decode_cache")
+    dc = tables.decode_arrays
     if dc is not None:
         return dc
     entries = tables.entries
@@ -627,7 +631,7 @@ def _decode_cache(tables):
         cids.append(None)
         subs.append(None)
     dc = (cids, subs)
-    tables.__dict__["_decode_cache"] = dc
+    tables.decode_arrays = dc
     return dc
 
 

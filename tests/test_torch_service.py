@@ -156,12 +156,21 @@ async def test_jax_broker_attaches_to_port_service():
     assert svc.matches_served > 0
 
 
+SMOKE_CPU_SIZES = {"subs": {"mixed_100k": 2_000, "hash_plus_100k": 2_000,
+                            "iot_1m_share": 2_000},
+                   "check_batch": 200,
+                   "service_rounds": (256, 256, 200),
+                   "service_warm": 64,
+                   "headline_batch": 256}
+
+
 def test_chip_smoke_phases_rehearse_on_cpu():
-    """chip_smoke.py's phases at 1 % of their sizes on the CPU (kernel
-    wrappers run their plain versions here): control flow, the bit-equal
-    comparisons, the service answers against the trie and the headline
-    bookkeeping all run; launch counts apply on the card only."""
-    result = chip_smoke.Smoke("cpu", scale=0.01).run()
+    """chip_smoke.py's phases at small sizes on the CPU (kernel wrappers
+    run their plain versions here): control flow, the bit-equal
+    comparisons, the service answers against the trie (with the bypass on
+    and off), the > 40-group corpus and the headline bookkeeping all run;
+    launch counts apply on the card only."""
+    result = chip_smoke.Smoke("cpu", sizes=SMOKE_CPU_SIZES).run()
     (kernel,) = result["kernels"]
     assert kernel["bit_equal"] and kernel["max_abs_err"] == 0
     assert kernel["route"] == "cuda" and kernel["library_ms"] is None

@@ -206,7 +206,7 @@ def test_pathological_group_count_falls_back_to_trie(monkeypatch):
         got = run_path(engine, path, ["a/b/c", "x/y"])
         assert normalize(got[0]) == normalize(port.subscribers("a/b/c"))
         assert normalize(got[1]) == normalize(port.subscribers("x/y"))
-    with pytest.raises(RuntimeError):
+    with pytest.raises(sigmod.DeviceMatchingDeclined):
         engine.dispatch_fixed(["a/b/c"])
     port.unsubscribe("c3", "a/b/c/#")
     port.unsubscribe("c4", "x/#")
@@ -322,8 +322,53 @@ def test_decode_memoizes_per_row_fragment():
         want = [sigmod.SubscriberSet()]
         _union_pairs(want, np.zeros(len(pairs), dtype=np.int64), pairs,
                      tables)
-        (have,) = sigmod._union_rowsets(1, np.zeros(len(pairs),
-                                                    dtype=np.int64),
-                                        pairs, tables)
+        (have,) = sigmod._union_rowsets(
+            1, np.zeros(len(pairs), dtype=np.int64), pairs, tables,
+            engine._state.fragments)
         assert have.subscriptions == want[0].subscriptions
         assert have.shared == want[0].shared
+
+
+class _SickEvent:
+    """Stands in for a CUDA event whose wait reports a kernel fault."""
+
+    def synchronize(self):
+        raise RuntimeError("CUDA error: an illegal memory access was "
+                           "encountered")
+
+
+@pytest.mark.parametrize("where", ["dispatch", "collect"])
+def test_device_fault_at_fetch_raises_not_trie(monkeypatch, where):
+    """A torch/CUDA RuntimeError while the results come back (the copy
+    started at dispatch, or the wait at collect) surfaces as
+    DeviceMatchError: the batch is not quietly served by the CPU trie."""
+    _, port = twin([("c1", "a/+", {}), ("c2", "a/#", {})])
+    engine = SigEngine(port, device="cpu", auto_refresh=False)
+    before = (engine.matches, engine.fallbacks)
+    if where == "dispatch":
+        def sick(t, non_blocking=False):
+            raise RuntimeError("CUDA error: an illegal memory access was "
+                               "encountered")
+        monkeypatch.setattr(sigmod, "_to_host", sick)
+        with pytest.raises(faults.DeviceMatchError):
+            engine.subscribers_fixed_batch(["a/b"])
+    else:
+        ctx = engine.dispatch_fixed(["a/b"])
+        ctx = ctx._replace(fetch=ctx.fetch._replace(event=_SickEvent()))
+        with pytest.raises(faults.DeviceMatchError):
+            engine.collect_fixed(["a/b"], ctx)
+    assert (engine.matches, engine.fallbacks) == before
+
+
+def test_host_runtime_error_in_dispatch_is_not_served_by_trie(monkeypatch):
+    """Only a declined corpus is answered from the trie: any other
+    RuntimeError raised while dispatching reaches the caller."""
+    _, port = twin([("c1", "a/+", {}), ("c2", "a/#", {})])
+    engine = SigEngine(port, device="cpu", auto_refresh=False)
+
+    def broken(*_a, **_k):
+        raise RuntimeError("host bug")
+    monkeypatch.setattr(sigmod, "prepare_batch", broken)
+    with pytest.raises(RuntimeError, match="host bug"):
+        engine.subscribers_fixed_batch(["a/b"])
+    assert engine.fallbacks == 0
