@@ -10,24 +10,40 @@ Phases, each of which raises on failure:
 0. card: name, power limit, device count;
 1. build: nvcc compiles every ``maxmq_tpu_torch/csrc/*.cu`` (seconds and
    the ptxas register / shared-memory / spill summary are printed);
-2. kernel against its plain version on the card, bit for bit, on three
-   corpora and both plane widths: ``mixed_100k`` (<= 40 device groups, the
-   TPU's select-expansion regime), ``hash_plus_100k`` (> 40 groups, the
-   TPU's MXU-expansion regime) and ``iot_1m_share`` (1M subscriptions),
-   with '$' topics, too-deep topics and bucket-pad rows in every batch;
-3. the service path: the port's MatcherService on a unix socket, driven
-   through its ServiceMatcher client with the 100K ``mixed_100k``
-   subscriptions (one OP_SUB frame each) and nine OP_MATCH requests of
-   8 x 4,096 + 1 x 65,536 topics, twice: with the batcher's adaptive host
-   bypass (the default), then with the bypass off, where the kernel must
-   serve most topics; every answer is held against the CPU trie;
-4. headline shape: an in-process SigEngine at batch 262,144 on
+2. ``sig_match_fixed`` against its plain version on the card, bit for
+   bit, on three corpora and both plane widths: ``mixed_100k`` (<= 40
+   device groups, the TPU's select-expansion regime), ``hash_plus_100k``
+   (> 40 groups, the TPU's MXU-expansion regime) and ``iot_1m_share`` (1M
+   subscriptions), with '$' topics, too-deep topics and bucket-pad rows in
+   every batch;
+3. the signature service path: the port's MatcherService on a unix
+   socket, driven through its ServiceMatcher client with the 100K
+   ``mixed_100k`` subscriptions (one OP_SUB frame each) and nine OP_MATCH
+   requests of 8 x 4,096 + 1 x 65,536 topics, twice: with the batcher's
+   adaptive host bypass (the default), then with the bypass off, where the
+   kernel must serve most topics; every answer is held against the CPU
+   trie;
+4. signature headline: an in-process SigEngine at batch 262,144 on
    ``iot_1m_share`` (fixed_max_rows 14) and ``mixed_100k``, pipelined
-   dispatch/collect, every topic through the kernel;
-5. the kernels line (JSON), the card line, and the result line.
+   dispatch/collect, every topic through the kernel, and the kernel held
+   against its plain version on one headline batch;
+5. ``dense_walk_words`` (K4) against its plain version on the card, bit
+   for bit on the packed words, on ``dense_2k`` (the dense kernel's full
+   capacity) and on a narrow table whose slots are not a multiple of 128,
+   with '$' topics, a too-deep topic and bucket-pad rows;
+6. the dense service path: the MatcherService with the dense engine
+   factory (``DenseEngine`` behind the MicroBatcher, host bypass off; the
+   tables fit the kernel, so it serves), the 100,000 ``dense_2k``
+   subscriptions as OP_SUB frames and the nine OP_MATCH requests; every
+   answer is held against the CPU trie;
+7. dense headline: ``DenseEngine`` at batch 262,144 on ``dense_2k``,
+   pipelined, with the kernel, its plain version (held bit for bit
+   against it) and the torch walk timed on one batch;
+8. the kernels line (JSON), the card line, and the result line.
 
 The corpora are made here from seed 42 (a copy of the benchmark's corpus
-generator); the script imports nothing of the JAX package.
+generator, and the ``dense_2k`` generator); the script imports nothing of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -51,19 +67,47 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
 # The run's sizes: subscriptions per corpus, the kernel-check batch (not a
 # bucket size, so pad rows ride along), the service requests, the
-# warm-up topics sent before them, and the headline batch.
+# warm-up topics sent before them, the headline batch, the signature
+# headline's batch count and how many of them warm up (the pipeline and
+# the decode's row memo) untimed, and the dense_2k generator's arguments.
 SIZES = {"subs": {"mixed_100k": 100_000, "hash_plus_100k": 100_000,
                   "iot_1m_share": 1_000_000},
          "check_batch": 4_096 + 100,
          "service_rounds": (4_096,) * 8 + (65_536,),
          "service_warm": 1_024,
-         "headline_batch": 262_144}
-ENGINE_COUNTERS = ("matches", "host_matches", "fallbacks", "trie_routed")
-KERNEL = {"name": "sig_match_fixed", "route": "cuda",
-          "source": "maxmq_tpu_torch/csrc/sig_match.cu",
-          "replaces": ("maxmq_tpu/matching/sig_pallas.py:300 "
-                       "_chunk_kernel_select; maxmq_tpu/matching/"
-                       "sig_pallas.py:288 _chunk_kernel_mxu")}
+         "headline_batch": 262_144,
+         "headline_batches": 4,
+         "headline_warm": 2,
+         "dense_corpus": {"n_filters": 2_000, "n_subs": 100_000,
+                          "width": 440}}
+# engine counters of topics NOT served by the device path, per engine
+SIG_COUNTERS = ("host_matches", "fallbacks", "trie_routed")
+DENSE_COUNTERS = ("fallbacks",)
+# the tokenizer window of the dense engine (its default max_levels)
+DENSE_MAX_LEVELS = 16
+# INT32 operations the dense walk must do, as counted for its bound, per
+# unit of work that this run's data needs (``Smoke.dense_walk_work``):
+# - a real slot of a level a topic walks: the token compare, the OR with
+#   the slot's wildcard bit (staged per slot; which staged mask applies,
+#   '+' on or off, is a per-level choice), the parent bit's extract and
+#   the AND;
+# - an emitter slot of such a level: the end-of-topic gate (one AND with
+#   a staged exact mask, the at-end test being per level);
+# - a level a topic walks: the token's sign test ('+' on), the '$' guard
+#   and the at-end test.
+DENSE_OPS = {"slot": 4, "emit_slot": 1, "level": 3}
+KERNELS = {
+    "sig_match_fixed": {
+        "name": "sig_match_fixed", "route": "cuda",
+        "source": "maxmq_tpu_torch/csrc/sig_match.cu",
+        "replaces": ("maxmq_tpu/matching/sig_pallas.py:300 "
+                     "_chunk_kernel_select; maxmq_tpu/matching/"
+                     "sig_pallas.py:288 _chunk_kernel_mxu")},
+    "dense_walk_words": {
+        "name": "dense_walk_words", "route": "cuda",
+        "source": "maxmq_tpu_torch/csrc/dense_walk.cu",
+        "replaces": "maxmq_tpu/matching/pallas_kernel.py:119 _make_kernel"},
+}
 
 
 def log(msg: str) -> None:
@@ -106,6 +150,53 @@ def build_corpus(n_subs: int, seed: int = 42, share_frac: float = 0.0,
     return filters, topics
 
 
+def build_dense_corpus(n_filters=2000, n_subs=100_000, width=440, seed=42,
+                       share_frac=0.1, plus_frac=0.15, hash_frac=0.2):
+    """The ``dense_2k`` fan-out deployment: about two thousand distinct
+    filters of one site / area / line / device / metric tree (8 levels,
+    15 % '+' levels, 20 % '#'-terminated), each held by many clients,
+    10 % of them through '$share'. At the defaults it fills the dense
+    kernel's capacity (2,000 of 2,048 rows, 8 levels, <= 512 slots a
+    level). Returns ((client, filter, qos) subscriptions, topic
+    generator); topics are concrete tree paths, 30 % with one extra
+    level."""
+    rng = random.Random(seed)
+    levels = [[f"l0t{i}" for i in range(8)]]
+    for lvl, w in enumerate([64] + [width] * 6, start=1):
+        seen, out = set(), []
+        while len(out) < w:
+            tok = ("+" if rng.random() < plus_frac
+                   else f"l{lvl}t{rng.randrange(24)}")
+            path = f"{rng.choice(levels[-1])}/{tok}"
+            if path not in seen:
+                seen.add(path)
+                out.append(path)
+        levels.append(out)
+    nodes = [p for lv in levels[1:] for p in lv]
+    filters = set()
+    while len(filters) < n_filters:
+        p = rng.choice(nodes)
+        filters.add(p + "/#" if p.count("/") < 7 and rng.random() < hash_frac
+                    else p)
+    filters = sorted(filters)
+    rng.shuffle(filters)
+    subs = []
+    for i in range(n_subs):
+        f = filters[i] if i < len(filters) else rng.choice(filters)
+        if rng.random() < share_frac:
+            f = f"$share/g{rng.randint(0, 7)}/{f}"
+        subs.append((f"cl-{i}", f, i % 3))
+    concrete = [p for lv in levels for p in lv if "+" not in p]
+
+    def topics(batch: int, seed2: int):
+        r2 = random.Random(seed2)
+        return [r2.choice(concrete)
+                + (f"/x{r2.randrange(4)}" if r2.random() < 0.3 else "")
+                for _ in range(batch)]
+
+    return subs, topics
+
+
 def normalize(ss):
     """Comparable form of a SubscriberSet."""
     subs = {cid: (s.qos, tuple(sorted(s.identifiers.items())))
@@ -129,15 +220,19 @@ class Smoke:
     def __init__(self, device: str = "cuda", sizes: dict = SIZES) -> None:
         import torch
 
-        from maxmq_tpu_torch.matching import sig_kernel
+        from maxmq_tpu_torch.matching import dense_kernel, sig_kernel
 
         self.torch = torch
         self.sig_kernel = sig_kernel
+        self.dense_kernel = dense_kernel
         self.device = torch.device(device)
         self.sizes = sizes
         self.corpora = {}
         self.engines = {}
+        self.dense = None          # (subscriptions, generator, TopicIndex)
+        self.dense_eng = None
         self.record = {"max_abs_err": 0, "bit_equal": True}
+        self.dense_record = {"max_abs_err": 0, "bit_equal": True}
 
     def sync(self) -> None:
         if self.device.type == "cuda":
@@ -206,13 +301,36 @@ class Smoke:
                          "a0/" + "/".join(["b1"] * 130),
                          "/".join(["c2"] * 63) + "/d3", ""]
 
+    def sig_compare(self, got, want, b: int, mr: int):
+        """``sig_match_fixed``'s (counts, rows) against its plain
+        version's for a batch of ``b`` real topics: the counts, the
+        compacted match stream and the raw rows, bit for bit. Folds the
+        result into ``self.record``; returns (bit_equal, max_abs_err,
+        stream rows)."""
+        sk, torch = self.sig_kernel, self.torch
+        self.sync()
+        err = int((got[1].to(torch.int64) - want[1].to(torch.int64))
+                  .abs().max().item())
+        err = max(err, int((got[0].to(torch.int64)
+                            - want[0].to(torch.int64)).abs().max()))
+        real = torch.where(want[0] == 0xFF, 0, want[0].to(torch.int64))
+        total = int(real.sum())
+        s_got = sk.compact_stream(got[0], got[1], mr)[:total]
+        s_want = sk.compact_stream(want[0], want[1], mr)[:total]
+        equal = (torch.equal(got[0][:b], want[0][:b])
+                 and torch.equal(s_got, s_want)
+                 and torch.equal(got[1], want[1]))
+        self.record["max_abs_err"] = max(self.record["max_abs_err"], err)
+        self.record["bit_equal"] &= equal
+        return equal, err, total
+
     def kernel_vs_plain(self, name: str) -> dict:
         from maxmq_tpu_torch.matching.sig import (device_tables,
                                                   pad_to_bucket,
                                                   table_arrays)
         from maxmq_tpu_torch.matching.sig_tables import prepare_batch
 
-        sk, torch = self.sig_kernel, self.torch
+        sk = self.sig_kernel
         engine = self.engine(name)
         tables = engine.tables
         arrays = table_arrays(tables)
@@ -233,21 +351,8 @@ class Smoke:
                                      p16, mr)
             want = sk.sig_match_fixed_plain(sig, deep, dev["grp_of_word"],
                                             p32, p16, mr)
-            self.sync()
-            err = int((got[1].to(torch.int64) - want[1].to(torch.int64))
-                      .abs().max().item())
-            err = max(err, int((got[0].to(torch.int64)
-                                - want[0].to(torch.int64)).abs().max()))
             b = len(topics)
-            real = torch.where(want[0] == 0xFF, 0, want[0].to(torch.int64))
-            total = int(real.sum())
-            s_got = sk.compact_stream(got[0], got[1], mr)[:total]
-            s_want = sk.compact_stream(want[0], want[1], mr)[:total]
-            equal = (torch.equal(got[0][:b], want[0][:b])
-                     and torch.equal(s_got, s_want)
-                     and torch.equal(got[1], want[1]))
-            self.record["max_abs_err"] = max(self.record["max_abs_err"], err)
-            self.record["bit_equal"] &= equal
+            equal, err, total = self.sig_compare(got, want, b, mr)
             out[width] = {"n_words32": kplan["n_words32"],
                           "n_words16": kplan["n_words16"],
                           "stream_rows": total,
@@ -302,7 +407,8 @@ class Smoke:
             for mode, bypass, seed in (("adaptive", True, 1000),
                                        ("device", False, 3000)):
                 modes[mode] = await self.service_rounds(
-                    client, svc, engine, gen, mirror, bypass, seed)
+                    client, svc, gen, mirror, bypass, seed,
+                    sk.sig_match_fixed, SIG_COUNTERS)
             launches = sk.sig_match_fixed.launches
         finally:
             await client.close()
@@ -324,18 +430,29 @@ class Smoke:
             raise AssertionError("the service path launched no kernel")
         return out
 
-    async def service_rounds(self, client, svc, engine, gen, mirror,
-                             bypass: bool, seed: int) -> dict:
+    async def service_rounds(self, client, svc, gen, mirror, bypass: bool,
+                             seed: int, kernel, counters) -> dict:
         """The service requests once, with the batcher's host bypass on
         or off; each answer is held against the CPU trie. Device-served
-        topics are those the engine matched neither on the host nor from
-        its trie."""
-        sk = self.sig_kernel
+        topics are the engine's matches less its ``counters`` (topics it
+        served on the host or from its trie); ``kernel`` is the wrapper
+        whose launches are counted."""
         batcher = svc.matcher
+        engine = batcher.engine
         batcher.cpu_bypass = bypass
-        base = {k: getattr(engine, k) for k in ENGINE_COUNTERS}
-        bypass0, launches0 = batcher.bypasses, sk.sig_match_fixed.launches
+        names = ("matches",) + tuple(counters)
+        base = {k: getattr(engine, k) for k in names}
+        bypass0, launches0 = batcher.bypasses, kernel.launches
+        hits0 = batcher.cache_hits
         rounds, bad, checked = [], 0, 0
+        wanted = {}      # the index is fixed here: one trie walk a topic
+
+        def expected(topic: str):
+            want = wanted.get(topic)
+            if want is None:
+                want = wanted[topic] = normalize(mirror.subscribers(topic))
+            return want
+
         for r, size in enumerate(self.sizes["service_rounds"]):
             topics = gen(size, seed2=seed + r)
             t_req = time.perf_counter()
@@ -345,20 +462,22 @@ class Smoke:
                            "topics_per_s": len(topics) / took})
             for t, got in zip(topics, results):
                 checked += 1
-                if normalize(got) != normalize(mirror.subscribers(t)):
+                if normalize(got) != expected(t):
                     bad += 1
         d = {k: getattr(engine, k) - v for k, v in base.items()}
         lat = [r["ms"] for r in rounds[:-1]] or [rounds[0]["ms"]]
+        distinct = len(wanted)
         return {"request_ms_p50": statistics.median(lat),
                 "request_ms_max": max(lat),
                 "topics": sum(r["topics"] for r in rounds),
                 "topics_per_s": (sum(r["topics"] for r in rounds)
                                  / sum(r["ms"] for r in rounds) * 1e3),
                 "rounds": rounds,
-                "launches": sk.sig_match_fixed.launches - launches0,
+                "launches": kernel.launches - launches0,
                 "bypasses": batcher.bypasses - bypass0,
-                "device_topics": (d["matches"] - d["host_matches"]
-                                  - d["fallbacks"] - d["trie_routed"]),
+                "cache_hits": batcher.cache_hits - hits0,
+                "distinct_topics": distinct,
+                "device_topics": d["matches"] - sum(d[k] for k in counters),
                 "checked": checked, "mismatches": bad, **d}
 
     # -- phase 4 -------------------------------------------------------
@@ -371,13 +490,16 @@ class Smoke:
         engine = self.engine(name)
         _f, gen, index = self.corpus(name)
         batch = self.sizes["headline_batch"]
-        batches = [gen(batch, seed2=2000 + i) for i in range(7)]
-        base = {k: getattr(engine, k) for k in ENGINE_COUNTERS}
+        batches = [gen(batch, seed2=2000 + i)
+                   for i in range(self.sizes["headline_batches"])]
+        base = {k: getattr(engine, k)
+                for k in ("matches",) + SIG_COUNTERS}
         sk.sig_match_fixed.launches = 0
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
-        warm = 2                         # batches 0, 1 warm the pipeline
+        warm = self.sizes["headline_warm"]    # untimed: pipeline, row memo
         times = {"dispatch": [], "fetch": [], "decode": []}
+        decode_s = []                    # every batch's decode, warm ones too
         pending = None
         first_results = None
         t_first = t_last = 0.0
@@ -396,6 +518,7 @@ class Smoke:
                 t2 = time.perf_counter()
                 res = engine._decode_stream(p_topics, p_ctx, *fetched)
                 t_last = time.perf_counter()
+                decode_s.append(t_last - t2)
                 if j >= warm:
                     times["fetch"].append(t2 - t1)
                     times["decode"].append(t_last - t2)
@@ -411,6 +534,7 @@ class Smoke:
                                  f"{len(batches)} batches")
         # correctness on a sample of a timed batch, against the CPU trie
         topics, res = first_results
+        per_topic = statistics.mean(len(r) for r in res)
         rng = random.Random(5)
         for j in rng.sample(range(len(topics)), min(2000, len(topics))):
             if normalize(res[j]) != normalize(index.subscribers(topics[j])):
@@ -428,10 +552,18 @@ class Smoke:
         call = lambda: sk.sig_match_fixed(sig, deep, dev["grp_of_word"],
                                           p32, p16, mr)
         kernel_ms = self.time_ms(call, 20)
-        counts, _rows = call()
-        plain_ms = self.time_ms(
-            lambda: sk.sig_match_fixed_plain(sig, deep, dev["grp_of_word"],
-                                             p32, p16, mr), 1)
+        got = call()
+        counts = got[0]
+        plain = []
+        plain_ms = self.time_ms(lambda: plain.append(
+            sk.sig_match_fixed_plain(sig, deep, dev["grp_of_word"], p32, p16,
+                                     mr)), 1)
+        equal, err, _total = self.sig_compare(got, plain[-1], batch, mr)
+        del plain
+        if not equal:
+            raise AssertionError(f"{name} headline batch: kernel disagrees "
+                                 f"with its plain version (max_abs_err "
+                                 f"{err})")
         b = sig.shape[0]
         n32, n16 = kplan["n_words32"], kplan["n_words16"]
         ops = b * (32 * n32 + 16 * n16)
@@ -450,15 +582,18 @@ class Smoke:
             "fetch_topics_per_s": batch / statistics.mean(times["fetch"]),
             "decode_topics_per_s": batch / statistics.mean(
                 times["decode"]),
+            "decode_topics_per_s_by_batch": [batch / t for t in decode_s],
+            "warm_batches": warm,
             "pipelined_topics_per_s": timed_topics / (t_last - t_first),
             "kernel_ms": kernel_ms,
             "kernel_topics_per_s": b / (kernel_ms / 1e3),
-            "plain_ms": plain_ms,
+            "plain_ms": plain_ms, "bit_equal": equal, "max_abs_err": err,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "bound_ops_ms": t_ops, "bound_bytes_ms": t_bytes,
             "int32_ops": ops, "bytes": nbytes,
             "overflow_topics": int((counts[:batch] == 0xFF).sum()),
+            "subscribers_per_topic": per_topic,
             "library_ms": None,    # no single PyTorch call computes this
             **{k: v for k, v in d.items()},
         }
@@ -467,6 +602,330 @@ class Smoke:
         log(f"[headline] {name}: {json.dumps(out)}")
         log(f"[headline] {name}: library yardstick: none — no single "
             "PyTorch call computes this function")
+        return out
+
+    # -- dense phases (5-7) ---------------------------------------------
+
+    def dense_corpus(self):
+        """(subscriptions, topic generator, port TopicIndex) of
+        ``dense_2k``."""
+        if self.dense is None:
+            from maxmq_tpu_torch.matching.trie import TopicIndex
+            from maxmq_tpu_torch.protocol import Subscription
+
+            t0 = time.perf_counter()
+            subs, gen = build_dense_corpus(**self.sizes["dense_corpus"])
+            index = TopicIndex()
+            for cid, f, qos in subs:
+                index.subscribe(cid, Subscription(filter=f, qos=qos))
+            log(f"[corpus] dense_2k: {len(subs)} subscriptions indexed in "
+                f"{time.perf_counter() - t0:.1f} s")
+            self.dense = (subs, gen, index)
+        return self.dense
+
+    def dense_engine(self):
+        """The in-process DenseEngine on ``dense_2k``, kernel route."""
+        if self.dense_eng is None:
+            from maxmq_tpu_torch.matching.dense import DenseEngine
+
+            _s, _g, index = self.dense_corpus()
+            t0 = time.perf_counter()
+            engine = DenseEngine(index, device=self.device,
+                                 max_levels=DENSE_MAX_LEVELS,
+                                 auto_refresh=False)
+            if not engine.kernel_active:
+                raise AssertionError("dense_2k must fit the dense kernel")
+            tables = engine.tables
+            log(f"[corpus] dense_2k: tables compiled and uploaded in "
+                f"{time.perf_counter() - t0:.1f} s: {tables.n_rows} rows, "
+                f"{len(tables.entries)} entries, level widths "
+                f"{[len(lv.child_tok) for lv in tables.levels]}")
+            self.dense_eng = engine
+        return self.dense_eng
+
+    def dense_inputs(self, tables, topics: list[str]):
+        """Tokenized, bucket-padded (toks, lengths, dollar) on the device,
+        as the engine hands them to its program."""
+        from maxmq_tpu_torch.matching.topics import pad_topic_batch
+
+        arrays = pad_topic_batch(*tables.tokenize(topics, DENSE_MAX_LEVELS))
+        return [self.torch.from_numpy(a).to(self.device) for a in arrays]
+
+    def dense_kernel_vs_plain(self) -> dict:
+        from maxmq_tpu_torch.matching.dense import compile_dense
+        from maxmq_tpu_torch.matching.trie import TopicIndex
+        from maxmq_tpu_torch.protocol import Subscription
+
+        dk, torch = self.dense_kernel, self.torch
+        _s, gen, _i = self.dense_corpus()
+        topics = gen(self.sizes["check_batch"], seed2=7)
+        extra = ["$SYS/l0t1", "$" + topics[0], topics[1] + "/a" * 20, ""]
+        narrow_subs, narrow_gen = build_dense_corpus(
+            n_filters=40, n_subs=400, width=20, seed=43)
+        narrow = TopicIndex()
+        for cid, f, qos in narrow_subs:
+            narrow.subscribe(cid, Subscription(filter=f, qos=qos))
+        cases = (("dense_2k", self.dense_engine().tables, topics + extra),
+                 ("narrow", compile_dense(narrow),
+                  narrow_gen(1000, seed2=8) + extra))
+        out = {}
+        launches0 = dk.dense_walk_words.launches
+        for name, tables, batch in cases:
+            matcher = dk.KernelMatcher(tables, DENSE_MAX_LEVELS,
+                                       device=self.device)
+            args = self.dense_inputs(tables, batch)
+            got = dk.dense_walk_words(*args, matcher.kt, matcher.n_words)
+            want = dk.dense_walk_words_plain(*args, matcher.kt,
+                                             matcher.n_words)
+            self.sync()
+            err = int((got.to(torch.int64) - want.to(torch.int64))
+                      .abs().max())
+            equal = torch.equal(got, want)
+            rec = self.dense_record
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            rec["bit_equal"] &= equal
+            out[name] = {"batch": len(batch), "bucket": args[0].shape[0],
+                         "slots": matcher.pt.slots,
+                         "n_levels": matcher.pt.n_levels,
+                         "n_rows": matcher.pt.n_rows,
+                         "n_words": matcher.n_words,
+                         "matching_topics": int((want != 0).any(dim=1)
+                                                .sum()),
+                         "bit_equal": equal, "max_abs_err": err}
+            if not equal:
+                raise AssertionError(f"dense {name}: kernel disagrees with "
+                                     f"its plain version: {out[name]}")
+        if out["narrow"]["slots"] % 128 == 0:
+            raise AssertionError("the narrow table must have slots that are "
+                                 "not a multiple of 128")
+        out["launches"] = dk.dense_walk_words.launches - launches0
+        if self.device.type == "cuda" and out["launches"] != 2:
+            raise AssertionError(f"dense: {out['launches']} launches for "
+                                 "two checks")
+        log(f"[dense-kernel] {json.dumps(out)}")
+        return out
+
+    async def dense_service_path(self) -> dict:
+        from maxmq_tpu_torch.matching.batcher import MicroBatcher
+        from maxmq_tpu_torch.matching.dense import DenseEngine
+        from maxmq_tpu_torch.matching.service import (MatcherService,
+                                                      ServiceMatcher)
+        from maxmq_tpu_torch.protocol import Subscription
+
+        dk = self.dense_kernel
+        subs, gen, mirror = self.dense_corpus()
+        path = os.path.join(tempfile.mkdtemp(prefix="maxmq-smoke-"),
+                            "m.sock")
+        device = self.device
+        svc = MatcherService(path, engine_factory=lambda index: MicroBatcher(
+            DenseEngine(index, device=device, max_levels=DENSE_MAX_LEVELS),
+            cpu_bypass=False))
+        await svc.start()
+        client = ServiceMatcher(path)
+        try:
+            await client.connect()
+            t0 = time.perf_counter()
+            for cid, f, qos in subs:
+                client.forward_subscribe(cid, Subscription(filter=f, qos=qos))
+            await client.subscribers_async("smoke/barrier")  # ops applied
+            engine = svc.matcher.engine
+            engine.refresh()
+            log(f"[dense-service] {len(subs)} OP_SUB applied and compiled in "
+                f"{time.perf_counter() - t0:.1f} s "
+                f"(index {svc.index.subscription_count}, kernel_active "
+                f"{engine.kernel_active})")
+            warm = gen(self.sizes["service_warm"], seed2=98)
+            await asyncio.gather(*(client.enqueue(t) for t in warm))
+            dk.dense_walk_words.launches = 0
+            rounds = await self.service_rounds(
+                client, svc, gen, mirror, False, 5000, dk.dense_walk_words,
+                DENSE_COUNTERS)
+            launches = dk.dense_walk_words.launches
+            kernel_active = engine.kernel_active
+        finally:
+            await client.close()
+            await svc.close()
+        out = {"launches": launches, "kernel_active": kernel_active,
+               **rounds}
+        log(f"[dense-service] {json.dumps(out)}")
+        if rounds["mismatches"]:
+            raise AssertionError(f"{rounds['mismatches']} dense service "
+                                 "answers differ from the CPU trie")
+        if not kernel_active:
+            raise AssertionError("the dense service engine left the kernel")
+        # dense_2k publishes to ~12K distinct topics, so the batcher's
+        # result cache answers repeats; with the bypass off it holds only
+        # answers of the device path
+        served = rounds["device_topics"] + rounds["cache_hits"]
+        if served * 2 <= rounds["topics"] or rounds["bypasses"]:
+            raise AssertionError(
+                f"the dense device path served only {served} of "
+                f"{rounds['topics']} topics ({rounds['device_topics']} "
+                f"matched, {rounds['cache_hits']} repeats from its cache)")
+        if self.device.type == "cuda" and launches <= 0:
+            raise AssertionError("the dense service path launched no kernel")
+        return out
+
+    def dense_walk_work(self, kt: dict, toks, lengths, dollar) -> dict:
+        """The work the walk must do on this batch, counted in the units
+        of ``DENSE_OPS``: the levels each topic walks (every topic walks
+        level 0, and a deeper level while its state after the level
+        before is not empty: the kernel stops a topic at its first empty
+        level), and those levels' real slots and emitter slots."""
+        from maxmq_tpu_torch.matching.dense import walk_step
+
+        torch = self.torch
+        parent_idx = kt["parent_idx"].to(torch.int64)
+        work = dict.fromkeys(DENSE_OPS, 0)
+        for a in range(0, toks.shape[0], 16384):
+            t, dol = toks[a:a + 16384], dollar[a:a + 16384]
+            n = t.shape[0]
+            s = torch.ones((n, kt["slots"]), dtype=torch.bool,
+                           device=t.device)
+            active = torch.ones(n, dtype=torch.bool, device=t.device)
+            for lvl in range(kt["n_levels"]):
+                walking = int(active.sum())
+                work["level"] += walking
+                work["slot"] += walking * kt["width"][lvl]
+                work["emit_slot"] += walking * kt["n_emit"][lvl]
+                tok = (t[:, lvl] if lvl < t.shape[1] else
+                       torch.full((n,), -1, dtype=torch.int32,
+                                  device=t.device))[:, None]
+                s = walk_step(s, parent_idx[lvl], tok, kt["child_tok"][lvl],
+                              dol if lvl == 0 else None)
+                active = active & s.any(dim=1)
+        return work
+
+    def dense_headline(self) -> dict:
+        from maxmq_tpu_torch.matching.dense import (dense_arrays,
+                                                    dense_device_tables,
+                                                    dense_match_body)
+        from maxmq_tpu_torch.matching.topics import pad_topic_batch
+
+        dk, torch = self.dense_kernel, self.torch
+        engine = self.dense_engine()
+        tables, program = engine._state
+        _s, gen, index = self.dense_corpus()
+        batch = self.sizes["headline_batch"]
+        batches = [gen(batch, seed2=4000 + i) for i in range(3)]
+        warm = 1                         # batch 0 warms the pipeline
+        base = {k: getattr(engine, k) for k in ("matches", "fallbacks")}
+        dk.dense_walk_words.launches = 0
+        if self.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        times = {"prep": [], "fetch": [], "decode": []}
+        pending = None
+        first_results = None
+        t_first = t_last = 0.0
+        for i in range(len(batches) + 1):
+            topics = batches[i] if i < len(batches) else None
+            t0 = t1 = time.perf_counter()
+            out = None
+            if topics:
+                arrays = pad_topic_batch(*tables.tokenize(
+                    topics, engine.max_levels))
+                t1 = time.perf_counter()
+                out = engine._run(program, *arrays)    # enqueued, no wait
+            if i == warm:
+                t_first = t0
+            if topics and i >= warm:
+                times["prep"].append(t1 - t0)
+            if pending is not None:      # collect the batch before this one
+                j, p_topics, p_out = pending
+                t2 = time.perf_counter()
+                word_idx, word_val, overflow = engine._fetch(p_out)
+                t3 = time.perf_counter()
+                if j >= warm:            # the warm batch is not decoded
+                    b = len(p_topics)
+                    res = engine.decode_batch(
+                        p_topics, word_idx[:b], word_val[:b], overflow[:b],
+                        tables)
+                    t_last = time.perf_counter()
+                    times["fetch"].append(t3 - t2)
+                    times["decode"].append(t_last - t3)
+                    if j == warm:
+                        first_results = (p_topics, res)
+            pending = (i, topics, out) if topics else None
+        launches = dk.dense_walk_words.launches
+        d = {k: getattr(engine, k) - v for k, v in base.items()}
+        if self.device.type == "cuda" and launches < len(batches):
+            raise AssertionError(f"dense_2k: {launches} launches for "
+                                 f"{len(batches)} batches")
+        topics, res = first_results
+        per_topic = statistics.mean(len(r) for r in res)
+        rng = random.Random(5)
+        for j in rng.sample(range(len(topics)), min(2000, len(topics))):
+            if normalize(res[j]) != normalize(index.subscribers(topics[j])):
+                raise AssertionError(f"dense_2k: wrong answer for "
+                                     f"{topics[j]!r}")
+
+        # kernel alone, kernel + extract, its plain version, the walk and
+        # the bound, on batch 0
+        args = self.dense_inputs(tables, batches[0])
+        kt, n_words = program.kt, program.n_words
+        kernel_ms = self.time_ms(
+            lambda: dk.dense_walk_words(*args, kt, n_words), 20)
+        words = dk.dense_walk_words(*args, kt, n_words)
+        kernel_extract_ms = self.time_ms(lambda: program(*args), 20)
+        plain = []
+        plain_ms = self.time_ms(lambda: plain.append(
+            dk.dense_walk_words_plain(*args, kt, n_words)), 1)
+        self.sync()
+        equal = torch.equal(words, plain[-1])
+        err = int((words.to(torch.int64) - plain[-1].to(torch.int64))
+                  .abs().max())
+        del plain
+        rec = self.dense_record
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["bit_equal"] &= equal
+        if not equal:
+            raise AssertionError(f"dense_2k headline batch: kernel disagrees "
+                                 f"with its plain version (max_abs_err "
+                                 f"{err})")
+        walk_dev = dense_device_tables(dense_arrays(tables), self.device)
+        walk_ms = self.time_ms(lambda: dense_match_body(
+            walk_dev["levels"], *args, n_rows=tables.n_rows,
+            max_words=engine.max_words), 3)
+        bucket, n_cols = args[0].shape
+        work = self.dense_walk_work(kt, *args)
+        ops = sum(DENSE_OPS[k] * work[k] for k in DENSE_OPS)
+        table_bytes = kt["n_levels"] * kt["slots"] * 9 + kt["meta"].numel() * 4
+        nbytes = (bucket * min(kt["n_levels"], n_cols) * 4 + bucket * 5
+                  + table_bytes + bucket * n_words * 4)
+        t_ops = ops / INT32_OPS_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        timed_topics = batch * len(times["decode"])
+        out = {
+            "subs": index.subscription_count, "batch": batch,
+            "bucket": bucket, "n_rows": tables.n_rows,
+            "slots": kt["slots"], "level_widths": kt["width"],
+            "n_words": n_words, "launches": launches,
+            "host_prep_topics_per_s": batch / statistics.mean(times["prep"]),
+            "extract_fetch_topics_per_s": batch / statistics.mean(
+                times["fetch"]),
+            "decode_topics_per_s": batch / statistics.mean(times["decode"]),
+            "pipelined_topics_per_s": timed_topics / (t_last - t_first),
+            "kernel_ms": kernel_ms,
+            "kernel_topics_per_s": bucket / (kernel_ms / 1e3),
+            "kernel_extract_ms": kernel_extract_ms,
+            "plain_ms": plain_ms, "walk_ms": walk_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ops_ms": t_ops, "bound_bytes_ms": t_bytes,
+            "walk_work": work, "int32_ops": ops, "bytes": nbytes,
+            "bit_equal": equal, "max_abs_err": err,
+            "matching_topics": int((words[:batch] != 0).any(dim=1).sum()),
+            "subscribers_per_topic": per_topic,
+            "library_ms": None,    # no single PyTorch call computes this
+            **d,
+        }
+        if self.device.type == "cuda":
+            out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        log(f"[dense-headline] dense_2k: {json.dumps(out)}")
+        log("[dense-headline] dense_2k: library yardstick: none — no single "
+            "PyTorch call computes this function; the walk (the route past "
+            "the kernel's capacity, the reference's default) is timed "
+            "beside it")
         return out
 
     # -- all phases ----------------------------------------------------
@@ -485,18 +944,33 @@ class Smoke:
                  for name in ("iot_1m_share", "mixed_100k")}
         for engine in self.engines.values():
             engine.close()
+        self.engines.clear()
+        self.dense_kernel_vs_plain()
+        dense_service = asyncio.run(self.dense_service_path())
+        dh = self.dense_headline()
         h = heads["iot_1m_share"]
-        kernel = dict(KERNEL, launches=service["launches"],
-                      max_abs_err=self.record["max_abs_err"],
-                      ms=h["kernel_ms"], plain_ms=h["plain_ms"],
-                      bound_ms=h["bound_ms"], bound_by=h["bound_by"],
-                      library_ms=None, bit_equal=self.record["bit_equal"],
-                      shape=f"iot_1m_share batch {h['bucket']}",
-                      headline={k: {f: v[f] for f in
-                                    ("kernel_ms", "plain_ms", "bound_ms",
-                                     "bound_by", "launches")}
-                                for k, v in heads.items()})
-        return {"kernels": [kernel]}
+        sig = dict(KERNELS["sig_match_fixed"], launches=service["launches"],
+                   max_abs_err=self.record["max_abs_err"],
+                   ms=h["kernel_ms"], plain_ms=h["plain_ms"],
+                   bound_ms=h["bound_ms"], bound_by=h["bound_by"],
+                   library_ms=None, bit_equal=self.record["bit_equal"],
+                   shape=f"iot_1m_share batch {h['bucket']}",
+                   headline={k: {f: v[f] for f in
+                                 ("kernel_ms", "plain_ms", "bound_ms",
+                                  "bound_by", "launches")}
+                             for k, v in heads.items()})
+        dense = dict(KERNELS["dense_walk_words"],
+                     launches=dense_service["launches"],
+                     max_abs_err=self.dense_record["max_abs_err"],
+                     ms=dh["kernel_ms"], plain_ms=dh["plain_ms"],
+                     bound_ms=dh["bound_ms"], bound_by=dh["bound_by"],
+                     library_ms=None,
+                     bit_equal=self.dense_record["bit_equal"],
+                     shape=f"dense_2k batch {dh['bucket']}",
+                     walk_ms=dh["walk_ms"],
+                     kernel_extract_ms=dh["kernel_extract_ms"],
+                     headline_launches=dh["launches"])
+        return {"kernels": [sig, dense]}
 
 
 def main() -> int:

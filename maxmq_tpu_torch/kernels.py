@@ -41,6 +41,12 @@ SIGNATURES = {
                  _P]),
         "sig_match_error_string": (ctypes.c_char_p, [_I]),
     },
+    "dense_walk": {
+        "dense_walk_launch": (
+            _I, [_P, _LL, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                 _P, _P]),
+        "dense_walk_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 _lock = threading.Lock()

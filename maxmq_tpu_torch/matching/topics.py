@@ -1,6 +1,6 @@
 """Topic-name / topic-filter utilities shared by the CPU trie and the
-signature compiler: level splitting, validation, `$share` parsing,
-tokenization and the batch bucket ladder.
+table compilers: level splitting, validation, `$share` parsing,
+tokenization, the batch bucket ladder and its padding.
 
 Copy of the JAX package's ``matching/topics.py``; the tokenizer here is
 the pure-Python path (this package does not load the native runtime).
@@ -144,3 +144,21 @@ def batch_bucket(b: int) -> int:
     if b <= 4096:
         return 1 << (n + (n & 1))
     return 1 << n
+
+
+def pad_topic_batch(toks, lengths, dollar):
+    """Pad a tokenized batch (toks [B, L] int, lengths [B], dollar [B])
+    to its bucket with depth-0 rows (toks -1, length 0, dollar False) —
+    per-topic outputs trim clean with ``[:B]``. Returns the (possibly
+    padded) triple; numpy-only, usable from any engine."""
+    b = len(lengths)
+    bucket = batch_bucket(b)
+    if bucket == b:
+        return toks, lengths, dollar
+    toks = np.concatenate(
+        [toks, np.full((bucket - b, toks.shape[1]), -1, dtype=toks.dtype)])
+    lengths = np.concatenate(
+        [lengths, np.zeros(bucket - b, dtype=lengths.dtype)])
+    dollar = np.concatenate(
+        [dollar, np.zeros(bucket - b, dtype=dollar.dtype)])
+    return toks, lengths, dollar

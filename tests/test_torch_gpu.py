@@ -1,4 +1,4 @@
-"""The CUDA kernel on the card, held against its plain version.
+"""The CUDA kernels on the card, held against their plain versions.
 
 This file imports only the port (no JAX), so it runs on a machine that
 has a card and no JAX:
@@ -13,10 +13,13 @@ import random
 import pytest
 import torch
 
-from maxmq_tpu_torch.matching import sig_kernel
+import chip_smoke
+from maxmq_tpu_torch.matching import dense_kernel, sig_kernel
+from maxmq_tpu_torch.matching.dense import DenseEngine, compile_dense
 from maxmq_tpu_torch.matching.sig import (SigEngine, device_tables,
                                           pad_to_bucket, table_arrays)
 from maxmq_tpu_torch.matching.sig_tables import compile_sig, prepare_batch
+from maxmq_tpu_torch.matching.topics import pad_topic_batch
 from maxmq_tpu_torch.matching.trie import TopicIndex
 from maxmq_tpu_torch.protocol import Subscription
 
@@ -93,3 +96,53 @@ def test_engine_on_card_matches_trie(cuda_card):
         want = idx.subscribers(t)
         assert set(g.subscriptions) == set(want.subscriptions), t
         assert set(g.shared) == set(want.shared), t
+
+
+def dense_corpus(full_width: bool):
+    """``dense_2k`` at full width (2,000 rows, 8 levels), or a narrow
+    tree whose slots are not a multiple of 128; topics with '$' topics,
+    a too-deep topic and an empty one."""
+    kw = {} if full_width else {"n_filters": 40, "n_subs": 400, "width": 20}
+    subs, gen = chip_smoke.build_dense_corpus(**kw)
+    idx = TopicIndex()
+    for cid, f, qos in subs:
+        idx.subscribe(cid, Subscription(filter=f, qos=qos))
+    topics = gen(1000, seed2=7)
+    topics += ["$SYS/l0t1", "$" + topics[0], topics[1] + "/a" * 20, ""]
+    return idx, topics
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("full_width", [True, False],
+                         ids=["dense_2k", "narrow"])
+def test_dense_kernel_matches_plain(cuda_card, full_width):
+    idx, topics = dense_corpus(full_width)
+    tables = compile_dense(idx)
+    matcher = dense_kernel.KernelMatcher(tables, 16, device=cuda_card)
+    if not full_width:
+        assert matcher.pt.slots % 128 != 0
+    toks, lengths, dollar = pad_topic_batch(*tables.tokenize(topics, 16))
+    args = [torch.from_numpy(a).to(cuda_card) for a in (toks, lengths,
+                                                          dollar)]
+    before = dense_kernel.dense_walk_words.launches
+    got = dense_kernel.dense_walk_words(*args, matcher.kt, matcher.n_words)
+    want = dense_kernel.dense_walk_words_plain(*args, matcher.kt,
+                                               matcher.n_words)
+    torch.cuda.synchronize()
+    assert dense_kernel.dense_walk_words.launches == before + 1
+    assert torch.equal(got, want)
+    assert (want != 0).any(dim=1).sum() > len(topics) // 8
+
+
+@pytest.mark.gpu
+def test_dense_engine_on_card_matches_trie(cuda_card):
+    idx, topics = dense_corpus(False)
+    engine = DenseEngine(idx, device=cuda_card, auto_refresh=False)
+    assert engine.kernel_active
+    before = dense_kernel.dense_walk_words.launches
+    got = engine.subscribers_batch(topics)
+    assert dense_kernel.dense_walk_words.launches == before + 1
+    for t, g in zip(topics, got):
+        assert chip_smoke.normalize(g) == chip_smoke.normalize(
+            idx.subscribers(t)), t
+    assert engine.fallbacks == 1                 # the too-deep topic

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from maxmq_tpu_torch import cli
+from maxmq_tpu_torch.matching.dense import DenseEngine
 from maxmq_tpu_torch.matching.sig import SigEngine, resolve_device
 from maxmq_tpu_torch.matching.trie import TopicIndex
 
@@ -55,8 +56,8 @@ def test_ast_scan_finds_no_forbidden_import():
 
 def test_subprocess_import_leaves_jax_out():
     """Import every module of the package in a fresh interpreter, build a
-    SigEngine and a MatcherService on the CPU, match once, and check
-    sys.modules."""
+    SigEngine, a DenseEngine (kernel route) and a MatcherService on the
+    CPU, match once, and check sys.modules."""
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in PACKAGE.rglob("*.py") if p.name != "__main__.py")
@@ -64,6 +65,7 @@ def test_subprocess_import_leaves_jax_out():
         import asyncio, importlib, os, sys, tempfile
         for m in {modules!r}:
             importlib.import_module(m)
+        from maxmq_tpu_torch.matching.dense import DenseEngine
         from maxmq_tpu_torch.matching.service import MatcherService
         from maxmq_tpu_torch.matching.sig import SigEngine
         from maxmq_tpu_torch.matching.trie import TopicIndex
@@ -75,6 +77,8 @@ def test_subprocess_import_leaves_jax_out():
         engine.route_small = False
         assert list(engine.subscribers_fixed_batch(["a/b"])[0]
                     .subscriptions) == ["c1"]
+        dense = DenseEngine(idx, device="cpu")
+        assert list(dense.subscribers("a/b").subscriptions) == ["c1"]
 
         async def serve():
             path = os.path.join(tempfile.mkdtemp(), "m.sock")
@@ -101,6 +105,10 @@ def test_entry_points_refuse_without_cuda(monkeypatch, tmp_path, capsys):
         SigEngine(idx)
     with pytest.raises(RuntimeError):
         SigEngine(idx, device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DenseEngine(idx)
+    with pytest.raises(RuntimeError):
+        DenseEngine(idx, device="cuda")
     with pytest.raises(RuntimeError):
         resolve_device(None)
     assert resolve_device("cpu") == torch.device("cpu")

@@ -161,21 +161,31 @@ SMOKE_CPU_SIZES = {"subs": {"mixed_100k": 2_000, "hash_plus_100k": 2_000,
                    "check_batch": 200,
                    "service_rounds": (256, 256, 200),
                    "service_warm": 64,
-                   "headline_batch": 256}
+                   "headline_batch": 256,
+                   "headline_batches": 4,
+                   "headline_warm": 2,
+                   "dense_corpus": {"n_filters": 300, "n_subs": 3_000,
+                                    "width": 60}}
 
 
 def test_chip_smoke_phases_rehearse_on_cpu():
     """chip_smoke.py's phases at small sizes on the CPU (kernel wrappers
     run their plain versions here): control flow, the bit-equal
-    comparisons, the service answers against the trie (with the bypass on
-    and off), the > 40-group corpus and the headline bookkeeping all run;
-    launch counts apply on the card only."""
+    comparisons, the service answers against the trie (the signature
+    service with the bypass on and off, the dense service with it off),
+    the > 40-group corpus and the headline bookkeeping all run; launch
+    counts apply on the card only."""
     result = chip_smoke.Smoke("cpu", sizes=SMOKE_CPU_SIZES).run()
-    (kernel,) = result["kernels"]
-    assert kernel["bit_equal"] and kernel["max_abs_err"] == 0
-    assert kernel["route"] == "cuda" and kernel["library_ms"] is None
-    assert set(kernel) >= {"name", "source", "replaces", "launches", "ms",
-                           "plain_ms", "bound_ms", "bound_by"}
+    kernels = result["kernels"]
+    assert [k["name"] for k in kernels] == ["sig_match_fixed",
+                                            "dense_walk_words"]
+    for kernel in kernels:
+        assert kernel["bit_equal"] and kernel["max_abs_err"] == 0
+        assert kernel["route"] == "cuda" and kernel["library_ms"] is None
+        assert set(kernel) >= {"name", "source", "replaces", "launches",
+                               "ms", "plain_ms", "bound_ms", "bound_by"}
+        assert kernel["bound_by"] in ("bytes", "operations")
+    assert kernels[1]["bound_ms"] > 0 and kernels[1]["walk_ms"] > 0
 
 
 async def test_bulk_forwarding_is_coalesced_and_ordered():
