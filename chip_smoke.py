@@ -15,7 +15,10 @@ Phases, each of which raises on failure:
    device groups, the TPU's select-expansion regime), ``hash_plus_100k``
    (> 40 groups, the TPU's MXU-expansion regime) and ``iot_1m_share`` (1M
    subscriptions), with '$' topics, too-deep topics and bucket-pad rows in
-   every batch;
+   every batch; then on synthetic operands that hit the design's edges
+   (``synthetic_sig``): every topic overflowing in the first word tile,
+   batch sizes that are no multiple of a block's topics, a table without
+   16-bit words and one without 32-bit words;
 3. the signature service path: the port's MatcherService on a unix
    socket, driven through its ServiceMatcher client with the 100K
    ``mixed_100k`` subscriptions (one OP_SUB frame each) and nine OP_MATCH
@@ -26,20 +29,27 @@ Phases, each of which raises on failure:
 4. signature headline: an in-process SigEngine at batch 262,144 on
    ``iot_1m_share`` (fixed_max_rows 14) and ``mixed_100k``, pipelined
    dispatch/collect, every topic through the kernel, and the kernel held
-   against its plain version on one headline batch;
-5. ``dense_walk_words`` (K4) against its plain version on the card, bit
-   for bit on the packed words, on ``dense_2k`` (the dense kernel's full
+   against its plain version on one headline batch; the kernel is also
+   timed on the service's 256-topic batch, and the plane bytes a launch
+   reads are printed;
+5. ``dense_walk_words`` (K4 with the pack and the sparse extract fused)
+   against its plain version on the card, bit for bit on (word_idx,
+   word_val, overflow), on ``dense_2k`` (the dense kernel's full
    capacity) and on a narrow table whose slots are not a multiple of 128,
-   with '$' topics, a too-deep topic and bucket-pad rows;
+   with '$' topics, a too-deep topic and bucket-pad rows, at max_words
+   32, 1 (topics with more nonzero words than that) and 100 (more than
+   the table's words);
 6. the dense service path: the MatcherService with the dense engine
    factory (``DenseEngine`` behind the MicroBatcher, host bypass off; the
    tables fit the kernel, so it serves), the 100,000 ``dense_2k``
    subscriptions as OP_SUB frames and the nine OP_MATCH requests; every
    answer is held against the CPU trie;
 7. dense headline: ``DenseEngine`` at batch 262,144 on ``dense_2k``,
-   pipelined, with the kernel, its plain version (held bit for bit
-   against it) and the torch walk timed on one batch;
-8. the kernels line (JSON), the card line, and the result line.
+   pipelined, with the kernel (and on 256 topics), its plain version
+   (held bit for bit against it) and the torch walk timed on one batch;
+8. each kernel's SASS opcode counts (``cuobjdump -sass``, where the
+   toolkit has it), the kernels line (JSON), the card line, and the
+   result line.
 
 The corpora are made here from seed 42 (a copy of the benchmark's corpus
 generator, and the ``dense_2k`` generator); the script imports nothing of
@@ -52,11 +62,14 @@ import asyncio
 import json
 import os
 import random
+import re
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 # H100 SXM peaks for the roofline bound (NVIDIA data sheet and Hopper
 # white paper): HBM3 at 3.35 TB/s; INT32 at 64 lanes per SM x 132 SMs x
@@ -66,7 +79,9 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
 # The run's sizes: subscriptions per corpus, the kernel-check batch (not a
-# bucket size, so pad rows ride along), the service requests, the
+# bucket size, so pad rows ride along), the largest synthetic edge batch of
+# the signature kernel (a full block shape, no multiple of it), the service
+# requests, the
 # warm-up topics sent before them, the headline batch, the signature
 # headline's batch count and how many of them warm up (the pipeline and
 # the decode's row memo) untimed, and the dense_2k generator's arguments.
@@ -78,6 +93,7 @@ SIZES = {"subs": {"mixed_100k": 100_000, "hash_plus_100k": 100_000,
          "headline_batch": 262_144,
          "headline_batches": 4,
          "headline_warm": 2,
+         "edge_batch": 70_001,
          "dense_corpus": {"n_filters": 2_000, "n_subs": 100_000,
                           "width": 440}}
 # engine counters of topics NOT served by the device path, per engine
@@ -95,7 +111,12 @@ DENSE_MAX_LEVELS = 16
 #   a staged exact mask, the at-end test being per level);
 # - a level a topic walks: the token's sign test ('+' on), the '$' guard
 #   and the at-end test.
-DENSE_OPS = {"slot": 4, "emit_slot": 1, "level": 3}
+# - a nonzero row word of a topic: its rank in the extract (the words
+#   themselves are written as bytes).
+DENSE_OPS = {"slot": 4, "emit_slot": 1, "level": 3, "nz_word": 1}
+# the service's micro-batch (MicroBatcher's largest batch): each kernel is
+# also timed at this size
+SERVICE_BATCH = 256
 KERNELS = {
     "sig_match_fixed": {
         "name": "sig_match_fixed", "route": "cuda",
@@ -106,7 +127,9 @@ KERNELS = {
     "dense_walk_words": {
         "name": "dense_walk_words", "route": "cuda",
         "source": "maxmq_tpu_torch/csrc/dense_walk.cu",
-        "replaces": "maxmq_tpu/matching/pallas_kernel.py:119 _make_kernel"},
+        "replaces": ("maxmq_tpu/matching/pallas_kernel.py:119 _make_kernel "
+                     "(and the pack and top_k extract after it, "
+                     "maxmq_tpu/matching/dense.py:216-246)")},
 }
 
 
@@ -197,6 +220,62 @@ def build_dense_corpus(n_filters=2000, n_subs=100_000, width=440, seed=42,
     return subs, topics
 
 
+def synthetic_sig(seed: int, batch: int, n32: int, n16: int,
+                  mode: str = "mixed", max_rows: int = 6):
+    """``sig_match_fixed`` operands as numpy arrays (int32 carrying
+    uint32 bits): (sig [batch, G], too_deep [batch], grp_of_word, planes32
+    [32, n32 + n16] of which the kernel gets the first n32 columns — a
+    strided view, as the engine's — and planes16 [16, n16]). Groups are
+    runs of 1-40 words, the 32-bit region's groups first. Signatures and
+    in-alphabet plane values come from a 16-value alphabet (16-bit groups
+    lane-replicated), so words hit with multi-bit words and the packed
+    compare's fake high-lane bit among them; a topic expects about
+    max_rows nonzero words, and 5 % of the topics are too deep. ``mode``
+    "overflow" makes every topic's first 32 words nonzero: every topic
+    overflows in the first word tile."""
+    rng = np.random.default_rng(seed)
+    alpha = 16
+
+    def runs(n):
+        sizes = []
+        while sum(sizes) < n:
+            sizes.append(int(rng.integers(1, 41)))
+        if sizes:
+            sizes[-1] -= sum(sizes) - n
+        return [z for z in sizes if z > 0]
+
+    g32, g16 = runs(n32), runs(n16)
+    if mode == "overflow":           # one leading group over the first tile
+        first = g32 if n32 else g16
+        while len(first) > 1 and first[0] < 32:
+            first[0] += first.pop(1)
+    n_words = n32 + n16
+    grp = np.repeat(np.arange(len(g32) + len(g16), dtype=np.int32),
+                    g32 + g16)
+    rep = rng.integers(0, alpha, (batch, len(g32) + len(g16)),
+                       dtype=np.uint32)
+    sig = rep.copy()
+    sig[:, len(g32):] |= rep[:, len(g32):] << np.uint32(16)
+    q = max_rows / max(32 * n_words, 1) * alpha * 0.7
+
+    def values(shape):
+        inside = rng.random(shape) < q
+        return np.where(inside, rng.integers(0, alpha, shape),
+                        rng.integers(alpha, 1 << 16, shape)).astype(np.uint32)
+
+    planes32 = values((32, n_words))
+    planes16 = values((16, n16)) | (values((16, n16)) << np.uint32(16))
+    if mode == "overflow":
+        sig[:, 0] = rep[:, 0] = 7 if n32 else 7 | (7 << 16)
+        if n32:
+            planes32[0, :32] = 7
+        else:
+            planes16[0, :32] = (planes16[0, :32] & 0xFFFF0000) | 7
+    too_deep = (rng.random(batch) < 0.05).astype(np.uint8)
+    return (sig.view(np.int32), too_deep, grp,
+            planes32.view(np.int32), planes16.view(np.int32))
+
+
 def normalize(ss):
     """Comparable form of a SubscriberSet."""
     subs = {cid: (s.qos, tuple(sorted(s.identifiers.items())))
@@ -210,6 +289,85 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=30, check=True).stdout.strip()
+
+
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                       r"([A-Z][A-Z0-9_.]*)([^;]*);")
+SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+SASS_TARGET = re.compile(r"(\.L_x_\d+)|(0x[0-9a-f]+)")
+
+
+def sass_loops(text: str) -> dict:
+    """Per kernel function of a ``cuobjdump -sass`` listing: its
+    instruction count and its innermost loops (a backward branch whose
+    range holds no other backward branch), each with its instruction
+    count and opcode counts (opcode = the mnemonic before its first
+    dot)."""
+    funcs, name, instrs, labels = {}, None, [], {}
+
+    def finish():
+        if name is None:
+            return
+        branches = []
+        for i, (addr, op, rest) in enumerate(instrs):
+            if op.split(".")[0] != "BRA":
+                continue
+            m = SASS_TARGET.search(rest)
+            if not m:
+                continue
+            target = labels.get(m.group(1)) if m.group(1) else int(m.group(2),
+                                                                  16)
+            if target is not None and target < addr:
+                branches.append((target, addr))
+        inner = [b for b in branches
+                 if not any(o != b and b[0] <= o[0] and o[1] <= b[1]
+                            for o in branches)]
+        loops = []
+        for lo, hi in sorted(set(inner)):
+            ops = {}
+            body = [op for addr, op, _r in instrs if lo <= addr <= hi]
+            for op in body:
+                base = op.split(".")[0]
+                ops[base] = ops.get(base, 0) + 1
+            loops.append({"start": hex(lo), "end": hex(hi), "n": len(body),
+                          "ops": dict(sorted(ops.items(),
+                                             key=lambda kv: -kv[1]))})
+        funcs[name] = {"instructions": len(instrs), "inner_loops": loops}
+
+    pending = []
+    for line in text.splitlines():
+        if "Function :" in line:
+            finish()
+            name, instrs, labels, pending = line.split(":", 1)[1].strip(), \
+                [], {}, []
+            continue
+        lab = SASS_LABEL.match(line)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        m = SASS_LINE.search(line)
+        if m and name is not None:
+            addr = int(m.group(1), 16)
+            for label in pending:
+                labels[label] = addr
+            pending = []
+            instrs.append((addr, m.group(2), m.group(3)))
+    finish()
+    return funcs
+
+
+def kernel_sass(name: str) -> dict:
+    """``sass_loops`` of one built kernel library, or {} where the
+    toolkit has no ``cuobjdump``."""
+    from maxmq_tpu_torch import kernels
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    proc = subprocess.run([tool, "-sass", str(kernels.library_path(name))],
+                          capture_output=True, text=True, timeout=120)
+    return sass_loops(proc.stdout) if proc.returncode == 0 else {}
 
 
 class Smoke:
@@ -233,6 +391,15 @@ class Smoke:
         self.dense_eng = None
         self.record = {"max_abs_err": 0, "bit_equal": True}
         self.dense_record = {"max_abs_err": 0, "bit_equal": True}
+
+    def sm_count(self) -> int:
+        """SMs of the card (the launch shapes' input); 132 when rehearsing
+        on the CPU, the H100's count."""
+        if self.device.type != "cuda":
+            return 132
+        from maxmq_tpu_torch import kernels
+
+        return kernels.sm_count(self.device)
 
     def sync(self) -> None:
         if self.device.type == "cuda":
@@ -367,6 +534,48 @@ class Smoke:
             raise AssertionError(f"{name}: {out['launches']} launches for "
                                  "two widths")
         log(f"[kernel] {name}: {json.dumps(out)}")
+        return out
+
+    def sig_edges(self) -> dict:
+        """The kernel against its plain version on synthetic operands at
+        the design's edges (``synthetic_sig``); batch sizes that are no
+        multiple of a block's topics, one large enough for the full
+        block shape."""
+        sk, torch = self.sig_kernel, self.torch
+        cases = (("overflow_first_tile", 1037, 200, 100, "overflow", 6),
+                 ("overflow_first_tile_16", 1037, 0, 300, "overflow", 6),
+                 ("no_16bit_words", 1037, 400, 0, "mixed", 14),
+                 ("no_32bit_words", 1037, 0, 500, "mixed", 6),
+                 ("mixed", self.sizes["edge_batch"], 300, 200, "mixed", 7))
+        out = {}
+        launches0 = sk.sig_match_fixed.launches
+        for i, (name, batch, n32, n16, mode, mr) in enumerate(cases):
+            sig, deep, grp, p32, p16 = (
+                torch.from_numpy(a).to(self.device)
+                for a in synthetic_sig(100 + i, batch, n32, n16, mode, mr))
+            p32 = p32[:, :n32]
+            got = sk.sig_match_fixed(sig, deep, grp, p32, p16, mr)
+            want = sk.sig_match_fixed_plain(sig, deep, grp, p32, p16, mr)
+            equal, err, total = self.sig_compare(got, want, batch, mr)
+            over = int((want[0] == 0xFF).sum())
+            out[name] = {"batch": batch, "n_words32": n32, "n_words16": n16,
+                         "max_rows": mr, "stream_rows": total,
+                         "overflow_topics": over, "bit_equal": equal,
+                         "max_abs_err": err}
+            if not equal:
+                raise AssertionError(f"sig edge {name}: kernel disagrees "
+                                     f"with its plain version: {out[name]}")
+            if mode == "overflow" and over != batch:
+                raise AssertionError(f"sig edge {name}: {over} of {batch} "
+                                     "topics overflowed")
+            if mode == "mixed" and not (0 < over < batch and total):
+                raise AssertionError(f"sig edge {name}: no mix of matches "
+                                     f"and overflows: {out[name]}")
+        out["launches"] = sk.sig_match_fixed.launches - launches0
+        if self.device.type == "cuda" and out["launches"] != len(cases):
+            raise AssertionError(f"sig edges: {out['launches']} launches "
+                                 f"for {len(cases)} cases")
+        log(f"[kernel] edges: {json.dumps(out)}")
         return out
 
     # -- phase 3 -------------------------------------------------------
@@ -564,8 +773,12 @@ class Smoke:
             raise AssertionError(f"{name} headline batch: kernel disagrees "
                                  f"with its plain version (max_abs_err "
                                  f"{err})")
+        small = self.time_ms(lambda: sk.sig_match_fixed(
+            sig[:SERVICE_BATCH], deep[:SERVICE_BATCH], dev["grp_of_word"],
+            p32, p16, mr), 20)
         b = sig.shape[0]
         n32, n16 = kplan["n_words32"], kplan["n_words16"]
+        sms = self.sm_count()
         ops = b * (32 * n32 + 16 * n16)
         nbytes = (sig.numel() * 4 + deep.numel() + (n32 + n16) * 4
                   + (32 * n32 + 16 * n16) * 4 + b + b * mr * 4)
@@ -587,6 +800,10 @@ class Smoke:
             "pipelined_topics_per_s": timed_topics / (t_last - t_first),
             "kernel_ms": kernel_ms,
             "kernel_topics_per_s": b / (kernel_ms / 1e3),
+            "kernel_ms_256": small,
+            "launch_shape": sk.launch_shape(b, sms),
+            "launch_shape_256": sk.launch_shape(SERVICE_BATCH, sms),
+            "plane_bytes_at_most": sk.plane_bytes(b, kplan, sms),
             "plain_ms": plain_ms, "bit_equal": equal, "max_abs_err": err,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -674,36 +891,58 @@ class Smoke:
             matcher = dk.KernelMatcher(tables, DENSE_MAX_LEVELS,
                                        device=self.device)
             args = self.dense_inputs(tables, batch)
-            got = dk.dense_walk_words(*args, matcher.kt, matcher.n_words)
-            want = dk.dense_walk_words_plain(*args, matcher.kt,
-                                             matcher.n_words)
-            self.sync()
-            err = int((got.to(torch.int64) - want.to(torch.int64))
-                      .abs().max())
-            equal = torch.equal(got, want)
-            rec = self.dense_record
-            rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            rec["bit_equal"] &= equal
+            row_words = (matcher.pt.n_rows + 31) // 32
             out[name] = {"batch": len(batch), "bucket": args[0].shape[0],
                          "slots": matcher.pt.slots,
                          "n_levels": matcher.pt.n_levels,
-                         "n_rows": matcher.pt.n_rows,
-                         "n_words": matcher.n_words,
-                         "matching_topics": int((want != 0).any(dim=1)
-                                                .sum()),
-                         "bit_equal": equal, "max_abs_err": err}
-            if not equal:
-                raise AssertionError(f"dense {name}: kernel disagrees with "
-                                     f"its plain version: {out[name]}")
+                         "n_rows": matcher.pt.n_rows, "row_words": row_words}
+            for mw in (32, 1, 100):
+                got = dk.dense_walk_words(*args, matcher.kt, mw)
+                want = dk.dense_walk_words_plain(*args, matcher.kt, mw)
+                equal, err = self.dense_compare(got, want)
+                n_over = int(want[2].sum())
+                out[name][f"max_words_{mw}"] = {
+                    "matching_topics": int((want[0][:, 0] >= 0).sum()),
+                    "overflow_topics": n_over,
+                    "bit_equal": equal, "max_abs_err": err}
+                if not equal:
+                    raise AssertionError(
+                        f"dense {name} max_words {mw}: kernel disagrees "
+                        f"with its plain version: {out[name]}")
+            # on dense_2k, max_words 1 must overflow topics that have
+            # nonzero words beyond the first (not only the too-deep one)
+            if name == "dense_2k" and (
+                    out[name]["max_words_1"]["overflow_topics"]
+                    <= out[name]["max_words_32"]["overflow_topics"]):
+                raise AssertionError(f"dense {name}: max_words 1 overflowed "
+                                     "no topic with several words")
         if out["narrow"]["slots"] % 128 == 0:
             raise AssertionError("the narrow table must have slots that are "
                                  "not a multiple of 128")
+        if min(out[n]["row_words"] for n in out) < 2:
+            # max_words 1 falls below every table's words, 100 above
+            raise AssertionError("each table needs more than one row word")
         out["launches"] = dk.dense_walk_words.launches - launches0
-        if self.device.type == "cuda" and out["launches"] != 2:
+        if self.device.type == "cuda" and out["launches"] != 6:
             raise AssertionError(f"dense: {out['launches']} launches for "
-                                 "two checks")
+                                 "six checks")
         log(f"[dense-kernel] {json.dumps(out)}")
         return out
+
+    def dense_compare(self, got, want):
+        """``dense_walk_words``' (word_idx, word_val, overflow) against its
+        plain version's, bit for bit. Folds the result into
+        ``self.dense_record``; returns (bit_equal, max_abs_err)."""
+        torch = self.torch
+        self.sync()
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  if g.numel() else 0 for g, w in zip(got, want))
+        equal = all(g.shape == w.shape and torch.equal(g, w)
+                    for g, w in zip(got, want))
+        rec = self.dense_record
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["bit_equal"] &= equal
+        return equal, err
 
     async def dense_service_path(self) -> dict:
         from maxmq_tpu_torch.matching.batcher import MicroBatcher
@@ -767,24 +1006,34 @@ class Smoke:
         return out
 
     def dense_walk_work(self, kt: dict, toks, lengths, dollar) -> dict:
-        """The work the walk must do on this batch, counted in the units
-        of ``DENSE_OPS``: the levels each topic walks (every topic walks
-        level 0, and a deeper level while its state after the level
-        before is not empty: the kernel stops a topic at its first empty
-        level), and those levels' real slots and emitter slots."""
+        """The work the walk and its extract must do on this batch,
+        counted in the units of ``DENSE_OPS``: the levels each topic walks
+        (every topic walks level 0, and a deeper level while its state
+        after the level before is not empty: nothing deeper can match),
+        those levels' real slots and emitter slots, and the topics'
+        nonzero row words."""
         from maxmq_tpu_torch.matching.dense import walk_step
 
         torch = self.torch
         parent_idx = kt["parent_idx"].to(torch.int64)
         work = dict.fromkeys(DENSE_OPS, 0)
+        # not work the function needs: the slot visits of the kernel's
+        # lanes (a warp walks a level while any of its 32 topics is active)
+        work["warp_slot_lanes"] = 0
         for a in range(0, toks.shape[0], 16384):
             t, dol = toks[a:a + 16384], dollar[a:a + 16384]
             n = t.shape[0]
             s = torch.ones((n, kt["slots"]), dtype=torch.bool,
                            device=t.device)
             active = torch.ones(n, dtype=torch.bool, device=t.device)
+            warps = -(-n // 32)
             for lvl in range(kt["n_levels"]):
                 walking = int(active.sum())
+                lanes = torch.zeros(warps * 32, dtype=torch.bool,
+                                    device=t.device)
+                lanes[:n] = active
+                work["warp_slot_lanes"] += (int(lanes.view(warps, 32).any(
+                    dim=1).sum()) * 32 * kt["width"][lvl])
                 work["level"] += walking
                 work["slot"] += walking * kt["width"][lvl]
                 work["emit_slot"] += walking * kt["n_emit"][lvl]
@@ -794,7 +1043,19 @@ class Smoke:
                 s = walk_step(s, parent_idx[lvl], tok, kt["child_tok"][lvl],
                               dol if lvl == 0 else None)
                 active = active & s.any(dim=1)
+        words = self.dense_kernel.walk_packed_plain(
+            toks, lengths, dollar, kt, max((kt["n_rows"] + 31) // 32, 1))
+        work["nz_word"] = int((words != 0).sum())
         return work
+
+    def dense_blocks(self, kt: dict, batch: int):
+        """Blocks of one kernel launch on the card (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        from maxmq_tpu_torch import kernels
+
+        return kernels.library("dense_walk").dense_walk_blocks(
+            kt["n_levels"], kt["slots"], batch)
 
     def dense_headline(self) -> dict:
         from maxmq_tpu_torch.matching.dense import (dense_arrays,
@@ -859,25 +1120,21 @@ class Smoke:
                 raise AssertionError(f"dense_2k: wrong answer for "
                                      f"{topics[j]!r}")
 
-        # kernel alone, kernel + extract, its plain version, the walk and
-        # the bound, on batch 0
+        # the kernel (on the batch and on the service's 256 topics), its
+        # plain version, the walk and the bound, on batch 0
         args = self.dense_inputs(tables, batches[0])
-        kt, n_words = program.kt, program.n_words
+        kt, mw = program.kt, program.max_words
         kernel_ms = self.time_ms(
-            lambda: dk.dense_walk_words(*args, kt, n_words), 20)
-        words = dk.dense_walk_words(*args, kt, n_words)
-        kernel_extract_ms = self.time_ms(lambda: program(*args), 20)
+            lambda: dk.dense_walk_words(*args, kt, mw), 20)
+        small = [a[:SERVICE_BATCH] for a in args]
+        kernel_ms_256 = self.time_ms(
+            lambda: dk.dense_walk_words(*small, kt, mw), 20)
+        got = dk.dense_walk_words(*args, kt, mw)
         plain = []
         plain_ms = self.time_ms(lambda: plain.append(
-            dk.dense_walk_words_plain(*args, kt, n_words)), 1)
-        self.sync()
-        equal = torch.equal(words, plain[-1])
-        err = int((words.to(torch.int64) - plain[-1].to(torch.int64))
-                  .abs().max())
+            dk.dense_walk_words_plain(*args, kt, mw)), 1)
+        equal, err = self.dense_compare(got, plain[-1])
         del plain
-        rec = self.dense_record
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        rec["bit_equal"] &= equal
         if not equal:
             raise AssertionError(f"dense_2k headline batch: kernel disagrees "
                                  f"with its plain version (max_abs_err "
@@ -889,9 +1146,16 @@ class Smoke:
         bucket, n_cols = args[0].shape
         work = self.dense_walk_work(kt, *args)
         ops = sum(DENSE_OPS[k] * work[k] for k in DENSE_OPS)
+        # the tables as the function needs them: 9 bytes a slot (token,
+        # parent, exact flag) and the per-level sizes
         table_bytes = kt["n_levels"] * kt["slots"] * 9 + kt["meta"].numel() * 4
         nbytes = (bucket * min(kt["n_levels"], n_cols) * 4 + bucket * 5
-                  + table_bytes + bucket * n_words * 4)
+                  + table_bytes + bucket * (mw * 8 + 1))
+        # what the kernel stages: each block copies the slot entries and
+        # chunk masks into shared memory once
+        staged = (kt["slot_tab"].numel() + kt["chunk_masks"].numel()
+                  + kt["meta"].numel()) * 4
+        blocks = self.dense_blocks(kt, bucket)
         t_ops = ops / INT32_OPS_PER_S * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         timed_topics = batch * len(times["decode"])
@@ -899,7 +1163,7 @@ class Smoke:
             "subs": index.subscription_count, "batch": batch,
             "bucket": bucket, "n_rows": tables.n_rows,
             "slots": kt["slots"], "level_widths": kt["width"],
-            "n_words": n_words, "launches": launches,
+            "max_words": mw, "launches": launches,
             "host_prep_topics_per_s": batch / statistics.mean(times["prep"]),
             "extract_fetch_topics_per_s": batch / statistics.mean(
                 times["fetch"]),
@@ -907,14 +1171,17 @@ class Smoke:
             "pipelined_topics_per_s": timed_topics / (t_last - t_first),
             "kernel_ms": kernel_ms,
             "kernel_topics_per_s": bucket / (kernel_ms / 1e3),
-            "kernel_extract_ms": kernel_extract_ms,
+            "kernel_ms_256": kernel_ms_256,
+            "table_bytes_staged_per_block": staged, "blocks": blocks,
+            "table_bytes": staged * blocks if blocks else None,
             "plain_ms": plain_ms, "walk_ms": walk_ms,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "bound_ops_ms": t_ops, "bound_bytes_ms": t_bytes,
             "walk_work": work, "int32_ops": ops, "bytes": nbytes,
             "bit_equal": equal, "max_abs_err": err,
-            "matching_topics": int((words[:batch] != 0).any(dim=1).sum()),
+            "matching_topics": int((got[0][:batch, 0] >= 0).sum()),
+            "overflow_topics": int(got[2][:batch].sum()),
             "subscribers_per_topic": per_topic,
             "library_ms": None,    # no single PyTorch call computes this
             **d,
@@ -939,6 +1206,7 @@ class Smoke:
         log(f"[kernel] hash_plus_100k device groups: "
             f"{checks['hash_plus_100k']['groups']} (> 40: the TPU's MXU "
             "expansion regime)")
+        self.sig_edges()
         service = asyncio.run(self.service_path())
         heads = {name: self.headline(name)
                  for name in ("iot_1m_share", "mixed_100k")}
@@ -955,9 +1223,10 @@ class Smoke:
                    bound_ms=h["bound_ms"], bound_by=h["bound_by"],
                    library_ms=None, bit_equal=self.record["bit_equal"],
                    shape=f"iot_1m_share batch {h['bucket']}",
+                   ms_256=h["kernel_ms_256"],
                    headline={k: {f: v[f] for f in
-                                 ("kernel_ms", "plain_ms", "bound_ms",
-                                  "bound_by", "launches")}
+                                 ("kernel_ms", "kernel_ms_256", "plain_ms",
+                                  "bound_ms", "bound_by", "launches")}
                              for k, v in heads.items()})
         dense = dict(KERNELS["dense_walk_words"],
                      launches=dense_service["launches"],
@@ -967,8 +1236,7 @@ class Smoke:
                      library_ms=None,
                      bit_equal=self.dense_record["bit_equal"],
                      shape=f"dense_2k batch {dh['bucket']}",
-                     walk_ms=dh["walk_ms"],
-                     kernel_extract_ms=dh["kernel_extract_ms"],
+                     walk_ms=dh["walk_ms"], ms_256=dh["kernel_ms_256"],
                      headline_launches=dh["launches"])
         return {"kernels": [sig, dense]}
 
@@ -1004,6 +1272,13 @@ def main() -> int:
             f"(cached={rec['cached']})")
         for line in rec["ptxas"].splitlines():
             log(f"[build]   {line.strip()}")
+
+    for name in kernels.SIGNATURES:
+        for fn, rec in kernel_sass(name).items():
+            log(f"[sass] {name}.cu {fn}: {rec['instructions']} instructions")
+            for loop in rec["inner_loops"]:
+                log(f"[sass]   inner loop {loop['start']}-{loop['end']}: "
+                    f"{loop['n']} instructions {json.dumps(loop['ops'])}")
 
     result = Smoke("cuda").run()
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

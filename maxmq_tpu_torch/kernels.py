@@ -37,20 +37,22 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "sig_match": {
         "sig_match_fixed_launch": (
-            _I, [_P, _I, _P, _P, _P, _LL, _I, _P, _LL, _I, _I, _I, _P, _P,
-                 _P]),
+            _I, [_P, _I, _P, _P, _P, _LL, _I, _P, _LL, _I, _I, _I, _I, _I,
+                 _P, _P, _P]),
         "sig_match_error_string": (ctypes.c_char_p, [_I]),
     },
     "dense_walk": {
         "dense_walk_launch": (
-            _I, [_P, _LL, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+            _I, [_P, _LL, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                  _P, _P]),
+        "dense_walk_blocks": (_I, [_I, _I, _I]),
         "dense_walk_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_sms: dict[int, int] = {}
 # per-source build record of the last build in this process: seconds and
 # the ptxas resource summary (registers, shared memory, spills)
 build_log: dict[str, dict] = {}
@@ -114,6 +116,25 @@ def build_all() -> dict[str, ctypes.CDLL]:
             for name, path in zip(todo, paths):
                 _libs[name] = _load(name, path)
         return dict(_libs)
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (launch shapes)."""
+    import torch
+
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    count = _sms.get(index)
+    if count is None:
+        count = _sms[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return count
+
+
+def library_path(name: str) -> Path:
+    """The shared library that ``csrc/<name>.cu`` builds to (built or
+    not)."""
+    return _target(name)
 
 
 def library(name: str) -> ctypes.CDLL:

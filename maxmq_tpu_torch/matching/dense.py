@@ -20,9 +20,10 @@ Counterpart of the JAX package's ``matching/dense.py``:
   over nonzero word indices — a few int32s per topic.
 
 Two device programs compute the same words: the walk in torch ops
-(``dense_match_body``, the reference's XLA walk) and the hand-written CUDA
-kernel ``dense_walk_words`` (``dense_kernel``, the port of the Pallas
-kernel K4) followed by the same sparse extract.
+(``dense_match_body``, the reference's XLA walk, then this sparse
+extract) and the hand-written CUDA kernel ``dense_walk_words``
+(``dense_kernel``, the port of the Pallas kernel K4), which does the
+walk, the pack and the extract in one launch.
 
 Unlike the reference, the engine takes no ``use_pallas`` option: it
 serves from the kernel whenever the compiled tables fit its capacity
@@ -284,7 +285,7 @@ def pack_and_extract(matched, lengths, n_rows: int, max_words: int):
 
 
 def extract_nonzero_words(words, lengths, max_words: int):
-    """Sparse tail shared by the walk and the kernel: pick the
+    """Sparse tail of the walk and of the kernel's plain version: pick the
     ≤max_words nonzero words of ``words`` int32[B, W] (uint32 bits) in
     ascending word order."""
     nz = words != 0

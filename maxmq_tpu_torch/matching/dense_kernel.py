@@ -1,15 +1,19 @@
-"""K4 on Hopper: the dense trie walk as one hand-written CUDA kernel
-(``csrc/dense_walk.cu``), its plain version, and the matcher around it.
+"""K4 on Hopper: the dense trie walk, the pack of its matched rows into
+words and the sparse extract of the nonzero words, as one hand-written
+CUDA kernel (``csrc/dense_walk.cu``), its plain version, and the matcher
+around it.
 
 Counterpart of the JAX package's ``matching/pallas_kernel.py``. The
 Pallas kernel kept the whole L-level walk in VMEM and read each slot's
 parent state through a one-hot expansion matmul ``s @ E_l`` on the MXU,
 the TPU's way around a gather; its [B, R] matched-row output was packed
-to words by an XLA step after it. On this card the parent read is what
-it is, a gather: the staged tables carry ``parent_idx int32[L, S]``
-instead of ``expand [L, S, S]``, and the kernel writes the packed words
-itself (bit r of word w = row 32w + r), so only the sparse extract
-(``dense.extract_nonzero_words``) follows it.
+to words and its nonzero words extracted (``top_k``) by XLA steps after
+it. On this card the parent read is what it is, a gather: the staged
+tables carry ``parent_idx int32[L, S]`` instead of ``expand [L, S, S]``
+(and for the kernel each slot's parent pre-split into a word offset and a
+bit mask), and the kernel streams each topic's nonzero words straight to
+the (word_idx, word_val, overflow) result: the [B, n_words] word matrix
+is never written.
 
 ``fits()`` and its limits are the reference's, unchanged: the capacity
 gate decides which route a ``DenseEngine`` serves.
@@ -30,8 +34,8 @@ import numpy as np
 import torch
 
 from .. import faults, kernels
-from .dense import (DenseTables, dense_arrays, extract_nonzero_words,
-                    pack_words, walk_step)
+from .dense import (HASH, PLUS, DenseTables, dense_arrays,
+                    extract_nonzero_words, pack_words, walk_step)
 from .sig import resolve_device
 
 NEVER = -5            # child_tok value for padding slots: matches nothing
@@ -116,14 +120,55 @@ def stage(arrays: dict, slots: int | None = None,
                         n_levels=n_levels, slots=slots)
 
 
+def slot_entries(pt: StagedTables) -> np.ndarray:
+    """int32[L, S, 4]: the kernel's per-slot entry {child_tok, byte offset
+    of the parent's state word, parent bit mask (uint32 bits), 0}. A
+    topic's state word w sits at [w][lane] of its warp's state buffer,
+    128 bytes a word."""
+    par = pt.parent_idx.astype(np.int64)
+    out = np.zeros((pt.n_levels, pt.slots, 4), dtype=np.int32)
+    out[..., 0] = pt.child_tok
+    out[..., 1] = (par >> 5) * 128
+    out[..., 2] = (np.uint32(1) << (par & 31).astype(np.uint32)).view(
+        np.int32)
+    return out
+
+
+def chunk_masks(pt: StagedTables) -> np.ndarray:
+    """int32[L, S // 32, 4] (uint32 bits): per 32-slot chunk the bits of
+    its '+' slots, its '#' slots and its at_end-gated emitter slots, then
+    0 (bit i = slot 32c + i)."""
+    n_chunks = -(-pt.slots // 32)
+    ex = np.zeros((pt.n_levels, n_chunks * 32), dtype=bool)
+    for l, t in enumerate(pt.n_emit):
+        ex[l, :t] = pt.emit_exact[l, :t] != 0
+    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
+
+    def pack(bits):
+        return (bits.reshape(pt.n_levels, n_chunks, 32).astype(np.uint64)
+                * weights).sum(axis=2).astype(np.uint32)
+
+    ct = np.full((pt.n_levels, n_chunks * 32), NEVER, dtype=np.int32)
+    ct[:, :pt.slots] = pt.child_tok
+    out = np.zeros((pt.n_levels, n_chunks, 4), dtype=np.uint32)
+    out[..., 0] = pack(ct == PLUS)
+    out[..., 1] = pack(ct == HASH)
+    out[..., 2] = pack(ex)
+    return out.view(np.int32)
+
+
 def device_stage(pt: StagedTables, device) -> dict:
-    """The kernel's table operands on ``device``: ``child_tok`` and
-    ``parent_idx`` int32[L, S], ``emit_exact`` uint8[L, S], ``meta``
-    int32[3, L] (width, n_emit, emit_base per level), and the same
-    per-level lists and sizes as Python values for the plain version."""
+    """The kernel's table operands on ``device``: ``slot_tab`` int32[L, S,
+    4] (``slot_entries``), ``chunk_masks`` int32[L, S // 32, 4]
+    (``chunk_masks``), ``meta`` int32[3, L] (width, n_emit, emit_base per
+    level); the plain version's ``child_tok`` and ``parent_idx`` int32[L,
+    S] and ``emit_exact`` uint8[L, S]; and the per-level lists and sizes
+    as Python values."""
     dev = torch.device(device)
     meta = np.asarray([pt.width, pt.n_emit, pt.emit_base], dtype=np.int32)
     return {
+        "slot_tab": torch.from_numpy(slot_entries(pt)).to(dev),
+        "chunk_masks": torch.from_numpy(chunk_masks(pt)).to(dev),
         "child_tok": torch.from_numpy(pt.child_tok).to(dev),
         "parent_idx": torch.from_numpy(pt.parent_idx).to(dev),
         "emit_exact": torch.from_numpy(pt.emit_exact).to(dev),
@@ -134,11 +179,11 @@ def device_stage(pt: StagedTables, device) -> dict:
     }
 
 
-def dense_walk_words_plain(toks, lengths, dollar, kt: dict,
-                           n_words: int) -> torch.Tensor:
-    """The kernel's function in torch ops: the walk over the staged
-    tables, emitted rows packed to int32[B, n_words] words (uint32 bits).
-    Works on slices of ``PLAIN_SLICE`` topics."""
+def walk_packed_plain(toks, lengths, dollar, kt: dict,
+                      n_words: int) -> torch.Tensor:
+    """The walk over the staged tables in torch ops, emitted rows packed
+    to int32[B, n_words] words (uint32 bits; bit r of word w = row 32w +
+    r). Works on slices of ``PLAIN_SLICE`` topics."""
     batch, n_cols = toks.shape
     dev = toks.device
     out = torch.empty((batch, n_words), dtype=torch.int32, device=dev)
@@ -166,11 +211,24 @@ def dense_walk_words_plain(toks, lengths, dollar, kt: dict,
     return out
 
 
-def _check_operands(toks, lengths, dollar, kt: dict, n_words: int) -> None:
+def dense_walk_words_plain(toks, lengths, dollar, kt: dict,
+                           max_words: int):
+    """The kernel's function in torch ops: the packed walk, then the
+    sparse extract (``dense.extract_nonzero_words``). Returns (word_idx
+    int32[B, max_words], word_val int32[B, max_words], overflow
+    bool[B])."""
+    n_words = max((kt["n_rows"] + 31) // 32, 1)
+    words = walk_packed_plain(toks, lengths, dollar, kt, n_words)
+    return extract_nonzero_words(words, lengths, max_words)
+
+
+def _check_operands(toks, lengths, dollar, kt: dict, max_words: int) -> None:
     dev = toks.device
     for name, t, dtype in (("toks", toks, torch.int32),
                            ("lengths", lengths, torch.int32),
                            ("dollar", dollar, torch.bool),
+                           ("slot_tab", kt["slot_tab"], torch.int32),
+                           ("chunk_masks", kt["chunk_masks"], torch.int32),
                            ("child_tok", kt["child_tok"], torch.int32),
                            ("parent_idx", kt["parent_idx"], torch.int32),
                            ("emit_exact", kt["emit_exact"], torch.uint8),
@@ -187,26 +245,31 @@ def _check_operands(toks, lengths, dollar, kt: dict, n_words: int) -> None:
         if t.shape != (batch,) or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous [batch] tensor")
     n_levels, slots = kt["n_levels"], kt["slots"]
-    for name in ("child_tok", "parent_idx", "emit_exact"):
+    for name, shape in (("child_tok", (n_levels, slots)),
+                        ("parent_idx", (n_levels, slots)),
+                        ("emit_exact", (n_levels, slots)),
+                        ("slot_tab", (n_levels, slots, 4)),
+                        ("chunk_masks", (n_levels, slots // SLOT_ALIGN, 4)),
+                        ("meta", (3, n_levels))):
         t = kt[name]
-        if t.shape != (n_levels, slots) or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous "
-                             f"[{n_levels}, {slots}] tensor")
-    if kt["meta"].shape != (3, n_levels) or not kt["meta"].is_contiguous():
-        raise ValueError(f"meta must be a contiguous [3, {n_levels}] tensor")
+        if t.shape != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {list(shape)} "
+                             "tensor")
     if slots % SLOT_ALIGN or not 0 < slots <= MAX_SLOTS:
         raise ValueError(f"slots must be a multiple of {SLOT_ALIGN} in "
                          f"(0, {MAX_SLOTS}]")
     if not 0 <= kt["n_rows"] <= MAX_ROWS:
         raise ValueError(f"n_rows must be in [0, {MAX_ROWS}]")
-    if n_words * 32 < kt["n_rows"]:
-        raise ValueError("n_words must hold every row")
+    if max_words < 1:
+        raise ValueError("max_words must be at least 1")
 
 
-def dense_walk_words(toks, lengths, dollar, kt: dict,
-                     n_words: int) -> torch.Tensor:
-    """Dense walk of one batch to packed words: int32[B, n_words]
-    carrying uint32 words, bit r of word w = row 32w + r.
+def dense_walk_words(toks, lengths, dollar, kt: dict, max_words: int):
+    """Dense match of one batch to its sparse words: (word_idx int32[B,
+    max_words], word_val int32[B, max_words] carrying uint32 bits,
+    overflow bool[B]) — the first ``max_words`` nonzero words of each
+    topic in ascending index (bit r of word w = row 32w + r; -1 / 0
+    past them) and ``lengths < 0 | more than max_words nonzero words``.
 
     ``toks`` int32[B, Lt] (-1 padded; level l >= Lt reads -1, the
     trailing pad column that gives '#' its parent match at the last
@@ -216,30 +279,32 @@ def dense_walk_words(toks, lengths, dollar, kt: dict,
     A CUDA tensor launches the kernel on the current stream (and raises
     ``faults.DeviceMatchError`` when the launch fails); a CPU tensor runs
     the plain version."""
-    _check_operands(toks, lengths, dollar, kt, n_words)
+    _check_operands(toks, lengths, dollar, kt, max_words)
     if toks.device.type == "cpu":
-        return dense_walk_words_plain(toks, lengths, dollar, kt, n_words)
+        return dense_walk_words_plain(toks, lengths, dollar, kt, max_words)
     if toks.device.type != "cuda":
         raise ValueError(f"unsupported device {toks.device}")
     batch = toks.shape[0]
-    out = torch.empty((batch, n_words), dtype=torch.int32,
-                      device=toks.device)
+    word_idx = torch.empty((batch, max_words), dtype=torch.int32,
+                           device=toks.device)
+    word_val = torch.empty_like(word_idx)
+    overflow = torch.empty(batch, dtype=torch.bool, device=toks.device)
     lib = kernels.library("dense_walk")
     with torch.cuda.device(toks.device):
         stream = torch.cuda.current_stream(toks.device).cuda_stream
         rc = lib.dense_walk_launch(
             toks.data_ptr(), toks.stride(0), toks.shape[1],
             lengths.data_ptr(), dollar.data_ptr(),
-            kt["child_tok"].data_ptr(), kt["parent_idx"].data_ptr(),
-            kt["emit_exact"].data_ptr(), kt["meta"].data_ptr(),
-            kt["n_levels"], kt["slots"], batch, n_words,
-            (kt["n_rows"] + 31) // 32, out.data_ptr(), stream)
+            kt["slot_tab"].data_ptr(), kt["chunk_masks"].data_ptr(),
+            kt["meta"].data_ptr(), kt["n_levels"], kt["slots"], batch,
+            max_words, word_idx.data_ptr(), word_val.data_ptr(),
+            overflow.data_ptr(), stream)
     if rc != 0:
         msg = lib.dense_walk_error_string(rc).decode()
         raise faults.DeviceMatchError(
             f"dense_walk_words launch failed: {msg} ({rc})")
     dense_walk_words.launches += 1
-    return out
+    return word_idx, word_val, overflow
 
 
 dense_walk_words.launches = 0   # kernel launches (not plain-version calls)
@@ -263,13 +328,11 @@ class KernelMatcher:
         self.device = resolve_device(device)
         self.pt = stage(dense_arrays(tables), max_levels=max_levels)
         self.kt = device_stage(self.pt, self.device)
-        self.n_words = max((self.pt.n_rows + 31) // 32, max_words)
 
     def __call__(self, toks, lengths, dollar):
         dev = self.device
         toks = torch.as_tensor(toks).to(dev, torch.int32).contiguous()
         lengths = torch.as_tensor(lengths).to(dev, torch.int32).contiguous()
         dollar = torch.as_tensor(dollar).to(dev, torch.bool).contiguous()
-        words = dense_walk_words(toks, lengths, dollar, self.kt,
-                                 self.n_words)
-        return extract_nonzero_words(words, lengths, self.max_words)
+        return dense_walk_words(toks, lengths, dollar, self.kt,
+                                self.max_words)

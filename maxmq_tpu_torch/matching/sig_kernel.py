@@ -29,6 +29,7 @@ from .sig_torch import (MASK32, adjusted_signatures, fold16_replicated,
 PLAIN_SLICE = 8192   # topics per slice of the plain version: bounds its
                      # [slice, words] int64 intermediates (~200 MB each at
                      # 1M subscriptions)
+MAX_WARPS = 8        # warps per block of the kernel (csrc MAX_WARPS)
 
 
 def width16_mask(group_words, group_w16,
@@ -58,6 +59,33 @@ def plan(group_words, group_w16, force_width32: bool = False) -> dict:
             # the compare-bound side of the roofline: plane passes per
             # topic (the packed compare halves the 16-bit regions' count)
             "plane_passes_per_topic": 32 * n_words32 + 16 * n_words16}
+
+
+def launch_shape(batch: int, sms: int) -> tuple[int, int, int]:
+    """(topics per thread, lanes per topic, warps per block) of the kernel
+    for a batch on a card with ``sms`` SMs: two topics a thread with the
+    most warps (up to ``MAX_WARPS``) that still give every SM a block;
+    for batches too small for that, eight lanes a topic, with as many
+    warps a block as keeps every SM busy (one at the least). A block's
+    threads share each staged plane tile, so the plane table is read
+    once per block."""
+    for tpt, lpt in ((2, 1), (1, 8)):
+        warps = MAX_WARPS
+        while warps >= 1:
+            if -(-batch * lpt // (32 * tpt * warps)) >= sms:
+                return tpt, lpt, warps
+            warps //= 2
+    return 1, 8, 1
+
+
+def plane_bytes(batch: int, kplan: dict, sms: int) -> int:
+    """The most bytes of plane table and word groups that one launch can
+    read from L2, worked out from the launch shape: every block staging
+    the whole table once. A block stops at the first tile where all its
+    topics have overflowed, so a launch reads this much or less."""
+    tpt, lpt, warps = launch_shape(batch, sms)
+    blocks = -(-batch * lpt // (32 * tpt * warps))
+    return blocks * 4 * (kplan["plane_passes_per_topic"] + kplan["n_words"])
 
 
 def _highest_bit(x: torch.Tensor) -> torch.Tensor:
@@ -183,14 +211,15 @@ def sig_match_fixed(sig, too_deep, grp_of_word, planes32, planes16,
     rows = torch.empty((batch, max_rows), dtype=torch.int32,
                        device=sig.device)
     lib = kernels.library("sig_match")
+    _tpt, lpt, warps = launch_shape(batch, kernels.sm_count(sig.device))
     with torch.cuda.device(sig.device):
         stream = torch.cuda.current_stream(sig.device).cuda_stream
         rc = lib.sig_match_fixed_launch(
             sig.data_ptr(), n_groups, too_deep.data_ptr(),
             grp_of_word.data_ptr(), planes32.data_ptr(),
             planes32.stride(0), planes32.shape[1], planes16.data_ptr(),
-            planes16.stride(0), planes16.shape[1], batch, max_rows,
-            counts.data_ptr(), rows.data_ptr(), stream)
+            planes16.stride(0), planes16.shape[1], batch, max_rows, lpt,
+            warps, counts.data_ptr(), rows.data_ptr(), stream)
     if rc != 0:
         msg = lib.sig_match_error_string(rc).decode()
         raise faults.DeviceMatchError(

@@ -160,9 +160,10 @@ def _operands(batch=4, n_levels=2, slots=32):
 
 def test_wrapper_checks_operands():
     toks, lengths, dollar, kt = _operands()
-    words = dk.dense_walk_words(toks, lengths, dollar, kt, 2)
-    assert words.dtype == torch.int32 and words.shape == (4, 2)
-    assert not words.any()
+    idx, val, over = dk.dense_walk_words(toks, lengths, dollar, kt, 2)
+    assert idx.dtype == val.dtype == torch.int32 and over.dtype == torch.bool
+    assert idx.shape == val.shape == (4, 2) and over.shape == (4,)
+    assert (idx == -1).all() and not val.any() and not over.any()
     with pytest.raises(TypeError):
         dk.dense_walk_words(toks.long(), lengths, dollar, kt, 2)
     with pytest.raises(TypeError):
@@ -174,9 +175,14 @@ def test_wrapper_checks_operands():
     _t, _l, _d, bad = _operands(slots=40)
     with pytest.raises(ValueError):
         dk.dense_walk_words(toks, lengths, dollar, bad, 2)
-    kt = dict(kt, n_rows=65)
     with pytest.raises(ValueError):
-        dk.dense_walk_words(toks, lengths, dollar, kt, 2)
+        dk.dense_walk_words(toks, lengths, dollar, kt, 0)
+    with pytest.raises(ValueError):
+        dk.dense_walk_words(toks, lengths, dollar,
+                            dict(kt, n_rows=dk.MAX_ROWS + 1), 2)
+    with pytest.raises(ValueError):
+        dk.dense_walk_words(toks, lengths, dollar,
+                            dict(kt, chunk_masks=kt["chunk_masks"][:1]), 2)
 
 
 def test_plain_pads_tokens_past_the_window():
@@ -190,8 +196,10 @@ def test_plain_pads_tokens_past_the_window():
     kt = dk.device_stage(dk.stage(dense_arrays(tables)), "cpu")
     vocab = tables.vocab
     toks = torch.tensor([[vocab["a"], vocab["b"]]], dtype=torch.int32)
-    words = dk.dense_walk_words(toks, torch.tensor([2], dtype=torch.int32),
-                                torch.zeros(1, dtype=torch.bool), kt, 1)
+    idx, val, over = dk.dense_walk_words(
+        toks, torch.tensor([2], dtype=torch.int32),
+        torch.zeros(1, dtype=torch.bool), kt, 1)
     (hash_row,) = [r for r, es in enumerate(tables.row_entries)
                    if tables.entries[es[0]].client_id == "h"]
-    assert words[0, 0].item() == 1 << hash_row
+    assert (idx[0, 0].item(), val[0, 0].item()) == (0, 1 << hash_row)
+    assert not over[0]

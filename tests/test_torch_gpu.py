@@ -125,13 +125,60 @@ def test_dense_kernel_matches_plain(cuda_card, full_width):
     args = [torch.from_numpy(a).to(cuda_card) for a in (toks, lengths,
                                                           dollar)]
     before = dense_kernel.dense_walk_words.launches
-    got = dense_kernel.dense_walk_words(*args, matcher.kt, matcher.n_words)
+    got = dense_kernel.dense_walk_words(*args, matcher.kt, matcher.max_words)
     want = dense_kernel.dense_walk_words_plain(*args, matcher.kt,
-                                               matcher.n_words)
+                                               matcher.max_words)
     torch.cuda.synchronize()
     assert dense_kernel.dense_walk_words.launches == before + 1
-    assert torch.equal(got, want)
-    assert (want != 0).any(dim=1).sum() > len(topics) // 8
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (want[0][:, 0] >= 0).sum() > len(topics) // 8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_words", [1, 4, 100])
+def test_dense_kernel_max_words_edges(cuda_card, max_words):
+    """max_words below dense_2k's 63 row words (topics with more nonzero
+    words than it overflow, their first words still extracted) and above
+    them (the rows pad out)."""
+    idx, topics = dense_corpus(True)
+    tables = compile_dense(idx)
+    matcher = dense_kernel.KernelMatcher(tables, 16, max_words=max_words,
+                                         device=cuda_card)
+    arrays = pad_topic_batch(*tables.tokenize(topics, 16))
+    args = [torch.from_numpy(a).to(cuda_card) for a in arrays]
+    got = matcher(*args)
+    want = dense_kernel.dense_walk_words_plain(*args, matcher.kt, max_words)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if max_words == 1:
+        assert want[2].sum() > 1 + len(topics) // 20
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    ("overflow", 1037, 200, 100, 6), ("overflow", 1037, 0, 300, 6),
+    ("mixed", 1037, 400, 0, 14), ("mixed", 1037, 0, 500, 6),
+    ("mixed", 70_001, 300, 200, 7)],
+    ids=["overflow_first_tile", "overflow_first_tile_16", "no_16bit_words",
+         "no_32bit_words", "full_blocks_odd_batch"])
+def test_cuda_kernel_edges(cuda_card, case):
+    """The kernel's edges on synthetic operands: every topic overflowing in
+    the first word tile, batches that are no multiple of a block's
+    topics, tables without 16-bit or without 32-bit words."""
+    mode, batch, n32, n16, mr = case
+    sig, deep, grp, p32, p16 = (
+        torch.from_numpy(a).to(cuda_card)
+        for a in chip_smoke.synthetic_sig(7, batch, n32, n16, mode, mr))
+    p32 = p32[:, :n32]
+    got = sig_kernel.sig_match_fixed(sig, deep, grp, p32, p16, mr)
+    want = sig_kernel.sig_match_fixed_plain(sig, deep, grp, p32, p16, mr)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    over = int((want[0] == 0xFF).sum())
+    assert over == batch if mode == "overflow" else 0 < over < batch
 
 
 @pytest.mark.gpu

@@ -164,6 +164,7 @@ SMOKE_CPU_SIZES = {"subs": {"mixed_100k": 2_000, "hash_plus_100k": 2_000,
                    "headline_batch": 256,
                    "headline_batches": 4,
                    "headline_warm": 2,
+                   "edge_batch": 300,
                    "dense_corpus": {"n_filters": 300, "n_subs": 3_000,
                                     "width": 60}}
 
