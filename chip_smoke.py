@@ -47,13 +47,33 @@ Phases, each of which raises on failure:
 7. dense headline: ``DenseEngine`` at batch 262,144 on ``dense_2k``,
    pipelined, with the kernel (and on 256 topics), its plain version
    (held bit for bit against it) and the torch walk timed on one batch;
-8. each kernel's SASS opcode counts (``cuobjdump -sass``, where the
+8. NFA check: ``NFAEngine`` on the card against ``match_batch_body`` on
+   the CPU, bit for bit on (rows, overflow), on the check batch of
+   ``mixed_100k`` and ``iot_1m_share`` and on a narrow configuration
+   (width 4, max_rows 4) where both overflow causes appear; every
+   device-served answer against the CPU trie;
+9. NFA service: the MatcherService with ``MicroBatcher(NFAEngine)`` (host
+   bypass off), the ``mixed_100k`` subscriptions as OP_SUB frames and the
+   nine OP_MATCH requests, every answer against the CPU trie;
+10. NFA headline: ``NFAEngine`` at ``iot_1m_share``, one 262,144-topic
+   batch: host tokenize, the device program (CUDA events; launches and
+   busy time by ``torch.profiler``), the overflow share, the peak memory,
+   and the decode on a 4,096-topic sample against the CPU trie;
+11. cluster (bench config 5's shape): ``ShardedSigEngine`` and
+   ``ShardedNFAEngine`` on ``cluster_100k`` (100,000 subscriptions, 10 %
+   '$share') over a 2 x 4 mesh of eight cells on the one card, batches of
+   8,192 answered and held against the CPU trie, ``match_raw`` against the
+   same mesh on the CPU, the signature engine resharded to 1 x 4 and
+   checked again, each device program timed at 262,144 topics;
+12. each kernel's SASS opcode counts (``cuobjdump -sass``, where the
    toolkit has it), the kernels line (JSON), the card line, and the
    result line.
 
-The corpora are made here from seed 42 (a copy of the benchmark's corpus
-generator, and the ``dense_2k`` generator); the script imports nothing of
-the JAX package.
+Phases 8-11 run no hand-written kernel (the reference computes them in
+XLA, outside Pallas); each reads both kernels' launch counts, set to 0
+before it. The corpora are made here from seed 42 (a copy of the
+benchmark's corpus generator, and the ``dense_2k`` generator); the script
+imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -84,21 +104,36 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # requests, the
 # warm-up topics sent before them, the headline batch, the signature
 # headline's batch count and how many of them warm up (the pipeline and
-# the decode's row memo) untimed, and the dense_2k generator's arguments.
+# the decode's row memo) untimed, the dense_2k generator's arguments, the
+# NFA headline's decode sample, and the cluster phase's batch and batch
+# count (bench config 5: batches of 8,192 on a 2 x 4 mesh).
 SIZES = {"subs": {"mixed_100k": 100_000, "hash_plus_100k": 100_000,
-                  "iot_1m_share": 1_000_000},
+                  "iot_1m_share": 1_000_000, "cluster_100k": 100_000},
          "check_batch": 4_096 + 100,
          "service_rounds": (4_096,) * 8 + (65_536,),
          "service_warm": 1_024,
          "headline_batch": 262_144,
-         "headline_batches": 4,
-         "headline_warm": 2,
+         "headline_batches": 2,
+         "headline_warm": 1,
          "edge_batch": 70_001,
          "dense_corpus": {"n_filters": 2_000, "n_subs": 100_000,
-                          "width": 440}}
+                          "width": 440},
+         "nfa_sample": 4_096,
+         "cluster_batch": 8_192,
+         "cluster_batches": 2}
 # engine counters of topics NOT served by the device path, per engine
 SIG_COUNTERS = ("host_matches", "fallbacks", "trie_routed")
 DENSE_COUNTERS = ("fallbacks",)
+NFA_COUNTERS = ("fallbacks",)
+# the NFA engine's narrow configuration (width, max_rows): both overflow
+# causes (active set past the width, matched rows past max_rows) appear.
+# A mixed_100k topic matches at most 7 rows (the check's "rows_max"), so
+# max_rows must be lower than that for the second cause.
+NFA_NARROW = (4, 4)
+# the cluster phase's meshes on the one card: bench config 5's 2 x 4, then
+# the 1 x 4 it reshards to
+CLUSTER_MESH = (2, 4)
+CLUSTER_RESHARD = (1, 4)
 # the tokenizer window of the dense engine (its default max_levels)
 DENSE_MAX_LEVELS = 16
 # INT32 operations the dense walk must do, as counted for its bound, per
@@ -389,6 +424,7 @@ class Smoke:
         self.engines = {}
         self.dense = None          # (subscriptions, generator, TopicIndex)
         self.dense_eng = None
+        self.nfa_engines = {}      # corpus -> NFAEngine, default widths
         self.record = {"max_abs_err": 0, "bit_equal": True}
         self.dense_record = {"max_abs_err": 0, "bit_equal": True}
 
@@ -436,7 +472,8 @@ class Smoke:
         t0 = time.perf_counter()
         filters, gen = build_corpus(
             self.sizes["subs"][name], seed=42,
-            share_frac=0.1 if name == "iot_1m_share" else 0.0,
+            share_frac=0.1 if name in ("iot_1m_share", "cluster_100k")
+            else 0.0,
             hash_plus=name == "hash_plus_100k")
         index = TopicIndex()
         for i, f in enumerate(filters):
@@ -645,13 +682,14 @@ class Smoke:
         or off; each answer is held against the CPU trie. Device-served
         topics are the engine's matches less its ``counters`` (topics it
         served on the host or from its trie); ``kernel`` is the wrapper
-        whose launches are counted."""
+        whose launches are counted (None: the engine has no kernel)."""
         batcher = svc.matcher
         engine = batcher.engine
         batcher.cpu_bypass = bypass
         names = ("matches",) + tuple(counters)
         base = {k: getattr(engine, k) for k in names}
-        bypass0, launches0 = batcher.bypasses, kernel.launches
+        bypass0 = batcher.bypasses
+        launches0 = kernel.launches if kernel is not None else 0
         hits0 = batcher.cache_hits
         rounds, bad, checked = [], 0, 0
         wanted = {}      # the index is fixed here: one trie walk a topic
@@ -682,7 +720,8 @@ class Smoke:
                 "topics_per_s": (sum(r["topics"] for r in rounds)
                                  / sum(r["ms"] for r in rounds) * 1e3),
                 "rounds": rounds,
-                "launches": kernel.launches - launches0,
+                "launches": (kernel.launches - launches0
+                             if kernel is not None else None),
                 "bypasses": batcher.bypasses - bypass0,
                 "cache_hits": batcher.cache_hits - hits0,
                 "distinct_topics": distinct,
@@ -1068,7 +1107,7 @@ class Smoke:
         tables, program = engine._state
         _s, gen, index = self.dense_corpus()
         batch = self.sizes["headline_batch"]
-        batches = [gen(batch, seed2=4000 + i) for i in range(3)]
+        batches = [gen(batch, seed2=4000 + i) for i in range(2)]
         warm = 1                         # batch 0 warms the pipeline
         base = {k: getattr(engine, k) for k in ("matches", "fallbacks")}
         dk.dense_walk_words.launches = 0
@@ -1195,10 +1234,441 @@ class Smoke:
             "beside it")
         return out
 
+    # -- NFA phases (9-11) and the cluster phase (12) --------------------
+
+    def phase(self, name: str, fn, *args):
+        """Run one phase and log its wall time."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    def kernel_counts(self) -> dict:
+        """The hand-written kernels' launch counts."""
+        return {"sig_match_fixed": self.sig_kernel.sig_match_fixed.launches,
+                "dense_walk_words":
+                    self.dense_kernel.dense_walk_words.launches}
+
+    def zero_kernel_counts(self) -> None:
+        self.sig_kernel.sig_match_fixed.launches = 0
+        self.dense_kernel.dense_walk_words.launches = 0
+
+    def profile(self, fn) -> dict | None:
+        """Kernel launches and device busy time of one call of ``fn``, by
+        ``torch.profiler`` (CUDA activity): launches, busy ms, and the
+        kernels with the most device time. None on the CPU; the error
+        where the profiler cannot trace the card."""
+        if self.device.type != "cuda":
+            return None
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        fn()
+        self.sync()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                self.sync()
+            by_name = {}
+            for evt in prof.events():
+                if evt.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                rec = by_name.setdefault(evt.name, [0, 0.0])
+                rec[0] += 1
+                rec[1] += evt.time_range.elapsed_us() / 1e3
+        except RuntimeError as exc:
+            return {"error": repr(exc)[:300]}
+        kernels = {k: v for k, v in by_name.items()
+                   if not k.startswith(("Memcpy", "Memset"))}
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+        return {"launches": sum(v[0] for v in kernels.values()),
+                "busy_ms": sum(v[1] for v in kernels.values()),
+                "copies": sum(v[0] for k, v in by_name.items()
+                              if k not in kernels),
+                "top": [{"name": k[:120], "n": v[0], "ms": v[1]}
+                        for k, v in top]}
+
+    def nfa_engine(self, name: str, width: int = 32, max_rows: int = 128):
+        """An NFAEngine on corpus ``name`` on the device; the default
+        configuration's is kept for the later phases."""
+        if (width, max_rows) == (32, 128) and name in self.nfa_engines:
+            return self.nfa_engines[name]
+        from maxmq_tpu_torch.matching.engine import NFAEngine
+
+        _f, _g, index = self.corpus(name)
+        t0 = time.perf_counter()
+        engine = NFAEngine(index, width=width, max_rows=max_rows,
+                           device=self.device, auto_refresh=False)
+        t = engine.tables
+        log(f"[nfa] {name} width {width} max_rows {max_rows}: tables "
+            f"compiled and uploaded in {time.perf_counter() - t0:.1f} s: "
+            f"{t.n_nodes} nodes, {t.table_size} edge slots, "
+            f"{len(t.row_entries)} rows, {len(t.vocab)} tokens")
+        if (width, max_rows) == (32, 128):
+            self.nfa_engines[name] = engine
+        return engine
+
+    def nfa_check(self, name: str) -> dict:
+        """``NFAEngine.match_raw`` on the device against ``match_batch_body``
+        on the CPU, bit for bit, on corpus ``name``'s check batch (and on
+        ``mixed_100k`` in the narrow configuration too); every
+        device-served answer against the CPU trie."""
+        from maxmq_tpu_torch.matching.engine import (NFAEngine,
+                                                     match_batch_body,
+                                                     nfa_device_tables)
+        from maxmq_tpu_torch.matching.topics import pad_topic_batch
+
+        torch = self.torch
+        out = {}
+        self.zero_kernel_counts()
+        configs = [(32, 128)] + ([NFA_NARROW] if name == "mixed_100k"
+                                 else [])
+        for width, max_rows in configs:
+            engine = self.nfa_engine(name, width, max_rows)
+            _f, _g, index = self.corpus(name)
+            topics = self.check_batch(name)
+            b = len(topics)
+            tables = engine.tables
+            rows, overflow, _t = engine.match_raw(topics)
+            arrays = pad_topic_batch(*tables.tokenize(topics,
+                                                      engine.max_levels))
+            cpu_args = [torch.from_numpy(a) for a in arrays]
+            cpu_tables = nfa_device_tables(tables, "cpu")
+            mask = tables.table_size - 1
+            want = match_batch_body(*cpu_tables, *cpu_args, width=width,
+                                    table_mask=mask, max_rows=max_rows)
+            equal = (np.array_equal(rows, want[0].numpy()[:b])
+                     and np.array_equal(overflow, want[1].numpy()[:b]))
+            too_deep = arrays[1][:b] < 0
+            n_rows = (rows[~overflow] >= 0).sum(axis=1)
+            rec = {"corpus": name, "batch": b, "bucket": len(arrays[1]),
+                   "width": width, "max_rows": max_rows,
+                   "overflow_topics": int(overflow.sum()),
+                   "too_deep": int(too_deep.sum()),
+                   "rows_max": int(n_rows.max()) if len(n_rows) else 0,
+                   "rows_mean": float(n_rows.mean()) if len(n_rows) else 0.0,
+                   "bit_equal": equal}
+            if (width, max_rows) == NFA_NARROW:
+                # the causes apart: the same walk with room for every row
+                # overflows for width (or depth) only
+                free = match_batch_body(
+                    *cpu_tables, *cpu_args, width=width, table_mask=mask,
+                    max_rows=(engine.max_levels + 1) * 2 * width)[1]
+                free = free.numpy()[:b]
+                rec["overflow_width"] = int((free & ~too_deep).sum())
+                rec["overflow_rows"] = int((overflow & ~free).sum())
+            bad = 0
+            for i in np.flatnonzero(~overflow).tolist():
+                got = NFAEngine.decode(rows[i], tables)
+                if normalize(got) != normalize(index.subscribers(topics[i])):
+                    bad += 1
+            rec["checked"], rec["mismatches"] = int((~overflow).sum()), bad
+            log(f"[nfa-check] {json.dumps(rec)}")
+            if not equal:
+                raise AssertionError(f"NFA {name} {width}/{max_rows}: the "
+                                     "device disagrees with the CPU")
+            if bad:
+                raise AssertionError(f"NFA {name}: {bad} answers differ "
+                                     "from the CPU trie")
+            if not rec["too_deep"] or not rec["checked"]:
+                raise AssertionError(f"NFA {name}: the check batch needs "
+                                     "too-deep and device-served topics")
+            if (width, max_rows) == NFA_NARROW and self.device.type == \
+                    "cuda" and not (rec["overflow_width"]
+                                    and rec["overflow_rows"]):
+                raise AssertionError("the narrow NFA configuration must "
+                                     f"overflow for both causes: {rec}")
+            out[f"{name}/{width}/{max_rows}"] = rec
+        out["kernel_launches"] = self.kernel_counts()
+        return out
+
+    async def nfa_service_path(self) -> dict:
+        """The MatcherService with the NFA engine factory
+        (``MicroBatcher(NFAEngine)``, host bypass off), the ``mixed_100k``
+        subscriptions as OP_SUB frames and the nine OP_MATCH requests;
+        every answer is held against the CPU trie."""
+        from maxmq_tpu_torch.matching.batcher import MicroBatcher
+        from maxmq_tpu_torch.matching.engine import NFAEngine
+        from maxmq_tpu_torch.matching.service import (MatcherService,
+                                                      ServiceMatcher)
+        from maxmq_tpu_torch.protocol import Subscription
+
+        filters, gen, mirror = self.corpus("mixed_100k")
+        path = os.path.join(tempfile.mkdtemp(prefix="maxmq-smoke-"),
+                            "m.sock")
+        device = self.device
+        svc = MatcherService(path, engine_factory=lambda index: MicroBatcher(
+            NFAEngine(index, device=device), cpu_bypass=False))
+        await svc.start()
+        client = ServiceMatcher(path)
+        try:
+            await client.connect()
+            t0 = time.perf_counter()
+            for i, f in enumerate(filters):
+                client.forward_subscribe(
+                    f"cl-{i}", Subscription(filter=f, qos=i % 3))
+            await client.subscribers_async("smoke/barrier")  # ops applied
+            engine = svc.matcher.engine
+            engine.refresh()
+            log(f"[nfa-service] {len(filters)} OP_SUB applied and compiled "
+                f"in {time.perf_counter() - t0:.1f} s "
+                f"(index {svc.index.subscription_count})")
+            warm = gen(self.sizes["service_warm"], seed2=97)
+            await asyncio.gather(*(client.enqueue(t) for t in warm))
+            self.zero_kernel_counts()
+            rounds = await self.service_rounds(
+                client, svc, gen, mirror, False, 6000, None, NFA_COUNTERS)
+            kernels = self.kernel_counts()
+        finally:
+            await client.close()
+            await svc.close()
+        out = {"kernel_launches": kernels, **rounds}
+        log(f"[nfa-service] {json.dumps(out)}")
+        if rounds["mismatches"]:
+            raise AssertionError(f"{rounds['mismatches']} NFA service "
+                                 "answers differ from the CPU trie")
+        served = rounds["device_topics"] + rounds["cache_hits"]
+        if served * 2 <= rounds["topics"] or rounds["bypasses"]:
+            raise AssertionError(
+                f"the NFA device path served only {served} of "
+                f"{rounds['topics']} topics")
+        return out
+
+    def nfa_headline(self) -> dict:
+        """``NFAEngine`` at ``iot_1m_share``, one 262,144-topic batch: host
+        tokenize, the device program (CUDA events; launches and busy time
+        by the profiler), fetch, overflow share, and the decode on a
+        sample held against the CPU trie."""
+        from maxmq_tpu_torch.matching.engine import NFAEngine
+        from maxmq_tpu_torch.matching.topics import pad_topic_batch
+
+        torch = self.torch
+        engine = self.nfa_engine("iot_1m_share")
+        _f, gen, index = self.corpus("iot_1m_share")
+        batch = self.sizes["headline_batch"]
+        topics = gen(batch, seed2=6000)
+        tables = engine.tables
+        self.zero_kernel_counts()
+        t0 = time.perf_counter()
+        arrays = pad_topic_batch(*tables.tokenize(topics, engine.max_levels))
+        t_tok = time.perf_counter() - t0
+        args = [torch.from_numpy(a).to(self.device) for a in arrays]
+        if self.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        mask = tables.table_size - 1
+        run = lambda: engine.program(engine.device_tables, *args,
+                                     table_mask=mask)
+        ms = self.time_ms(run, 5)
+        prof = self.profile(run)
+        t0 = time.perf_counter()
+        rows_d, over_d = run()
+        rows, overflow = rows_d.cpu().numpy()[:batch], \
+            over_d.cpu().numpy()[:batch]
+        t_fetch = time.perf_counter() - t0
+        del rows_d, over_d
+        sample = random.Random(6).sample(range(batch),
+                                         min(self.sizes["nfa_sample"], batch))
+        served = [j for j in sample if not overflow[j]]
+        t0 = time.perf_counter()
+        decoded = [NFAEngine.decode(rows[j], tables) for j in served]
+        t_dec = time.perf_counter() - t0
+        bad = sum(normalize(r) != normalize(index.subscribers(topics[j]))
+                  for j, r in zip(served, decoded))
+        if bad:
+            raise AssertionError(f"NFA headline: {bad} answers differ from "
+                                 "the CPU trie")
+        n_rows = (rows >= 0).sum(axis=1)
+        width, levels = engine.width, engine.max_levels
+        out = {"subs": index.subscription_count, "batch": batch,
+               "bucket": len(arrays[1]), "width": width,
+               "max_rows": engine.max_rows, "max_levels": levels,
+               "nodes": tables.n_nodes, "edge_slots": tables.table_size,
+               "host_tokenize_topics_per_s": batch / t_tok,
+               "program_ms": ms, "program_topics_per_s": batch / (ms / 1e3),
+               "profile": prof, "fetch_ms": t_fetch * 1e3,
+               "overflow_topics": int(overflow.sum()),
+               "overflow_share": float(overflow.mean()),
+               "rows_per_topic": float(n_rows[~overflow].mean())
+               if (~overflow).any() else 0.0,
+               "sample": len(sample), "sample_device_served": len(served),
+               "decode_topics_per_s": len(served) / t_dec if t_dec else None,
+               "subscribers_per_topic": statistics.mean(
+                   len(r) for r in decoded) if decoded else 0.0,
+               "emission_buffer_bytes": len(arrays[1]) * (levels + 1) * 2
+               * width * 4,
+               "kernel_launches": self.kernel_counts()}
+        if self.device.type == "cuda":
+            out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        log(f"[nfa-headline] iot_1m_share: {json.dumps(out)}")
+        return out
+
+    def cluster_check(self, engine, cpu_mesh) -> dict:
+        """``match_raw`` of a sharded engine on the device against the same
+        program over ``cpu_mesh`` on the CPU (the engine's compiled shards,
+        ``build_program``), bit for bit, on the check batch; then the
+        engine's answers against the CPU trie."""
+        from maxmq_tpu_torch.matching.sig_tables import prepare_batch_sig
+        from maxmq_tpu_torch.parallel.sharded import ShardedSigEngine
+
+        _f, _g, index = self.corpus("cluster_100k")
+        topics = self.check_batch("cluster_100k")
+        b = len(topics)
+        if isinstance(engine, ShardedSigEngine):
+            got, _hr, _shards, _t, _l = engine.match_raw(topics)
+            state = engine._state
+            twin = engine.build_program(state.stacked, mesh=cpu_mesh)
+            padded = topics + ["\x01pad"] * (-b % twin.dp)
+            toks, lens, _e, _len = prepare_batch_sig(
+                state.shards[0], padded, window=max(state.d_max, 1),
+                host_exact=state.union_exact)
+            (want,) = twin(toks, lens)
+            equal = np.array_equal(got, want[:, :b].astype(np.uint32))
+            overflow = (got[:, :, 0] == 0xF).any(axis=0)
+        else:
+            rows, over, shards = engine.match_raw(topics)
+            twin = engine.build_program(shards, mesh=cpu_mesh)
+            padded = topics + [""] * (-b % twin.dp)
+            want = twin(*shards[0].tokenize(padded, engine.max_levels))
+            equal = (np.array_equal(rows, want[0][:, :b])
+                     and np.array_equal(over, want[1][:, :b]))
+            overflow = over.any(axis=0)
+        results = engine.subscribers_batch(topics)
+        bad = sum(normalize(r) != normalize(index.subscribers(t))
+                  for t, r in zip(topics, results))
+        rec = {"mesh": engine.mesh.shape, "batch": b, "bit_equal": equal,
+               "overflow_topics": int(overflow.sum()), "mismatches": bad}
+        if not equal:
+            raise AssertionError(f"cluster {type(engine).__name__} on "
+                                 f"{engine.mesh.shape}: the device "
+                                 "disagrees with the CPU mesh")
+        if bad:
+            raise AssertionError(f"cluster {type(engine).__name__}: {bad} "
+                                 "answers differ from the CPU trie")
+        return rec
+
+    def cluster_time(self, engine) -> dict:
+        """The sharded engine's device program (every mesh cell) on one
+        262,144-topic batch: CUDA events, launches and busy time, the
+        bytes of its per-cell [b, W] matrix, and the peak memory."""
+        from maxmq_tpu_torch.matching.sig_tables import prepare_batch_sig
+        from maxmq_tpu_torch.parallel.sharded import ShardedSigEngine
+
+        torch = self.torch
+        _f, gen, _index = self.corpus("cluster_100k")
+        batch = self.sizes["headline_batch"]
+        topics = gen(batch, seed2=7100)
+        t0 = time.perf_counter()
+        if isinstance(engine, ShardedSigEngine):
+            state = engine._state
+            program = state.program
+            arrays = prepare_batch_sig(state.shards[0], topics,
+                                       window=max(state.d_max, 1),
+                                       host_exact=state.union_exact)[:2]
+            n_words = state.stacked[5].shape[2]
+            # the [b, W] match words and the [b, W] expanded signatures,
+            # uint32 held in int64
+            matrix = {"what": "sig words [b, W] int64", "W": n_words,
+                      "bytes_per_cell": batch // program.dp * n_words * 8}
+        else:
+            _v, shards, program = engine._state
+            arrays = shards[0].tokenize(topics, engine.max_levels)
+            cols = (engine.max_levels + 1) * 2 * engine.width
+            matrix = {"what": "NFA emission buffer [b, (L+1)*2W] int32",
+                      "W": cols, "bytes_per_cell": batch // program.dp
+                      * cols * 4}
+        t_prep = time.perf_counter() - t0
+        matrix["cells"] = len(program.cells)
+        inputs = program.upload(*arrays)
+        if self.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        run = lambda: program.run(inputs)
+        ms = self.time_ms(run, 3)
+        prof = self.profile(run)
+        outs = program.fetch(run())
+        if isinstance(engine, ShardedSigEngine):
+            overflow = (outs[0][:, :, 0] == 0xF).any(axis=0)
+        else:
+            overflow = outs[1].any(axis=0)
+        rec = {"batch": batch, "mesh": engine.mesh.shape,
+               "host_prep_topics_per_s": batch / t_prep,
+               "program_ms": ms, "program_topics_per_s": batch / (ms / 1e3),
+               "profile": prof, "overflow_share": float(overflow.mean()),
+               "matrix": matrix}
+        if self.device.type == "cuda":
+            rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        return rec
+
+    def cluster(self) -> dict:
+        """Bench config 5's shape: ``ShardedSigEngine`` and
+        ``ShardedNFAEngine`` on 100,000 subscriptions (10 % '$share') over
+        a 2 x 4 mesh of eight cells on the one device, batches of 8,192,
+        every answer held against the CPU trie; each engine's match_raw
+        against the same mesh on the CPU; the signature engine resharded
+        to 1 x 4 and checked again; each device program timed at 262,144
+        topics."""
+        from maxmq_tpu_torch.parallel.sharded import (ShardedNFAEngine,
+                                                      ShardedSigEngine,
+                                                      make_mesh)
+
+        _f, gen, index = self.corpus("cluster_100k")
+        dev = self.device
+
+        def mesh(shape, device):
+            return make_mesh(shape, devices=[device] * (shape[0] * shape[1]))
+
+        wanted = {}
+
+        def expected(topic: str):
+            want = wanted.get(topic)
+            if want is None:
+                want = wanted[topic] = normalize(index.subscribers(topic))
+            return want
+
+        out = {}
+        self.zero_kernel_counts()
+        for label, cls in (("sig", ShardedSigEngine),
+                           ("nfa", ShardedNFAEngine)):
+            t0 = time.perf_counter()
+            engine = cls(index, mesh=mesh(CLUSTER_MESH, dev))
+            rec = {"compile_s": time.perf_counter() - t0}
+            n = bad = 0
+            t_match = 0.0
+            for k in range(self.sizes["cluster_batches"]):
+                topics = gen(self.sizes["cluster_batch"], seed2=7000 + k)
+                t1 = time.perf_counter()
+                res = engine.subscribers_batch(topics)
+                t_match += time.perf_counter() - t1
+                for t, r in zip(topics, res):
+                    n += 1
+                    bad += normalize(r) != expected(t)
+            rec.update(topics=n, mismatches=bad, topics_per_s=n / t_match,
+                       fallbacks=engine.fallbacks)
+            if bad:
+                raise AssertionError(f"cluster {label}: {bad} of {n} answers "
+                                     "differ from the CPU trie")
+            rec["check"] = self.cluster_check(engine,
+                                              mesh(CLUSTER_MESH, "cpu"))
+            rec["headline"] = self.cluster_time(engine)
+            if label == "sig":
+                t0 = time.perf_counter()
+                engine.reshard(mesh(CLUSTER_RESHARD, dev))
+                rec["reshard_s"] = time.perf_counter() - t0
+                rec["reshard_check"] = self.cluster_check(
+                    engine, mesh(CLUSTER_RESHARD, "cpu"))
+            log(f"[cluster] {label}: {json.dumps(rec)}")
+            out[label] = rec
+            del engine
+        out["kernel_launches"] = self.kernel_counts()
+        log(f"[cluster] hand-written kernel launches: "
+            f"{json.dumps(out['kernel_launches'])}")
+        return out
+
     # -- all phases ----------------------------------------------------
 
     def run(self) -> dict:
-        checks = {name: self.kernel_vs_plain(name)
+        checks = {name: self.phase(f"sig check {name}",
+                                   self.kernel_vs_plain, name)
                   for name in ("mixed_100k", "hash_plus_100k",
                                "iot_1m_share")}
         if checks["hash_plus_100k"]["groups"] <= 40:
@@ -1206,16 +1676,31 @@ class Smoke:
         log(f"[kernel] hash_plus_100k device groups: "
             f"{checks['hash_plus_100k']['groups']} (> 40: the TPU's MXU "
             "expansion regime)")
-        self.sig_edges()
-        service = asyncio.run(self.service_path())
-        heads = {name: self.headline(name)
+        self.phase("sig edges", self.sig_edges)
+        service = self.phase("sig service",
+                             lambda: asyncio.run(self.service_path()))
+        heads = {name: self.phase(f"sig headline {name}", self.headline,
+                                  name)
                  for name in ("iot_1m_share", "mixed_100k")}
         for engine in self.engines.values():
             engine.close()
         self.engines.clear()
-        self.dense_kernel_vs_plain()
-        dense_service = asyncio.run(self.dense_service_path())
-        dh = self.dense_headline()
+        self.phase("dense check", self.dense_kernel_vs_plain)
+        dense_service = self.phase(
+            "dense service", lambda: asyncio.run(self.dense_service_path()))
+        dh = self.phase("dense headline", self.dense_headline)
+        # what the later phases no longer need goes, so the Python heap
+        # the NFA phases allocate into stays small
+        self.dense = self.dense_eng = None
+        self.corpora.pop("hash_plus_100k", None)
+        self.phase("nfa check mixed_100k", self.nfa_check, "mixed_100k")
+        self.phase("nfa service", lambda: asyncio.run(
+            self.nfa_service_path()))
+        self.phase("nfa check iot_1m_share", self.nfa_check, "iot_1m_share")
+        self.phase("nfa headline", self.nfa_headline)
+        self.nfa_engines.clear()
+        self.corpora.pop("iot_1m_share", None)
+        self.phase("cluster", self.cluster)
         h = heads["iot_1m_share"]
         sig = dict(KERNELS["sig_match_fixed"], launches=service["launches"],
                    max_abs_err=self.record["max_abs_err"],

@@ -31,6 +31,7 @@ from .sig_tables import (MAX_GROUPS, OverlayedEngine, Overlay,
                          _union_pairs, compile_sig, host_hash_rows,
                          prepare_batch, verify_pairs)
 from .topics import batch_bucket as _batch_bucket
+from .topics import filter_matches_topic, split_levels
 from .trie import SubscriberSet, TopicIndex, merge_subscription
 
 _STREAM_CHUNK = 1 << 19    # rows per stream-slice fetch (2 MB of uint32)
@@ -639,6 +640,46 @@ class SigEngine(OverlayedEngine):
         """No-op: the chained-decode anchors belong to the native decode,
         which this package does not load. Returns 0 chunk calls."""
         return 0
+
+    @staticmethod
+    def _add_row(result: SubscriberSet, row: int, tables: SigTables,
+                 tlevels, dollar: bool, removed=None) -> None:
+        """Verify one candidate row against the topic and union its
+        entries (padding bits and hash collisions are dropped here;
+        ``removed`` drops pairs the overlay has unsubscribed/replaced)."""
+        if row >= len(tables.row_levels):
+            return                      # padding-word artifact, not a row
+        flevels = tables.row_levels[row]
+        if flevels is None or not filter_matches_topic(flevels, tlevels,
+                                                       dollar):
+            return
+        entries = tables.entries
+        for b in tables.row_entries[row]:
+            entry = entries[b]
+            if entry.shared:
+                for cid, sub in entry.candidates.items():
+                    if removed and (cid, sub.filter) in removed:
+                        continue
+                    result.add_shared(entry.group, sub.filter, cid, sub)
+            else:
+                sub = entry.subscription
+                if removed and (entry.client_id, sub.filter) in removed:
+                    continue
+                result.add(entry.client_id, sub, sub.filter)
+
+    @staticmethod
+    def decode_rows(topic: str, rows: np.ndarray, tables: SigTables,
+                    into: SubscriberSet | None = None,
+                    removed=None) -> SubscriberSet:
+        """Union a compact row-id slice into a SubscriberSet (verified);
+        the sharded engine's per-shard decode."""
+        result = SubscriberSet() if into is None else into
+        tlevels = split_levels(topic)
+        dollar = topic.startswith("$")
+        for row in rows:
+            SigEngine._add_row(result, int(row), tables, tlevels, dollar,
+                               removed)
+        return result
 
     @staticmethod
     def merge_delta(topic: str, result: SubscriberSet,

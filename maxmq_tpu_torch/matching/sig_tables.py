@@ -558,6 +558,22 @@ def tokenize_compact(tables, topics: list[str], window: int | None = None):
     return toks, lens_enc, toks32, lengths
 
 
+def prepare_batch_sig(tables, topics: list[str], window: int | None = None,
+                      host_exact: dict | None = None):
+    """Host half of the word path, signature form: (toks, lens_enc, esig,
+    lengths), with ``esig`` the topics' exact-group signatures.
+
+    ``window``/``host_exact`` override the tables' own (the sharded engine
+    passes the mesh-wide maxima/union — exact-group coefficients are
+    deterministic functions of the group shape, so one signature per depth
+    serves every shard). Too-deep topics report ``lengths`` -1."""
+    if host_exact is None:
+        host_exact = tables.host_exact or {}
+    toks, lens_enc, toks32, lengths = tokenize_compact(tables, topics,
+                                                       window)
+    return toks, lens_enc, exact_sigs(host_exact, toks32, lengths), lengths
+
+
 def prepare_batch(tables, topics: list[str]):
     """Full host half of the fixed path: (toks, lens_enc, hostrows).
     hostrows unions the full-exact probe and the '+'-shape probe —

@@ -90,3 +90,110 @@ def fold16_replicated(sig_adj: torch.Tensor, fold_mult: torch.Tensor,
     groups keep the raw signature."""
     folded = mul32(sig_adj, fold_mult[None, :]) >> 16
     return torch.where(w16[None, :], folded | (folded << 16), sig_adj)
+
+
+# -- the word path: [B, W] match words, then fixed slots -----------------
+#
+# Counterparts of ``sig_match_words_gather``, ``fixed_slots_from_words``,
+# ``_ctz32`` and ``_popc32`` in the JAX package's ``matching/sig.py``: the
+# program its sharded signature engine runs (the single-device engines run
+# the fixed kernel instead). Values are uint32 held in int64, as above.
+
+
+def _popc32(v: torch.Tensor) -> torch.Tensor:
+    """Population count of uint32 values (int64 in, int64 out)."""
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    return ((((v + (v >> 4)) & 0x0F0F0F0F) * 0x01010101) & MASK32) >> 24
+
+
+def _ctz32(v: torch.Tensor) -> torch.Tensor:
+    """Count trailing zeros of nonzero uint32 values (branch-free)."""
+    lsb = v & ((~v + 1) & MASK32)
+    return _popc32((lsb - 1) & MASK32)
+
+
+def sig_match_words_gather(consts: dict, planes: torch.Tensor,
+                           grp_of_word: torch.Tensor, toks: torch.Tensor,
+                           lengths: torch.Tensor,
+                           dollar: torch.Tensor) -> torch.Tensor:
+    """[B, W] match words (uint32 as int64) with a gather-based group
+    expansion: word w's bit j is set where the topic's adjusted signature
+    for group ``grp_of_word[w]`` equals ``planes[j, w]``. ``planes`` is
+    [32, W] uint32 as int64; the word -> group map is a device array, so
+    one program serves every shard's tables. The whole [B, W] matrix is
+    materialised (8 bytes a word), as in the reference."""
+    sig_adj = adjusted_signatures(consts, toks, lengths, dollar)
+    sig_exp = sig_adj[:, grp_of_word.to(torch.int64)]      # [B, W]
+    acc = torch.zeros_like(sig_exp)
+    for j in range(32):
+        acc |= (sig_exp == planes[j][None, :]).to(torch.int64) << j
+    return acc
+
+
+def fixed_slots_from_words(words: torch.Tensor, too_deep: torch.Tensor,
+                           sel_blocks: int, max_rows: int,
+                           fmt16: bool) -> torch.Tensor:
+    """[B, W] match words -> the packed fixed-slot output (uint32 as
+    int64): column 0 the count (0xF = overflow), then ``max_rows`` row ids
+    in ascending order (0xFFFFFFFF past the count); with ``fmt16`` rows
+    travel as 16 bits, count<<28 | row0 then two rows a word.
+
+    Only the ``sel_blocks`` lowest nonzero 32-word blocks are read; a
+    topic with more nonzero blocks, more than ``max_rows`` set bits, or
+    ``too_deep`` overflows."""
+    batch, n_words = words.shape
+    dev = words.device
+    ws = (n_words + 31) // 32
+    pad = ws * 32 - n_words
+
+    # summary bitmap: bit t of summary word s == (word 32s+t nonzero)
+    nz = words != 0
+    if pad:
+        nz = torch.nn.functional.pad(nz, (0, pad))
+        words = torch.nn.functional.pad(words, (0, pad))
+    lanes = torch.arange(32, dtype=torch.int64, device=dev)
+    summary = (nz.view(batch, ws, 32).to(torch.int64)
+               << lanes[None, None, :]).sum(dim=2)          # [B, WS]
+
+    snz = summary != 0
+    n_blocks = snz.sum(dim=1)
+    key = torch.where(snz, (1 << 30) - torch.arange(
+        ws, dtype=torch.int32, device=dev)[None, :], -1).to(torch.int32)
+    sel_blocks = min(sel_blocks, ws)
+    # nonzero blocks have distinct keys (ascending block order); the -1
+    # keys tie, and their selections are zeroed below
+    topv, sel = torch.topk(key, sel_blocks, dim=1)         # [B, SB]
+    live = topv > 0
+    sel = torch.where(live, sel, 0)
+
+    blocks = words.view(batch, ws, 32)
+    g = torch.gather(blocks, 1, sel[:, :, None].expand(-1, -1, 32))
+    g = torch.where(live[:, :, None], g, 0)
+    wordidx = (sel[:, :, None] << 5) | lanes[None, None, :]
+    g = g.reshape(batch, -1)                               # [B, SB*32]
+    wordidx = wordidx.reshape(batch, -1)
+
+    counts = _popc32(g).sum(dim=1)
+    overflow = too_deep | (n_blocks > sel_blocks) | (counts > max_rows)
+
+    rows = []
+    for _ in range(max_rows):
+        enc = torch.where(g != 0, ((wordidx << 5) | _ctz32(g)) & MASK32,
+                          MASK32)
+        m = enc.min(dim=1).values                          # [B]
+        rows.append(m)
+        hit = enc == m[:, None]
+        g = torch.where(hit, g & (g - 1), g)               # clear lowest bit
+
+    cnt = torch.where(overflow, 0xF, counts.clamp(max=max_rows))
+    if fmt16:
+        # pack: word0 = count<<28 | row0; then rows 2-at-a-time per word
+        row16 = [torch.where(r == MASK32, 0xFFFF, r & 0xFFFF) for r in rows]
+        out = [(cnt << 28) | row16[0]]
+        for i in range(1, max_rows, 2):
+            hi = (row16[i + 1] if i + 1 < max_rows
+                  else torch.full_like(cnt, 0xFFFF))
+            out.append(((hi << 16) | row16[i]) & MASK32)
+        return torch.stack(out, dim=1) & MASK32
+    return torch.stack([cnt] + rows, dim=1)

@@ -112,6 +112,13 @@ def intern_level(vocab: dict[str, int], level: str) -> int:
     return tok
 
 
+def tokenize_cached(tables, topics: list[str], max_levels: int):
+    """Tokenize against a compiled-table snapshot's ``vocab``. The JAX
+    package's counterpart takes its native tokenizer when built; this
+    package has only the Python path (``tokenize_topics``)."""
+    return tokenize_topics(tables.vocab, topics, max_levels)
+
+
 def tokenize_topics(vocab: dict[str, int], topics: list[str],
                     max_levels: int):
     """Host-side topic prep: token ids padded with -1, lengths, $-flags.

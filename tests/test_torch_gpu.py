@@ -1,4 +1,6 @@
-"""The CUDA kernels on the card, held against their plain versions.
+"""The CUDA kernels on the card, held against their plain versions, and
+the torch device programs (the NFA engine, both sharded engines) on the
+card held against the same programs on the CPU.
 
 This file imports only the port (no JAX), so it runs on a machine that
 has a card and no JAX:
@@ -193,3 +195,84 @@ def test_dense_engine_on_card_matches_trie(cuda_card):
         assert chip_smoke.normalize(g) == chip_smoke.normalize(
             idx.subscribers(t)), t
     assert engine.fallbacks == 1                 # the too-deep topic
+
+
+def nfa_corpus(n_filters: int = 3000, seed: int = 9):
+    """``chip_smoke.build_corpus``'s mixed corpus (10 % '$share') in a port
+    TopicIndex, and topics with '$' topics, too-deep and empty ones."""
+    filters, gen = chip_smoke.build_corpus(n_filters, seed=seed,
+                                           share_frac=0.1)
+    idx = TopicIndex()
+    for i, f in enumerate(filters):
+        idx.subscribe(f"c{i}", Subscription(filter=f, qos=i % 3))
+    topics = gen(2000, seed2=3)
+    topics += ["$SYS/a0", "$" + topics[0], "/".join(["a1"] * 40), ""]
+    return idx, topics
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width,max_rows", [(32, 128), (4, 4)])
+def test_nfa_engine_on_card_matches_cpu(cuda_card, width, max_rows):
+    from maxmq_tpu_torch.matching.engine import NFAEngine
+
+    idx, topics = nfa_corpus()
+    card = NFAEngine(idx, width=width, max_rows=max_rows, device=cuda_card)
+    cpu = NFAEngine(idx, width=width, max_rows=max_rows, device="cpu")
+    got, want = card.match_raw(topics), cpu.match_raw(topics)
+    for g, w in zip(got[:2], want[:2]):
+        assert g.dtype == w.dtype and (g == w).all()
+    assert want[1].any() and not want[1].all()
+    for t, g in zip(topics, card.subscribers_batch(topics)):
+        assert chip_smoke.normalize(g) == chip_smoke.normalize(
+            idx.subscribers(t)), t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["sig", "nfa"])
+def test_sharded_engines_on_card_match_cpu(cuda_card, engine):
+    from maxmq_tpu_torch.parallel.sharded import (ShardedNFAEngine,
+                                                  ShardedSigEngine,
+                                                  make_mesh)
+
+    idx, topics = nfa_corpus()
+    cls = ShardedSigEngine if engine == "sig" else ShardedNFAEngine
+    n = 1 if engine == "sig" else 2       # outputs: slots, or rows + overflow
+    shapes = [(2, 4), (1, 4)] if engine == "sig" else [(2, 4)]
+    card = cls(idx, mesh=make_mesh(shapes[0], devices=[cuda_card] * 8))
+    for shape in shapes:
+        if shape != shapes[0]:
+            card.reshard(make_mesh(shape, devices=[cuda_card] * 4))
+        cpu = cls(idx, mesh=make_mesh(shape, devices=["cpu"] * 8))
+        got, want = card.match_raw(topics), cpu.match_raw(topics)
+        for g, w in zip(got[:n], want[:n]):
+            assert g.dtype == w.dtype and (g == w).all()
+        for t, g in zip(topics, card.subscribers_batch(topics)):
+            assert chip_smoke.normalize(g) == chip_smoke.normalize(
+                idx.subscribers(t)), t
+
+
+@pytest.mark.gpu
+def test_sharded_engines_across_cards(cuda_card):
+    """The default mesh spans every card (``make_mesh()``): each shard's
+    tables live on its own card; both engines equal their CPU twins and
+    the trie. Needs two cards or more."""
+    from maxmq_tpu_torch.parallel.sharded import (ShardedNFAEngine,
+                                                  ShardedSigEngine,
+                                                  make_mesh)
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards or more")
+    idx, topics = nfa_corpus()
+    mesh = make_mesh()
+    assert {d.index for d in mesh.devices.flat} == set(range(n))
+    for cls, n_out in ((ShardedSigEngine, 1), (ShardedNFAEngine, 2)):
+        card = cls(idx, mesh=mesh)
+        cpu = cls(idx, mesh=make_mesh(mesh.devices.shape,
+                                      devices=["cpu"] * n))
+        got, want = card.match_raw(topics), cpu.match_raw(topics)
+        for g, w in zip(got[:n_out], want[:n_out]):
+            assert (g == w).all()
+        for t, g in zip(topics, card.subscribers_batch(topics)):
+            assert chip_smoke.normalize(g) == chip_smoke.normalize(
+                idx.subscribers(t)), t

@@ -14,6 +14,7 @@ import torch
 
 from maxmq_tpu_torch import cli
 from maxmq_tpu_torch.matching.dense import DenseEngine
+from maxmq_tpu_torch.matching.engine import NFAEngine
 from maxmq_tpu_torch.matching.sig import SigEngine, resolve_device
 from maxmq_tpu_torch.matching.trie import TopicIndex
 
@@ -47,7 +48,8 @@ def _imports(path: Path):
 
 
 def test_ast_scan_finds_no_forbidden_import():
-    files = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PACKAGE.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_cluster_cards.py"]
     assert len(files) > 10
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imports(f) if _forbidden(m)]
@@ -56,8 +58,9 @@ def test_ast_scan_finds_no_forbidden_import():
 
 def test_subprocess_import_leaves_jax_out():
     """Import every module of the package in a fresh interpreter, build a
-    SigEngine, a DenseEngine (kernel route) and a MatcherService on the
-    CPU, match once, and check sys.modules."""
+    SigEngine, a DenseEngine (kernel route), an NFAEngine, both sharded
+    engines (on a mesh of CPU devices) and a MatcherService on the CPU,
+    match once, and check sys.modules."""
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in PACKAGE.rglob("*.py") if p.name != "__main__.py")
@@ -66,9 +69,12 @@ def test_subprocess_import_leaves_jax_out():
         for m in {modules!r}:
             importlib.import_module(m)
         from maxmq_tpu_torch.matching.dense import DenseEngine
+        from maxmq_tpu_torch.matching.engine import NFAEngine
         from maxmq_tpu_torch.matching.service import MatcherService
         from maxmq_tpu_torch.matching.sig import SigEngine
         from maxmq_tpu_torch.matching.trie import TopicIndex
+        from maxmq_tpu_torch.parallel.sharded import (
+            ShardedNFAEngine, ShardedSigEngine, make_mesh)
         from maxmq_tpu_torch.protocol import Subscription
 
         idx = TopicIndex()
@@ -79,6 +85,12 @@ def test_subprocess_import_leaves_jax_out():
                     .subscriptions) == ["c1"]
         dense = DenseEngine(idx, device="cpu")
         assert list(dense.subscribers("a/b").subscriptions) == ["c1"]
+        nfa = NFAEngine(idx, device="cpu")
+        assert list(nfa.subscribers("a/b").subscriptions) == ["c1"]
+        mesh = make_mesh((2, 2), devices=["cpu"] * 4)
+        for cls in (ShardedSigEngine, ShardedNFAEngine):
+            assert list(cls(idx, mesh=mesh).subscribers("a/b")
+                        .subscriptions) == ["c1"]
 
         async def serve():
             path = os.path.join(tempfile.mkdtemp(), "m.sock")
@@ -109,6 +121,10 @@ def test_entry_points_refuse_without_cuda(monkeypatch, tmp_path, capsys):
         DenseEngine(idx)
     with pytest.raises(RuntimeError):
         DenseEngine(idx, device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NFAEngine(idx)
+    with pytest.raises(RuntimeError):
+        NFAEngine(idx, device="cuda")
     with pytest.raises(RuntimeError):
         resolve_device(None)
     assert resolve_device("cpu") == torch.device("cpu")

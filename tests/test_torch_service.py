@@ -157,7 +157,7 @@ async def test_jax_broker_attaches_to_port_service():
 
 
 SMOKE_CPU_SIZES = {"subs": {"mixed_100k": 2_000, "hash_plus_100k": 2_000,
-                            "iot_1m_share": 2_000},
+                            "iot_1m_share": 2_000, "cluster_100k": 2_000},
                    "check_batch": 200,
                    "service_rounds": (256, 256, 200),
                    "service_warm": 64,
@@ -166,7 +166,10 @@ SMOKE_CPU_SIZES = {"subs": {"mixed_100k": 2_000, "hash_plus_100k": 2_000,
                    "headline_warm": 2,
                    "edge_batch": 300,
                    "dense_corpus": {"n_filters": 300, "n_subs": 3_000,
-                                    "width": 60}}
+                                    "width": 60},
+                   "nfa_sample": 128,
+                   "cluster_batch": 256,
+                   "cluster_batches": 2}
 
 
 def test_chip_smoke_phases_rehearse_on_cpu():
