@@ -9,7 +9,13 @@ Phases, each of which raises on failure:
 
 0. card: name, power limit, device count;
 1. build: nvcc compiles every ``maxmq_tpu_torch/csrc/*.cu`` (seconds and
-   the ptxas register / shared-memory / spill summary are printed);
+   the ptxas register / shared-memory / spill summary are printed) while
+   g++ compiles the native host runtime, ``csrc/host/*.cpp`` (seconds
+   printed); then the host runtime: whether g++ and ``Python.h`` are
+   there (with both, a failed build or load fails the run; without
+   ``Python.h`` the tokenizer and probes run native and the decode its
+   Python path, and a line says so), and ``scan_frames`` against
+   ``scan_frames_py`` on a few thousand frames;
 2. ``sig_match_fixed`` against its plain version on the card, bit for
    bit, on three corpora and both plane widths: ``mixed_100k`` (<= 40
    device groups, the TPU's select-expansion regime), ``hash_plus_100k``
@@ -25,13 +31,18 @@ Phases, each of which raises on failure:
    requests of 8 x 4,096 + 1 x 65,536 topics, twice: with the batcher's
    adaptive host bypass (the default), then with the bypass off, where the
    kernel must serve most topics; every answer is held against the CPU
-   trie;
+   trie, and the decode that served is printed (the native set decode
+   where the extension is built: no batch may take the Python one);
 4. signature headline: an in-process SigEngine at batch 262,144 on
    ``iot_1m_share`` (fixed_max_rows 14) and ``mixed_100k``, pipelined
-   dispatch/collect, every topic through the kernel, and the kernel held
-   against its plain version on one headline batch; the kernel is also
-   timed on the service's 256-topic batch, and the plane bytes a launch
-   reads are printed;
+   dispatch/collect, every topic through the kernel and the native set
+   decode, and the kernel held against its plain version on one headline
+   batch; the kernel is also timed on the service's 256-topic batch, and
+   the plane bytes a launch reads are printed. On one more batch the
+   decode runs three ways: the native sets, the native intents after
+   ``prewarm_decode_bases``, and the Python decode on a 16,384-topic
+   sample (cold, then with its row memo warm); the intents equal the sets
+   on every topic, the Python decode the native one on the sample;
 5. ``dense_walk_words`` (K4 with the pack and the sparse extract fused)
    against its plain version on the card, bit for bit on (word_idx,
    word_val, overflow), on ``dense_2k`` (the dense kernel's full
@@ -64,16 +75,26 @@ Phases, each of which raises on failure:
    '$share') over a 2 x 4 mesh of eight cells on the one card, batches of
    8,192 answered and held against the CPU trie, ``match_raw`` against the
    same mesh on the CPU, the signature engine resharded to 1 x 4 and
-   checked again, each device program timed at 262,144 topics;
+   checked again, each device program timed at 262,144 topics; the
+   signature engine then runs with ``emit_intents`` (the native intents
+   decode a shard, chained per topic) on the same batches, its
+   ``ChainedIntents`` held against the set path and the trie, and both
+   decodes timed on the same device output;
 12. each kernel's SASS opcode counts (``cuobjdump -sass``, where the
    toolkit has it), the kernels line (JSON), the card line, and the
    result line.
 
+Every phase also prints the routes its host prep took (the topics
+prepared by the C++ pass or numpy, tokenized by the C++ tokenizer or the
+Python loop); where the native runtime is loaded, a topic on the numpy
+or Python route fails the phase.
+
 Phases 8-11 run no hand-written kernel (the reference computes them in
 XLA, outside Pallas); each reads both kernels' launch counts, set to 0
-before it. The corpora are made here from seed 42 (a copy of the
-benchmark's corpus generator, and the ``dense_2k`` generator); the script
-imports nothing of the JAX package.
+before it. The dense and NFA decodes are Python, as the reference's.
+The corpora are made here from seed 42 (a copy of the benchmark's corpus
+generator, and the ``dense_2k`` generator); the script imports nothing
+of the JAX package.
 """
 
 from __future__ import annotations
@@ -105,8 +126,9 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # warm-up topics sent before them, the headline batch, the signature
 # headline's batch count and how many of them warm up (the pipeline and
 # the decode's row memo) untimed, the dense_2k generator's arguments, the
-# NFA headline's decode sample, and the cluster phase's batch and batch
-# count (bench config 5: batches of 8,192 on a 2 x 4 mesh).
+# NFA headline's decode sample, the cluster phase's batch and batch
+# count (bench config 5: batches of 8,192 on a 2 x 4 mesh), the signature
+# headline's Python decode sample, and the frames of the scanner check.
 SIZES = {"subs": {"mixed_100k": 100_000, "hash_plus_100k": 100_000,
                   "iot_1m_share": 1_000_000, "cluster_100k": 100_000},
          "check_batch": 4_096 + 100,
@@ -120,7 +142,9 @@ SIZES = {"subs": {"mixed_100k": 100_000, "hash_plus_100k": 100_000,
                           "width": 440},
          "nfa_sample": 4_096,
          "cluster_batch": 8_192,
-         "cluster_batches": 2}
+         "cluster_batches": 2,
+         "decode_sample": 16_384,
+         "frames": 4_000}
 # engine counters of topics NOT served by the device path, per engine
 SIG_COUNTERS = ("host_matches", "fallbacks", "trie_routed")
 DENSE_COUNTERS = ("fallbacks",)
@@ -312,11 +336,56 @@ def synthetic_sig(seed: int, batch: int, n32: int, n16: int,
 
 
 def normalize(ss):
-    """Comparable form of a SubscriberSet."""
+    """Comparable form of a SubscriberSet (or of a DeliveryIntents or
+    ChainedIntents, through its ``to_set()``)."""
+    if hasattr(ss, "to_set"):
+        ss = ss.to_set()
     subs = {cid: (s.qos, tuple(sorted(s.identifiers.items())))
             for cid, s in ss.subscriptions.items()}
     shared = {k: tuple(sorted(v)) for k, v in ss.shared.items()}
     return subs, shared
+
+
+def same_answer(a, b) -> bool:
+    """Order-free equality of two match results (SubscriberSets, or
+    intents through ``to_set()``): the same clients, each with the same
+    QoS, no_local and identifiers (a record merged from several filters
+    keeps the newest one's other fields, and the decodes union in orders
+    of their own), and the same shared groups. Records aliased in both
+    are equal without a look (the common case, at C speed)."""
+    if hasattr(a, "to_set"):
+        a = a.to_set()
+    if hasattr(b, "to_set"):
+        b = b.to_set()
+    sa, sb = a.subscriptions, b.subscriptions
+    if a.shared != b.shared or sa.keys() != sb.keys():
+        return False
+    if sa == sb:                 # C-level compare, aliased records first
+        return True
+    for cid, x in sa.items():
+        y = sb[cid]
+        if x is not y and (x.qos, x.no_local, x.identifiers) != (
+                y.qos, y.no_local, y.identifiers):
+            return False
+    return True
+
+
+def mqtt_frames(n: int, seed: int) -> bytes:
+    """``n`` MQTT frames from a seed: a type/flags byte (types 1..15), the
+    remaining length as a variable-byte integer, and that many bytes."""
+    rng = np.random.default_rng(seed)
+    out = bytearray()
+    for _ in range(n):
+        out.append(int(rng.integers(1, 16)) << 4 | int(rng.integers(0, 16)))
+        v = rem = int(rng.integers(0, 128) if rng.random() < 0.7
+                      else rng.integers(128, 20_000))
+        while True:
+            b, v = v & 0x7F, v >> 7
+            out.append(b | (0x80 if v else 0))
+            if not v:
+                break
+        out += rng.integers(0, 256, rem, dtype=np.uint8).tobytes()
+    return bytes(out)
 
 
 def card_line() -> str:
@@ -496,6 +565,68 @@ class Smoke:
                 f"{time.perf_counter() - t0:.1f} s")
         return self.engines[name]
 
+    def check_decoded(self, what: str, decoded: dict) -> None:
+        """Where the decode extension is built, no topic of a measured
+        signature path may take the Python decode."""
+        from maxmq_tpu_torch import native
+
+        log(f"[decode] {what}: served by {json.dumps(decoded)}")
+        if native.decode_module() is not None and decoded.get("python"):
+            raise AssertionError(f"{what}: {decoded['python']} topics took "
+                                 "the Python decode")
+
+    # -- phase 1: the host runtime ---------------------------------------
+
+    def host_runtime(self) -> dict:
+        """The native host runtime as this machine builds it: g++ and
+        ``Python.h`` present or not, the build seconds, the libraries
+        loaded (with both tools, a failed build or load fails the run),
+        and ``scan_frames`` against ``scan_frames_py``."""
+        from maxmq_tpu_torch import native
+        from maxmq_tpu_torch.matching import trie
+
+        rec = {"gxx": native.compiler(), "python_h": native.python_include(),
+               "build": dict(native.build_log),
+               "tokenizer": native.available(),
+               "decode": native.decode_module() is not None}
+        if rec["gxx"] is None:
+            raise AssertionError("g++ not found: the native host runtime "
+                                 "cannot be built")
+        if not rec["tokenizer"] or (rec["python_h"] and not rec["decode"]):
+            raise AssertionError(f"the native host runtime failed to build "
+                                 f"or load: {native.build_errors}")
+        if rec["decode"] and (trie.SubscriberSet
+                              is not native.decode_module().SubscriberSet):
+            raise AssertionError("SubscriberSet is not the decode "
+                                 "extension's type")
+        if not rec["python_h"]:
+            log("[host] Python.h not found: the decode extension is not "
+                "built; the tokenizer and probes run native, every decode "
+                "its Python path")
+        data = mqtt_frames(self.sizes["frames"], seed=7)
+        cuts = [len(data), len(data) - 3, len(data) // 2 + 1]
+        for cut in cuts:
+            if native.scan_frames(data[:cut], 1 << 16) != \
+                    native.scan_frames_py(data[:cut], 1 << 16):
+                raise AssertionError(f"scan_frames disagrees with "
+                                     f"scan_frames_py (cut {cut})")
+        frames, used = native.scan_frames(data, 1 << 16)
+        half = frames[len(frames) // 2][1]        # a frame boundary
+        for bad in (data[:half] + b"\x00\x01\x02",
+                    b"\x30\xff\xff\xff\xff\x01"):
+            msgs = []
+            for fn in (native.scan_frames, native.scan_frames_py):
+                try:
+                    fn(bad, 1 << 16)
+                    msgs.append(None)
+                except native.MalformedFrame as exc:
+                    msgs.append(str(exc))
+            if msgs[0] is None or msgs[0] != msgs[1]:
+                raise AssertionError(f"malformed frame: {msgs}")
+        rec.update(frames=len(frames), frame_bytes=used)
+        log(f"[host] {json.dumps(rec)}")
+        return rec
+
     # -- phase 2 -------------------------------------------------------
 
     def check_batch(self, name: str) -> list[str]:
@@ -666,6 +797,7 @@ class Smoke:
             if m["mismatches"]:
                 raise AssertionError(f"{m['mismatches']} service answers "
                                      f"({mode}) differ from the CPU trie")
+            self.check_decoded(f"sig service ({mode})", m["decoded"])
         dev = modes["device"]
         if dev["device_topics"] * 2 <= dev["topics"]:
             raise AssertionError(
@@ -688,6 +820,7 @@ class Smoke:
         batcher.cpu_bypass = bypass
         names = ("matches",) + tuple(counters)
         base = {k: getattr(engine, k) for k in names}
+        decoded0 = dict(getattr(engine, "decoded", {}))
         bypass0 = batcher.bypasses
         launches0 = kernel.launches if kernel is not None else 0
         hits0 = batcher.cache_hits
@@ -726,13 +859,17 @@ class Smoke:
                 "cache_hits": batcher.cache_hits - hits0,
                 "distinct_topics": distinct,
                 "device_topics": d["matches"] - sum(d[k] for k in counters),
+                "decoded": ({k: v - decoded0[k]
+                             for k, v in engine.decoded.items()}
+                            if decoded0 else "python"),
                 "checked": checked, "mismatches": bad, **d}
 
     # -- phase 4 -------------------------------------------------------
 
     def headline(self, name: str) -> dict:
         from maxmq_tpu_torch.matching.sig import pad_to_bucket
-        from maxmq_tpu_torch.matching.sig_tables import prepare_batch
+        from maxmq_tpu_torch.matching.sig_tables import (_native_decode,
+                                                         prepare_batch)
 
         sk, torch = self.sig_kernel, self.torch
         engine = self.engine(name)
@@ -742,6 +879,12 @@ class Smoke:
                    for i in range(self.sizes["headline_batches"])]
         base = {k: getattr(engine, k)
                 for k in ("matches",) + SIG_COUNTERS}
+        decoded0 = dict(engine.decoded)
+        # the native decode's table of this snapshot, built once at its
+        # first decode: set-up, so built here, before the timed batches
+        t0 = time.perf_counter()
+        _native_decode(engine.tables)
+        decode_table_s = time.perf_counter() - t0
         sk.sig_match_fixed.launches = 0
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
@@ -751,6 +894,10 @@ class Smoke:
         pending = None
         first_results = None
         t_first = t_last = 0.0
+        # the pipelined window opens at the first timed dispatch, and
+        # counts every batch collected in it: the warm batch's decode
+        # falls inside it too
+        window_topics = 0
         for i in range(len(batches) + 1):
             topics = batches[i] if i < len(batches) else None
             t0 = time.perf_counter()
@@ -767,6 +914,8 @@ class Smoke:
                 res = engine._decode_stream(p_topics, p_ctx, *fetched)
                 t_last = time.perf_counter()
                 decode_s.append(t_last - t2)
+                if i >= warm:
+                    window_topics += len(p_topics)
                 if j >= warm:
                     times["fetch"].append(t2 - t1)
                     times["decode"].append(t_last - t2)
@@ -777,6 +926,8 @@ class Smoke:
         d = {k: getattr(engine, k) - v for k, v in base.items()}
         if d["host_matches"] or d["trie_routed"]:
             raise AssertionError(f"{name}: topics left the kernel path {d}")
+        decoded = {k: v - decoded0[k] for k, v in engine.decoded.items()}
+        self.check_decoded(f"sig headline {name}", decoded)
         if self.device.type == "cuda" and launches < len(batches):
             raise AssertionError(f"{name}: {launches} launches for "
                                  f"{len(batches)} batches")
@@ -823,7 +974,6 @@ class Smoke:
                   + (32 * n32 + 16 * n16) * 4 + b + b * mr * 4)
         t_ops = ops / INT32_OPS_PER_S * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        timed_topics = batch * len(times["decode"])
         out = {
             "subs": index.subscription_count, "batch": batch,
             "bucket": b, "groups": len(tables.groups),
@@ -836,7 +986,7 @@ class Smoke:
                 times["decode"]),
             "decode_topics_per_s_by_batch": [batch / t for t in decode_s],
             "warm_batches": warm,
-            "pipelined_topics_per_s": timed_topics / (t_last - t_first),
+            "pipelined_topics_per_s": window_topics / (t_last - t_first),
             "kernel_ms": kernel_ms,
             "kernel_topics_per_s": b / (kernel_ms / 1e3),
             "kernel_ms_256": small,
@@ -851,14 +1001,82 @@ class Smoke:
             "overflow_topics": int((counts[:batch] == 0xFF).sum()),
             "subscribers_per_topic": per_topic,
             "library_ms": None,    # no single PyTorch call computes this
+            "decoded": decoded, "decode_table_s": decode_table_s,
             **{k: v for k, v in d.items()},
         }
         if self.device.type == "cuda":
             out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        out["decode_forms"] = self.decode_forms(name, engine, gen(
+            batch, seed2=2100))
         log(f"[headline] {name}: {json.dumps(out)}")
         log(f"[headline] {name}: library yardstick: none — no single "
             "PyTorch call computes this function")
         return out
+
+    def decode_forms(self, name: str, engine, topics: list[str]) -> dict:
+        """One dispatched batch decoded three ways: the native set decode,
+        the native intents decode after ``prewarm_decode_bases``, and the
+        Python decode (numpy verify + memoized row union) on the first
+        ``decode_sample`` topics, cold and then with its row memo warm.
+        The intents must equal the sets on every topic, the Python decode
+        the native one on the sample. Rates exclude the trie's fallback
+        pass (overflow topics), which every form shares."""
+        from maxmq_tpu_torch.matching.sig_tables import _native_decode
+
+        batch = len(topics)
+        ctx = engine.dispatch_fixed(topics)
+        fall, ti, rw = engine.stream_pairs(batch, ctx,
+                                           *engine._fetch_stream(ctx.fetch))
+        tables = ctx.tables
+        toks8, lens_enc = ctx.toks8[:batch], ctx.lens_enc[:batch]
+        nd = _native_decode(tables)
+        rec = {"batch": batch, "pairs": len(ti),
+               "overflow_topics": int(fall.sum())}
+        forms = {}
+        if nd is not None:
+            engine.emit_intents = False
+            t0 = time.perf_counter()
+            forms["native-sets"] = engine._decode_native(
+                nd, tables, toks8, lens_enc, batch, ti, rw, None)
+            rec["native_sets_topics_per_s"] = batch / (
+                time.perf_counter() - t0)
+            engine.emit_intents = True
+            t0 = time.perf_counter()
+            rec["prewarm_chunks"] = engine.prewarm_decode_bases()
+            rec["prewarm_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            forms["native-intents"] = engine._decode_native(
+                nd, tables, toks8, lens_enc, batch, ti, rw, None)
+            rec["native_intents_topics_per_s"] = batch / (
+                time.perf_counter() - t0)
+            engine.emit_intents = False
+            sets, intents = forms["native-sets"], forms["native-intents"]
+            t0 = time.perf_counter()
+            bad = sum(not same_answer(intents[i], sets[i])
+                      for i in range(batch) if not fall[i])
+            rec["intents_vs_sets_checked"] = int(batch - fall.sum())
+            rec["intents_vs_sets_check_s"] = time.perf_counter() - t0
+            if bad:
+                raise AssertionError(f"{name}: {bad} intents differ from "
+                                     "the native sets")
+        n = min(self.sizes["decode_sample"], batch)
+        sel = ti < n
+        memo = {}
+        for label in ("cold", "warm"):
+            t0 = time.perf_counter()
+            py = engine._decode_python(tables, memo, toks8[:n], lens_enc[:n],
+                                       n, ti[sel], rw[sel], None)
+            rec[f"python_{label}_topics_per_s"] = n / (
+                time.perf_counter() - t0)
+        rec["python_sample"] = n
+        if nd is not None:
+            bad = sum(not same_answer(py[i], forms["native-sets"][i])
+                      for i in range(n) if not fall[i])
+            if bad:
+                raise AssertionError(f"{name}: {bad} Python decodes differ "
+                                     "from the native sets")
+        log(f"[decode] {name}: {json.dumps(rec)}")
+        return rec
 
     # -- dense phases (5-7) ---------------------------------------------
 
@@ -1223,6 +1441,7 @@ class Smoke:
             "overflow_topics": int(got[2][:batch].sum()),
             "subscribers_per_topic": per_topic,
             "library_ms": None,    # no single PyTorch call computes this
+            "decoded": "python",   # the dense decode is the reference's
             **d,
         }
         if self.device.type == "cuda":
@@ -1237,10 +1456,26 @@ class Smoke:
     # -- NFA phases (9-11) and the cluster phase (12) --------------------
 
     def phase(self, name: str, fn, *args):
-        """Run one phase and log its wall time."""
+        """Run one phase and log its wall time and the routes its host
+        prep took. Where the native runtime is loaded, a topic prepared
+        by numpy or tokenized by the Python loop fails the phase."""
+        from maxmq_tpu_torch import native
+        from maxmq_tpu_torch.matching import sig_tables, topics
+
+        counters = {"prepared": sig_tables.prepared,
+                    "tokenized": topics.tokenized}
+        before = {k: dict(c) for k, c in counters.items()}
         t0 = time.perf_counter()
         out = fn(*args)
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+        routes = {k: {r: n - before[k][r] for r, n in c.items()}
+                  for k, c in counters.items()}
+        log(f"[phase] {name}: host prep {json.dumps(routes)}")
+        slow = routes["prepared"]["numpy"] + routes["tokenized"]["python"]
+        if native.available() and slow:
+            raise AssertionError(f"{name}: {slow} topics took the numpy or "
+                                 "Python host prep while the native runtime "
+                                 "is loaded")
         return out
 
     def kernel_counts(self) -> dict:
@@ -1493,6 +1728,7 @@ class Smoke:
                if (~overflow).any() else 0.0,
                "sample": len(sample), "sample_device_served": len(served),
                "decode_topics_per_s": len(served) / t_dec if t_dec else None,
+               "decoded": "python",    # the NFA decode is the reference's
                "subscribers_per_topic": statistics.mean(
                    len(r) for r in decoded) if decoded else 0.0,
                "emission_buffer_bytes": len(arrays[1]) * (levels + 1) * 2
@@ -1651,6 +1887,7 @@ class Smoke:
                                               mesh(CLUSTER_MESH, "cpu"))
             rec["headline"] = self.cluster_time(engine)
             if label == "sig":
+                rec["intents"] = self.cluster_intents(engine, gen, expected)
                 t0 = time.perf_counter()
                 engine.reshard(mesh(CLUSTER_RESHARD, dev))
                 rec["reshard_s"] = time.perf_counter() - t0
@@ -1664,9 +1901,66 @@ class Smoke:
             f"{json.dumps(out['kernel_launches'])}")
         return out
 
+    def cluster_intents(self, engine, gen, expected) -> dict:
+        """``ShardedSigEngine`` with ``emit_intents`` on the cluster's
+        batches: the native intents decode a shard, chained per topic
+        (``ChainedIntents``), against the set path and the trie on every
+        topic; each decode timed on the same device output."""
+        from maxmq_tpu_torch import native
+        from maxmq_tpu_torch.parallel.sharded import ChainedIntents
+
+        engine.emit_intents = True
+        t0 = time.perf_counter()
+        rec = {"prewarm_chunks": engine.prewarm_decode_bases(),
+               "prewarm_s": time.perf_counter() - t0}
+        served = dict.fromkeys(engine.decoded, 0)
+        n = bad = chained = 0
+        t_sets = t_intents = t_batch = 0.0
+        for k in range(self.sizes["cluster_batches"]):
+            topics = gen(self.sizes["cluster_batch"], seed2=7000 + k)
+            decoded0 = dict(engine.decoded)
+            t0 = time.perf_counter()
+            res = engine.subscribers_batch(topics)
+            t_batch += time.perf_counter() - t0
+            for key, v in engine.decoded.items():
+                served[key] += v - decoded0[key]
+            out, hostrows, shards, toks, lens = engine.match_raw(topics)
+            t0 = time.perf_counter()
+            sets = engine._decode_sets(topics, out, hostrows, shards, None)
+            t1 = time.perf_counter()
+            again = engine._decode_intents(topics, out, hostrows, shards,
+                                           toks, lens)
+            t_intents += time.perf_counter() - t1
+            t_sets += t1 - t0
+            for i, t in enumerate(topics):
+                n += 1
+                chained += isinstance(res[i], ChainedIntents)
+                bad += (normalize(res[i]) != expected(t)
+                        or not same_answer(res[i], sets[i])
+                        or (again is not None
+                            and not same_answer(again[i], sets[i])))
+        engine.emit_intents = False
+        rec.update(topics=n, mismatches=bad, chained=chained,
+                   topics_per_s=n / t_batch,
+                   decode_sets_topics_per_s=n / t_sets,
+                   decode_intents_topics_per_s=(n / t_intents
+                                                if again is not None
+                                                else None),
+                   decoded=served)
+        self.check_decoded("cluster sig intents", served)
+        if bad:
+            raise AssertionError(f"cluster intents: {bad} of {n} answers "
+                                 "differ from the set path or the trie")
+        if native.decode_module() is not None and chained * 2 < n:
+            raise AssertionError(f"cluster intents: only {chained} of {n} "
+                                 "results were chained intents")
+        log(f"[cluster] sig intents: {json.dumps(rec)}")
+        return rec
+
     # -- all phases ----------------------------------------------------
 
     def run(self) -> dict:
+        self.phase("host runtime", self.host_runtime)
         checks = {name: self.phase(f"sig check {name}",
                                    self.kernel_vs_plain, name)
                   for name in ("mixed_100k", "hash_plus_100k",
@@ -1749,14 +2043,23 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
 
+    from maxmq_tpu_torch import native
+
     t0 = time.perf_counter()
     kernels.build_all()
-    log(f"[build] all kernels in {time.perf_counter() - t0:.1f} s")
+    native.build_all()
+    log(f"[build] all kernels and the host runtime in "
+        f"{time.perf_counter() - t0:.1f} s")
     for name, rec in kernels.build_log.items():
         log(f"[build] {name}.cu: {rec['seconds']:.1f} s "
             f"(cached={rec['cached']})")
         for line in rec["ptxas"].splitlines():
             log(f"[build]   {line.strip()}")
+    for name, rec in native.build_log.items():
+        log(f"[build] host/{name}.cpp: {rec['seconds']:.1f} s "
+            f"(cached={rec['cached']})")
+    for name, err in native.build_errors.items():
+        log(f"[build] host/{name}.cpp failed: {err}")
 
     for name in kernels.SIGNATURES:
         for fn, rec in kernel_sass(name).items():

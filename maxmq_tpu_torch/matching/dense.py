@@ -51,7 +51,7 @@ from .nfa import Entry, EntryBuilder
 from .sig import resolve_device
 from .sig_torch import to_int32_bits
 from .topics import (intern_level, pad_topic_batch, split_levels,
-                     tokenize_topics)
+                     tokenize_cached)
 from .trie import SubscriberSet, TopicIndex, subs_version
 
 PLUS = -2    # '+' sentinel in child_tok
@@ -80,8 +80,8 @@ class DenseTables:
     version: int = -1
 
     def tokenize(self, topics: list[str], max_levels: int):
-        """Host-side topic prep (the Python tokenizer)."""
-        return tokenize_topics(self.vocab, topics, max_levels)
+        """Host-side topic prep (``topics.tokenize_cached``)."""
+        return tokenize_cached(self, topics, max_levels)
 
 
 class _Node:

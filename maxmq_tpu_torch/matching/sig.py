@@ -7,8 +7,11 @@ the matcher service drive). Per batch: host tokenize + exact/'+' probes
 (``sig_tables.prepare_batch``), one device program (prologue, the
 ``sig_match_fixed`` CUDA kernel, stream compaction; ``sig_kernel``),
 asynchronous fetch of the counts and the used front of the row stream,
-then the host batch verify + entry union. Overflow topics, declined
-corpora and journal gaps are served exactly by the CPU trie.
+then the host batch verify + entry union: one C pass of the port's
+native decode (merged ``SubscriberSet``s, or ``DeliveryIntents`` with
+``emit_intents``), or the memoized Python union where the extension is
+absent. Overflow topics, declined corpora and journal gaps are served
+exactly by the CPU trie.
 
 ``device_tables`` turns a compiled table set's numpy arrays into the
 device state — the "weights" of this system. It accepts the arrays of
@@ -27,9 +30,10 @@ import torch
 from .. import faults
 from . import sig_kernel
 from .sig_tables import (MAX_GROUPS, OverlayedEngine, Overlay,
-                         SigTables, _compact_dtype, _pairs_with_host,
-                         _union_pairs, compile_sig, host_hash_rows,
-                         prepare_batch, verify_pairs)
+                         SigTables, _compact_dtype, _native_decode,
+                         _native_hash_probe, _pairs_with_host, _union_pairs,
+                         compile_sig, host_hash_rows, prepare_batch,
+                         prewarm_tables, verify_pairs)
 from .topics import batch_bucket as _batch_bucket
 from .topics import filter_matches_topic, split_levels
 from .trie import SubscriberSet, TopicIndex, merge_subscription
@@ -276,6 +280,13 @@ class SigEngine(OverlayedEngine):
             raise ValueError("kernel_width must be 'auto' or '32'")
         self.kernel_width = kernel_width
         self.kernel_plan = None    # sig_kernel.plan of the live program
+        # emit DeliveryIntents (flat fan-out-ready entries) instead of
+        # merged SubscriberSet dicts from the native decode; falls back
+        # to sets for overlay windows, CPU-trie fallbacks, and when the C
+        # extension is absent (consumers handle both shapes)
+        self.emit_intents = False
+        # topics decoded, by the decode that served them
+        self.decoded = {"native-sets": 0, "native-intents": 0, "python": 0}
         # auto-route TINY corpora to the CPU trie: a few hundred
         # subscriptions never amortize table compiles and device batches
         self.route_small = True
@@ -498,11 +509,18 @@ class SigEngine(OverlayedEngine):
         # overflow topics are served by the trie fallback pass and
         # counted under fallbacks — not host matches
         self.host_matches += batch - int(fall.sum())
-        hh = host_hash_rows(tables, toks, lengths, lens_enc < 0)
-        ti_h = np.repeat(np.arange(batch), [len(h) for h in hh])
-        rw_h = (np.concatenate([np.asarray(h) for h in hh])
-                .astype(np.int64) if len(ti_h)
-                else np.empty(0, dtype=np.int64))
+        # the '#' hits ride _pairs_with_host's device-pair slot: the
+        # cached C ge-depth probe when built, host_hash_rows otherwise
+        hp = _native_hash_probe(tables)
+        if hp is not None:
+            ti_h, rw_h = hp.run(np.ascontiguousarray(toks), lens_enc)
+            rw_h = rw_h.astype(np.int64)
+        else:
+            hh = host_hash_rows(tables, toks, lengths, lens_enc < 0)
+            ti_h = np.repeat(np.arange(batch), [len(h) for h in hh])
+            rw_h = (np.concatenate([np.asarray(h) for h in hh])
+                    .astype(np.int64) if len(ti_h)
+                    else np.empty(0, dtype=np.int64))
         ti, rw = _pairs_with_host(batch, ti_h, rw_h, hostrows, fall, tables)
         return self.decode_pairs(topics, fall, ti, rw, tables,
                                  state.fragments, toks, lens_enc)
@@ -515,11 +533,10 @@ class SigEngine(OverlayedEngine):
         fetched = self._fetch_stream(ctx.fetch)
         return self._decode_stream(topics, ctx, *fetched)
 
-    def _decode_stream(self, topics: list[str], ctx, cnt, real, flat):
-        """Host half of the stream wire format after the fetch: pair
-        assembly + batch verify + entry union (split from collect_fixed
-        so harnesses can time fetch and decode separately)."""
-        batch = len(topics)
+    def stream_pairs(self, batch: int, ctx, cnt, real, flat):
+        """(fall, ti, rw) of a fetched stream: the overflow flags and the
+        device pairs joined with the host-probe hits (the pair assembly of
+        ``_decode_stream``)."""
         if len(cnt) > batch:            # bucket-padded dispatch: pads
             cnt, real = cnt[:batch], real[:batch]   # carry no rows
         fall = cnt == 15
@@ -528,26 +545,72 @@ class SigEngine(OverlayedEngine):
                   else np.empty(0, dtype=np.int64))
         ti, rw = _pairs_with_host(batch, ti_dev, rw_dev, ctx.hostrows,
                                   fall, ctx.tables)
+        return fall, ti, rw
+
+    def _decode_stream(self, topics: list[str], ctx, cnt, real, flat):
+        """Host half of the stream wire format after the fetch: pair
+        assembly + batch verify + entry union (split from collect_fixed
+        so harnesses can time fetch and decode separately)."""
+        fall, ti, rw = self.stream_pairs(len(topics), ctx, cnt, real, flat)
         return self.decode_pairs(topics, fall, ti, rw, ctx.tables,
                                  ctx.fragments, ctx.toks8, ctx.lens_enc)
 
     def decode_pairs(self, topics: list[str], fall, ti, rw, tables,
                      fragments, toks8, lens_enc) -> list[SubscriberSet]:
-        """Host decode of flattened candidate pairs: numpy batch verify +
-        entry union (through ``fragments``, the snapshot's row memo), then
-        the overlay and fallback pass.
+        """Host decode of flattened candidate pairs: batch verify + entry
+        union (one C pass when the native decode extension is built; the
+        numpy verify and the union through ``fragments``, the snapshot's
+        row memo, otherwise), then the overlay and fallback pass.
 
-        Result contract (the JAX package's native decode has the same):
-        returned SubscriberSets may be SHARED across topics and calls —
-        the union is built from memoized per-row fragments — so treat
-        them as immutable and ``deep_copy()`` before mutating."""
+        Result contract: returned results may be SHARED across topics and
+        calls (the C pass memoizes per verified row set, the Python union
+        per row) — treat them as immutable and ``deep_copy()`` before
+        mutating."""
         overlay = self.overlay_for(tables.version)
         if overlay == "resync":
             return self._resync_batch(topics)
         removed = overlay.removed if overlay else None
         batch = len(topics)
         self.matches += batch
+        # bucket-padded dispatch: the C decode pass derives the token
+        # matrix width from len/batch, so hand it exactly [batch, W]
+        # (leading-axis slices of C-contiguous arrays stay contiguous)
         toks8, lens_enc = toks8[:batch], lens_enc[:batch]
+        nd = _native_decode(tables) if removed is None else None
+        if nd is not None:
+            out = self._decode_native(nd, tables, toks8, lens_enc, batch,
+                                      ti, rw, overlay)
+        else:
+            self.decoded["python"] += batch
+            out = self._decode_python(tables, fragments, toks8, lens_enc,
+                                      batch, ti, rw, removed)
+        return self._overlay_fallback_pass(topics, out, fall, overlay)
+
+    def _decode_native(self, nd, tables, toks8, lens_enc, batch, ti, rw,
+                       overlay):
+        """One C pass: verify + the whole entry union (plain inserts,
+        identifier merges via the merge_subscription callback,
+        shared-group maps) + the result construction. Intents mode skips
+        the merged-dict materialization: flat borrowed-pointer entries a
+        broker fans out directly. Overlay windows need merge_delta's set
+        mutation, so they keep the set form until the background
+        recompile lands."""
+        mod, capsule = nd
+        _dt, pad = _compact_dtype(tables)
+        intents = self.emit_intents and overlay is None
+        self.decoded["native-intents" if intents else "native-sets"] += batch
+        decode_fn = mod.decode_batch_intents if intents else mod.decode_batch
+        return decode_fn(
+            capsule, toks8, toks8.dtype.itemsize, int(pad), lens_enc,
+            batch, np.ascontiguousarray(ti), np.ascontiguousarray(rw))
+
+    @staticmethod
+    def _decode_python(tables, fragments, toks8, lens_enc, batch, ti, rw,
+                       removed):
+        """Python decode: numpy batch verify, then the memoized row union
+        (``_union_rowsets``), or the plain union filtering ``removed``
+        pairs in an overlay window (merge_delta then mutates the results,
+        so nothing is shared there)."""
         lengths = np.abs(lens_enc.astype(np.int32))
         dollar = lens_enc < 0
         dtype, pad = _compact_dtype(tables)
@@ -556,13 +619,10 @@ class SigEngine(OverlayedEngine):
             toks32[toks32 == pad] = -1
         ok = verify_pairs(tables, toks32, lengths, dollar, ti, rw)
         if removed is None:
-            out = _union_rowsets(batch, ti[ok], rw[ok], tables, fragments)
-        else:
-            # overlay window: the union filters removed pairs and
-            # merge_delta then mutates the results, so nothing is shared
-            out = [SubscriberSet() for _ in range(batch)]
-            _union_pairs(out, ti[ok], rw[ok], tables, removed)
-        return self._overlay_fallback_pass(topics, out, fall, overlay)
+            return _union_rowsets(batch, ti[ok], rw[ok], tables, fragments)
+        out = [SubscriberSet() for _ in range(batch)]
+        _union_pairs(out, ti[ok], rw[ok], tables, removed)
+        return out
 
     def _overlay_fallback_pass(self, topics, out, fall, overlay):
         """Overlay/fallback post-pass; the common case (fresh tables, no
@@ -637,9 +697,18 @@ class SigEngine(OverlayedEngine):
             _warm()
 
     def prewarm_decode_bases(self, chunk: int = 2048) -> int:
-        """No-op: the chained-decode anchors belong to the native decode,
-        which this package does not load. Returns 0 chunk calls."""
-        return 0
+        """Build the chained-decode anchors (per-row slot maps + pinned
+        single-row intents) of the native intents decode for the live
+        table NOW, in GIL-bounded chunks, instead of paying the
+        population ramp across the first cold topics. The background
+        refresh calls it after each rotation. Returns the number of
+        chunk calls made (0 with intents off or the extension absent)."""
+        if not self.emit_intents:
+            return 0
+        state = self._state
+        if state is None or state.program is None:
+            return 0
+        return prewarm_tables(state.tables, chunk)
 
     @staticmethod
     def _add_row(result: SubscriberSet, row: int, tables: SigTables,

@@ -3,9 +3,10 @@ candidate verification and the staleness overlay.
 
 Copy of the JAX-free host code of the JAX package's ``matching/sig.py``
 (its device half lives in ``sig_torch.py`` and ``sig_kernel.py`` here).
-The tokenizer, probes and decode are the numpy paths the JAX package
-keeps as exact drop-ins for its native C helpers; this package does not
-load the native runtime.
+The tokenizer, probes and decode run in the port's native runtime
+(``native.py``: the fused C++ tokenize + probe, the C '#' probe, the C
+verify + union decode) when it is built, and as the numpy paths, their
+exact twins, otherwise.
 
 Wildcard matching as grouped hash-equality: filters are grouped by
 *shape* — (has-'#', depth-or-prefix-len, set of literal positions) — and
@@ -27,7 +28,7 @@ import numpy as np
 
 from .nfa import Entry, EntryBuilder
 from .topics import intern_level, split_levels, tokenize_topics
-from .trie import TopicIndex, merge_subscription
+from .trie import SubscriberSet, TopicIndex, merge_subscription
 
 MAX_GROUPS = 4096   # compile guard: pathological corpora fall back (engine)
 DEPTH_CAP = 63      # deepest literal level any compiled group may inspect
@@ -558,28 +559,150 @@ def tokenize_compact(tables, topics: list[str], window: int | None = None):
     return toks, lens_enc, toks32, lengths
 
 
+# topics prepared by ``prepare_batch`` / ``prepare_batch_sig``, per route:
+# "native" where the C++ pass served the whole host half, "numpy" else
+prepared = {"native": 0, "numpy": 0}
+
+
 def prepare_batch_sig(tables, topics: list[str], window: int | None = None,
                       host_exact: dict | None = None):
     """Host half of the word path, signature form: (toks, lens_enc, esig,
-    lengths), with ``esig`` the topics' exact-group signatures.
+    lengths), with ``esig`` the topics' exact-group signatures. One C++
+    pass (tokens + exact-group signatures) when the native runtime is
+    built; numpy otherwise. ``prepared`` counts the topics of each route.
 
     ``window``/``host_exact`` override the tables' own (the sharded engine
     passes the mesh-wide maxima/union — exact-group coefficients are
     deterministic functions of the group shape, so one signature per depth
     serves every shard). Too-deep topics report ``lengths`` -1."""
+    if window is None:
+        window = max(tables.probe_depth, 1)
     if host_exact is None:
         host_exact = tables.host_exact or {}
-    toks, lens_enc, toks32, lengths = tokenize_compact(tables, topics,
-                                                       window)
+    ns = tables.__dict__.get("_native_sig", False)
+    if ns is False:
+        ns = None
+        try:
+            from ..native import ExactSigTable, NativeVocab, available
+            if available():
+                # share the C++ vocab mirror with the word path
+                # (tokenize_cached caches it under _native_vocab) instead
+                # of marshalling the whole vocab into C++ twice
+                nv = tables.__dict__.get("_native_vocab") or \
+                    NativeVocab(tables.vocab)
+                tables.__dict__.setdefault("_native_vocab", nv)
+                ns = (nv, ExactSigTable(host_exact))
+        except Exception:
+            ns = None
+        tables.__dict__["_native_sig"] = ns
+    if ns is None:
+        prepared["numpy"] += len(topics)
+        return _prepare_sig_numpy(tables, topics, window, host_exact)
+    prepared["native"] += len(topics)
+    from ..native import tokenize_sig
+    dtype, _pad = _compact_dtype(tables)
+    toks, lens_enc, esig = tokenize_sig(ns[0], topics, window, dtype, ns[1])
+    lengths = np.abs(lens_enc.astype(np.int32))
+    lengths[lengths >= 127] = -1
+    return toks, lens_enc, esig, lengths
+
+
+def _prepare_sig_numpy(tables, topics: list[str], window: int,
+                       host_exact: dict):
+    """The numpy form of ``prepare_batch_sig``."""
+    toks, lens_enc, toks32, lengths = tokenize_compact(tables, topics, window)
     return toks, lens_enc, exact_sigs(host_exact, toks32, lengths), lengths
+
+
+class HostRows:
+    """CSR view of the host probe's per-topic candidate rows: O(1) python
+    work per batch instead of one list entry per topic. Indexes and
+    iterates like the list of per-topic arrays the numpy probes give."""
+
+    __slots__ = ("offsets", "rows")
+
+    def __init__(self, offsets: np.ndarray, rows: np.ndarray) -> None:
+        self.offsets = offsets        # int64[n + 1]
+        self.rows = rows              # int32[total hits]
+
+    @classmethod
+    def from_hits(cls, n: int, ti: np.ndarray, rows: np.ndarray
+                  ) -> "HostRows":
+        counts = np.bincount(ti, minlength=n)
+        offsets = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(counts, out=offsets[1:])
+        return cls(offsets, rows)
+
+    def __len__(self) -> int:
+        return len(self.offsets) - 1
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        return self.rows[self.offsets[i]:self.offsets[i + 1]]
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self.rows[self.offsets[i]:self.offsets[i + 1]]
+
+
+def _native_fused(tables):
+    """(NativeVocab, NativeProbe) pair for the fused single-pass host
+    half, or None. Cached per compiled-table snapshot."""
+    fused = tables.__dict__.get("_native_fused", False)
+    if fused is not False:
+        return fused
+    fused = None
+    try:
+        from ..native import NativeProbe, NativeVocab, available
+        if available():
+            nv = tables.__dict__.get("_native_vocab") or \
+                NativeVocab(tables.vocab)
+            tables.__dict__.setdefault("_native_vocab", nv)
+            fused = (nv, NativeProbe(tables.host_exact or {},
+                                     tables.host_plus or {}))
+    except Exception:
+        fused = None
+    tables.__dict__["_native_fused"] = fused
+    return fused
+
+
+def _native_hash_probe(tables):
+    """NativeProbe over the '#'-groups in depth->= mode (the C twin of
+    host_hash_rows), or None. Cached per compiled-table snapshot. Only
+    the device-free path runs it — the device still owns '#'-matching
+    for batched dispatches."""
+    probe = tables.__dict__.get("_native_hash_probe", False)
+    if probe is not False:
+        return probe
+    probe = None
+    try:
+        from ..native import NativeProbe, available
+        if available() and tables.host_hash is not None:
+            probe = NativeProbe({}, tables.host_hash, ge_depth=True)
+    except Exception:
+        probe = None
+    tables.__dict__["_native_hash_probe"] = probe
+    return probe
 
 
 def prepare_batch(tables, topics: list[str]):
     """Full host half of the fixed path: (toks, lens_enc, hostrows).
     hostrows unions the full-exact probe and the '+'-shape probe —
-    everything the device does not carry (numpy path)."""
-    toks, lens_enc, toks32, lengths = tokenize_compact(tables, topics)
-    esig = exact_sigs(tables.host_exact or {}, toks32, lengths)
+    everything the device does not carry. One fused C++ pass (tokenize +
+    probe with the level tokens in registers, hits as ``HostRows``) when
+    the native runtime is built; numpy otherwise. ``prepared`` counts the
+    topics of each route."""
+    fused = _native_fused(tables)
+    if fused is not None:
+        prepared["native"] += len(topics)
+        from ..native import tokenize_probe
+        dtype, _pad = _compact_dtype(tables)
+        window = max(tables.probe_depth, 1)
+        toks, lens_enc, ti, rw = tokenize_probe(fused[0], fused[1], topics,
+                                                window, dtype)
+        return toks, lens_enc, HostRows.from_hits(len(topics), ti, rw)
+    prepared["numpy"] += len(topics)
+    toks, lens_enc, esig, lengths = _prepare_sig_numpy(
+        tables, topics, max(tables.probe_depth, 1), tables.host_exact or {})
     hostrows = host_exact_rows_from_sig(tables, esig, lengths)
     host_plus_rows(tables, toks, lengths, lens_enc < 0, into=hostrows)
     return toks, lens_enc, hostrows
@@ -651,13 +774,109 @@ def _decode_cache(tables):
     return dc
 
 
+def prewarm_tables(tables, chunk: int = 2048) -> int:
+    """Chunked chained-decode anchor population for ONE compiled table
+    (the shared engine-independent half of prewarm_decode_bases):
+    yields the GIL between chunks so an event loop sharing the
+    interpreter only stalls ~ms at a time. Returns chunk calls made."""
+    import time as _time
+
+    nd = _native_decode(tables)
+    if nd is None:
+        return 0
+    mod, cap = nd
+    n_rows = len(tables.row_entries)
+    r = 0
+    calls = 0
+    while r < n_rows:
+        r2 = mod.prewarm_bases(cap, r, chunk)
+        calls += 1
+        if r2 <= r:
+            break                  # defensive: no forward progress
+        r = r2
+        _time.sleep(0)
+    return calls
+
+
+def _native_decode(tables):
+    """(maxmq_torch_decode module, table capsule) for the C verify+union
+    fast path, built once per compiled snapshot — or None when the
+    extension is unavailable. Flattens every row's entry walk (the exact
+    loop of ``_union_pairs``) into an action stream the C pass replays:
+    PLAIN inserts, identifier MERGEs, SHARED-group inserts. The capsule's
+    Py_buffer views keep the arrays alive."""
+    nd = tables.__dict__.get("_native_decode", False)
+    if nd is not False:
+        return nd
+    nd = None
+    try:
+        from ..native import decode_module
+        mod = decode_module()
+        # engage only when trie.py's import-time rebind took: decode
+        # returns instances of mod.SubscriberSet, and mixing C results
+        # with the python fallback class would split the result type
+        if mod is not None and mod.SubscriberSet is SubscriberSet:
+            tok, min_depth, exact, wild_first, valid = \
+                _verify_arrays(tables)
+            flags = (exact.astype(np.uint8)
+                     | (wild_first.astype(np.uint8) << 1)
+                     | (valid.astype(np.uint8) << 2))
+            entries = tables.entries
+            offsets = np.zeros(len(tables.row_entries) + 1,
+                               dtype=np.int64)
+            kinds: list[int] = []
+            keys: list = []
+            cids: list = []
+            subs: list = []
+            for r, ents in enumerate(tables.row_entries):
+                for b in ents:
+                    e = entries[b]
+                    if e.group:
+                        for cid, sub in e.candidates.items():
+                            kinds.append(2)
+                            keys.append((e.group, sub.filter))
+                            cids.append(cid)
+                            subs.append(sub)
+                    else:
+                        sub = e.subscription
+                        kinds.append(1 if (sub.identifier
+                                           or sub.identifiers) else 0)
+                        keys.append(sub.filter)
+                        cids.append(e.client_id)
+                        subs.append(sub)
+                offsets[r + 1] = len(kinds)
+            cap = mod.table_new(
+                np.ascontiguousarray(tok),
+                np.ascontiguousarray(min_depth), flags, offsets,
+                np.array(kinds, dtype=np.uint8), keys, cids, subs)
+            # cached DeliveryIntents hold the capsule alive and the
+            # capsule's caches hold them — an uncollectible cycle
+            # (capsules aren't GC-tracked). Break it when the snapshot
+            # is dropped; handed-out results stay valid.
+            import weakref
+            weakref.finalize(tables, mod.table_release, cap)
+            nd = (mod, cap)
+    except Exception:
+        nd = None
+    tables.__dict__["_native_decode"] = nd
+    return nd
+
+
 def _pairs_with_host(batch: int, ti_dev, rw_dev, hostrows, fall, tables):
     """Concatenate device pairs with the host-probe hits and drop
-    fallback topics / out-of-table row ids."""
-    ti_h = np.repeat(np.arange(batch), [len(h) for h in hostrows[:batch]])
-    rw_h = (np.concatenate([np.asarray(h) for h in
-                            hostrows[:batch]]).astype(np.int64)
-            if len(ti_h) else np.empty(0, dtype=np.int64))
+    fallback topics / out-of-table row ids (group-padded layouts emit
+    padding row ids past the real table). ``hostrows`` is a ``HostRows``
+    (the fused native probe) or a list of per-topic arrays."""
+    if isinstance(hostrows, HostRows):
+        offs = hostrows.offsets[:batch + 1]
+        ti_h = np.repeat(np.arange(batch), np.diff(offs))
+        rw_h = hostrows.rows[:offs[-1]].astype(np.int64)
+    else:
+        ti_h = np.repeat(np.arange(batch),
+                         [len(h) for h in hostrows[:batch]])
+        rw_h = (np.concatenate([np.asarray(h) for h in
+                                hostrows[:batch]]).astype(np.int64)
+                if len(ti_h) else np.empty(0, dtype=np.int64))
     ti = np.concatenate([ti_dev, ti_h])
     rw = np.concatenate([rw_dev, rw_h])
     keep = ~fall[ti] & (rw < len(tables.row_levels))
@@ -745,8 +964,8 @@ class Overlay:
 
 class OverlayedEngine:
     """Staleness machinery: background recompile + journal overlay.
-    Subclasses provide ``index``, ``refresh()``, ``_state`` and
-    ``_state_version``."""
+    Subclasses provide ``index``, ``refresh()``, ``_state``,
+    ``_state_version`` and ``prewarm_decode_bases()``."""
 
     def _init_overlay(self) -> None:
         self._overlay: Overlay | None = None
@@ -786,6 +1005,9 @@ class OverlayedEngine:
             warm_max = getattr(self, "_warm_max", None)
             if warm_max:
                 self.warm_buckets(warm_max, background=False)
+            # repopulate the chained-decode anchors for the fresh table
+            # off the hot path (chunked; yields the GIL)
+            self.prewarm_decode_bases()
         except Exception:
             self.bg_refresh_errors += 1
         finally:

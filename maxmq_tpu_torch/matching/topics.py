@@ -2,8 +2,9 @@
 table compilers: level splitting, validation, `$share` parsing,
 tokenization, the batch bucket ladder and its padding.
 
-Copy of the JAX package's ``matching/topics.py``; the tokenizer here is
-the pure-Python path (this package does not load the native runtime).
+Copy of the JAX package's ``matching/topics.py``; ``tokenize_cached``
+takes the port's native tokenizer (``native.NativeVocab``) when it is
+built and ``tokenize_topics``, its exact Python twin, otherwise.
 Parity surface: MQTT spec 4.7.
 """
 
@@ -112,10 +113,31 @@ def intern_level(vocab: dict[str, int], level: str) -> int:
     return tok
 
 
+# topics tokenized by ``tokenize_cached``, per route
+tokenized = {"native": 0, "python": 0}
+
+
 def tokenize_cached(tables, topics: list[str], max_levels: int):
-    """Tokenize against a compiled-table snapshot's ``vocab``. The JAX
-    package's counterpart takes its native tokenizer when built; this
-    package has only the Python path (``tokenize_topics``)."""
+    """Tokenize via the C++ native tokenizer when available, else the Python
+    loop. ``tables`` is an immutable compiled-table snapshot with a ``vocab``
+    dict; the native vocab mirror is built once per snapshot and cached on
+    it (compiles always start from a fresh vocab, so the snapshot's dict
+    never mutates afterwards). ``tokenized`` counts the topics of each
+    route."""
+    nv = tables.__dict__.get("_native_vocab", False)
+    if nv is False:
+        nv = None
+        try:
+            from ..native import NativeVocab, available
+            if available():
+                nv = NativeVocab(tables.vocab)
+        except Exception:
+            nv = None
+        tables.__dict__["_native_vocab"] = nv
+    if nv is not None:
+        tokenized["native"] += len(topics)
+        return nv.tokenize(topics, max_levels)
+    tokenized["python"] += len(topics)
     return tokenize_topics(tables.vocab, topics, max_levels)
 
 

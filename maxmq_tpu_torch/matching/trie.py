@@ -5,8 +5,12 @@ path is tested against.
 
 Copy of the subscription half of the JAX package's ``matching/trie.py``
 (retained messages and topic aliases belong to the broker, which this
-package does not carry yet). ``SubscriberSet`` is always the Python
-class here: the native decode extension is not loaded.
+package does not carry yet). ``SubscriberSet`` is rebound to the C type
+of the port's decode extension (``native.decode_module``, built at
+import when ``g++`` and ``Python.h`` are present, then cached by hash),
+so the native decode and the Python paths return one result type; with
+no toolchain, a failed build or ``MAXMQ_NO_NATIVE`` it stays the Python
+class below.
 """
 
 from __future__ import annotations
@@ -136,6 +140,18 @@ class SubscriberSet:
 
     def __len__(self) -> int:
         return len(self.subscriptions) + sum(len(g) for g in self.shared.values())
+
+
+_PySubscriberSet = SubscriberSet
+try:
+    from ..native import decode_module as _decode_module
+
+    _cmod = _decode_module()
+    if _cmod is not None:
+        _cmod.configure(merge_subscription, _copy_subscription)
+        SubscriberSet = _cmod.SubscriberSet  # type: ignore[misc]
+except Exception:       # any load failure keeps the Python class
+    pass
 
 
 class _Node:

@@ -23,7 +23,9 @@ cells, each running the plain torch program on its own device. Outputs
 come back to the host stacked [sp, B, ...], the reference's
 ``out_specs=P('subs', 'data', ...)`` layout. Row ids are local to their
 shard; the host decodes each through its shard's tables (SubscriberSet
-union is shard-order independent).
+union is shard-order independent), or, with ``emit_intents``, runs one
+native intents decode a shard and chains the results per topic
+(``ChainedIntents``).
 """
 
 from __future__ import annotations
@@ -42,9 +44,12 @@ from ..matching.engine import NFAEngine, match_batch_body, nfa_device_tables
 from ..matching.nfa import NFATables, TableFull, compile_subscriptions
 from ..matching.sig import (DeviceMatchingDeclined, SigEngine,
                             _device_errors, resolve_device)
-from ..matching.sig_tables import (OverlayedEngine, compile_sig_subscriptions,
+from ..matching.sig_tables import (OverlayedEngine, _compact_dtype,
+                                   _native_decode, _native_hash_probe,
+                                   _scatter_hits, compile_sig_subscriptions,
                                    host_exact_rows_from_sig, host_hash_rows,
-                                   host_plus_rows, prepare_batch_sig)
+                                   host_plus_rows, prepare_batch_sig,
+                                   prewarm_tables)
 from ..matching.sig_torch import (fixed_slots_from_words,
                                   sig_match_words_gather, token_tensor)
 from ..matching.trie import SubscriberSet, TopicIndex, subs_version
@@ -325,6 +330,85 @@ def sharded_sig_body(tables: dict, toks: torch.Tensor,
                                    fmt16=False),)
 
 
+def _shard_pairs(out_s, hr, batch, col, fall):
+    """One shard's UNVERIFIED candidate (topic, row) pairs: device slots
+    + host-probe rows (``hr``, per-topic arrays), with overflowed
+    (trie-served) topics' pairs dropped before the C verify."""
+    cnt = out_s[:, 0].astype(np.int64)
+    cnt = np.where(cnt == 0xF, 0, cnt)          # fall slots replaced later
+    mask = col[None, :] < cnt[:, None]
+    ti_dev = np.repeat(np.arange(batch), cnt)
+    rw_dev = out_s[:, 1:][mask].astype(np.int64)
+    ti_h = np.repeat(np.arange(batch), [len(h) for h in hr])
+    rw_h = (np.concatenate([np.asarray(h) for h in hr]).astype(np.int64)
+            if len(ti_h) else np.empty(0, dtype=np.int64))
+    ti = np.concatenate([ti_dev, ti_h])
+    rw = np.concatenate([rw_dev, rw_h])
+    if fall.any():                  # overflowed topics are served by the
+        keep = ~fall[ti]            # trie; don't union their pairs
+        ti, rw = ti[keep], rw[keep]
+    return np.ascontiguousarray(ti), np.ascontiguousarray(rw)
+
+
+class ChainedIntents:
+    """Per-topic cluster-mode delivery result: the per-shard
+    DeliveryIntents chained, NOT merged. Valid because subscriptions
+    partition by client hash (compile_sig_shards) — one client's entries
+    live on exactly one shard, so the chained iteration can never name a
+    client twice and no cross-shard per-client merge exists to do.
+    Duck-types the DeliveryIntents consumer surface (__iter__/n/__len__/
+    shared/has_client/to_set); shared-group candidate maps MAY span
+    shards (a group's members hash apart), so ``shared`` is a lazy
+    outer-merged view. Immutable, like every cached match result."""
+
+    __slots__ = ("parts", "_shared", "_set")
+
+    def __init__(self, parts: list) -> None:
+        self.parts = parts
+        self._shared = None
+        self._set = None
+
+    def __iter__(self):
+        for p in self.parts:
+            yield from p
+
+    @property
+    def n(self) -> int:
+        return sum(p.n for p in self.parts)
+
+    def __len__(self) -> int:
+        return sum(len(p) for p in self.parts)
+
+    @property
+    def shared(self) -> dict:
+        if self._shared is None:
+            merged: dict = {}
+            for p in self.parts:
+                if len(p) == p.n:        # no shared members on this shard
+                    continue
+                for key, members in p.shared.items():
+                    cur = merged.get(key)
+                    if cur is None:
+                        merged[key] = members
+                    else:                # group spans shards: union view
+                        cur = dict(cur)
+                        cur.update(members)
+                        merged[key] = cur
+            self._shared = merged
+        return self._shared
+
+    def has_client(self, cid: str) -> bool:
+        return any(p.has_client(cid) for p in self.parts)
+
+    def to_set(self) -> SubscriberSet:
+        if self._set is None:
+            subs: dict = {}
+            for cid, sub in self:
+                subs[cid] = sub          # disjoint by construction
+            self._set = SubscriberSet(subs, dict(self.shared))
+        return self._set
+
+
 class _SigState(NamedTuple):
     """One compiled snapshot of the sharded signature engine, swapped as
     one attribute: ``program`` is None when the corpus was declined (the
@@ -368,6 +452,11 @@ class ShardedSigEngine(OverlayedEngine):
         self.matches = 0
         self.fallbacks = 0
         self.host_matches = 0     # topics served by the device-free path
+        # per-shard native DeliveryIntents chained per topic (client-hash
+        # sharding makes chaining merge-free)
+        self.emit_intents = False
+        # topics decoded, by the decode that served them
+        self.decoded = {"native-intents": 0, "python": 0}
         self._init_overlay()
         self.refresh(force=True)
 
@@ -444,10 +533,22 @@ class ShardedSigEngine(OverlayedEngine):
 
     # ------------------------------------------------------------------
 
+    def prewarm_decode_bases(self, chunk: int = 2048) -> int:
+        """Cluster form of SigEngine.prewarm_decode_bases: populate the
+        chained-decode anchors for every SHARD's table at a quiescent
+        point (the background refresh calls it). Skipped when the shards
+        compiled via the round-robin fallback (``chain_ok`` False) — the
+        intents decode never runs there, so anchors would be pinned dead
+        weight. Returns total chunk calls made."""
+        state = self._state
+        if not self.emit_intents or state is None or not state.chain_ok:
+            return 0
+        return sum(prewarm_tables(t, chunk) for t in state.shards)
+
     def match_raw(self, topics: list[str]):
         """Sharded device match. Returns (out uint32[sp, B, 1+max_rows],
         hostrows list[sp][B], shards, toks[B, W], lens_enc[B]),
-        batch-trimmed."""
+        batch-trimmed; toks/lens_enc feed the per-shard native decode."""
         self.refresh_soon()
         state = self._state
         if state.program is None:
@@ -483,21 +584,28 @@ class ShardedSigEngine(OverlayedEngine):
 
     def subscribers_batch(self, topics: list[str]) -> list[SubscriberSet]:
         self.refresh_soon()
-        if self._state.program is None:     # pathological corpus: CPU trie
+        state = self._state
+        if state.program is None:           # pathological corpus: CPU trie
             return self._trie_all(topics)
         try:
-            out, hostrows, shards, _toks, _lens = self.match_raw(topics)
+            out, hostrows, shards, toks, lens_enc = self.match_raw(topics)
         except DeviceMatchingDeclined:      # swapped to disabled mid-call
             return self._trie_all(topics)
         overlay = self.overlay_for(shards[0].version)
         if overlay == "resync":
             return self._trie_all(topics)
+        if self.emit_intents and overlay is None and state.chain_ok:
+            chained = self._decode_intents(topics, out, hostrows, shards,
+                                           toks, lens_enc)
+            if chained is not None:
+                return chained
         return self._decode_sets(topics, out, hostrows, shards, overlay)
 
     def _decode_sets(self, topics, out, hostrows, shards, overlay):
-        """Per-topic python union across shards (also the overlay-window
-        path, which needs merge_delta's mutation)."""
+        """Per-topic python union across shards (the set form; also the
+        overlay-window path, which needs merge_delta's mutation)."""
         removed = overlay.removed if overlay else None
+        self.decoded["python"] += len(topics)
         results = []
         for i, topic in enumerate(topics):
             self.matches += 1
@@ -515,12 +623,49 @@ class ShardedSigEngine(OverlayedEngine):
             results.append(SigEngine.merge_delta(topic, result, overlay))
         return results
 
+    def _decode_intents(self, topics, out, hostrows, shards, toks,
+                        lens_enc):
+        """One native decode_batch_intents pass PER SHARD (verify + union
+        + row-set caching in C against that shard's table), then the
+        per-shard results chained per topic — client-hash sharding
+        guarantees disjointness. None when any shard lacks the native
+        extension (the python set path serves)."""
+        nds = [_native_decode(t) for t in shards]
+        if any(nd is None for nd in nds):
+            return None
+        batch = len(topics)
+        self.matches += batch
+        self.decoded["native-intents"] += batch
+        fall = (out[:, :, 0] == 0xF).any(axis=0)
+        max_rows = out.shape[2] - 1
+        col = np.arange(max_rows)
+        per_shard: list = []
+        toks = np.ascontiguousarray(toks)
+        lens_enc = np.ascontiguousarray(lens_enc)
+        for s, (tables, nd) in enumerate(zip(shards, nds)):
+            mod, cap = nd
+            ti, rw = _shard_pairs(out[s], hostrows[s], batch, col, fall)
+            _dt, pad = _compact_dtype(tables)
+            per_shard.append(mod.decode_batch_intents(
+                cap, toks, toks.dtype.itemsize, int(pad), lens_enc,
+                batch, ti, rw))
+        results: list = []
+        fall_list = fall.tolist()
+        for i, topic in enumerate(topics):
+            if fall_list[i]:
+                self.fallbacks += 1
+                results.append(self.index.subscribers(topic))
+            else:
+                results.append(ChainedIntents([ps[i] for ps in per_shard]))
+        return results
+
     def subscribers_host_batch(self, topics: list[str]
                                ) -> list[SubscriberSet]:
         """Cluster-mode device-free match: one tokenize pass (shared
-        intern pool), per-shard exact/'+'/'#' host probes (numpy), then
-        the same per-shard decode the device path uses — no mesh dispatch
-        at all (the batcher's low-occupancy bypass)."""
+        intern pool), per-shard exact/'+'/'#' host probes, then the same
+        per-shard decode (or native intents decode and chaining) the
+        device path uses — no mesh dispatch at all (the batcher's
+        low-occupancy bypass)."""
         self.refresh_soon()
         state = self._state
         if state.program is None:           # pathological corpus: CPU trie
@@ -532,11 +677,20 @@ class ShardedSigEngine(OverlayedEngine):
             host_exact=state.union_exact)
         dollar = lens_enc < 0
         over = lengths < 0    # prepare_batch_sig reports overflow as -1
+        toks_c = np.ascontiguousarray(toks)
         hostrows = []
         for t in shards:
             hr = host_exact_rows_from_sig(t, esig, lengths)
             host_plus_rows(t, toks, lengths, dollar, into=hr)
-            host_hash_rows(t, toks, lengths, dollar, into=hr)
+            # '#'-probe: the cached C ge-depth probe when built (small
+            # batches are this path's whole point), numpy twin otherwise
+            hp = _native_hash_probe(t)
+            if hp is not None:
+                ti_h, rw_h = hp.run(toks_c, lens_enc)
+                if len(ti_h):
+                    _scatter_hits(hr, [ti_h], [rw_h.astype(np.int64)])
+            else:
+                host_hash_rows(t, toks, lengths, dollar, into=hr)
             hostrows.append(hr)
         # synthesized zero-count device matrix: every candidate rides
         # the host-rows slot; overflow topics get the 0xF marker so the
@@ -549,6 +703,11 @@ class ShardedSigEngine(OverlayedEngine):
             return self._trie_all(topics)
         # fallback-served topics are counted under matches/fallbacks
         self.host_matches += batch - int(over.sum())
+        if self.emit_intents and overlay is None and state.chain_ok:
+            chained = self._decode_intents(topics, out, hostrows, shards,
+                                           toks, lens_enc)
+            if chained is not None:
+                return chained
         return self._decode_sets(topics, out, hostrows, shards, overlay)
 
     def subscribers(self, topic: str) -> SubscriberSet:

@@ -100,6 +100,32 @@ def test_engine_on_card_matches_trie(cuda_card):
         assert set(g.shared) == set(want.shared), t
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("intents", [False, True], ids=["sets", "intents"])
+def test_engine_on_card_native_decode_matches_trie(cuda_card, intents):
+    """The production signature path on the card: the fused C++
+    tokenize + probe, the kernel, and the C verify + union decode in both
+    result forms (merged sets, DeliveryIntents), every answer against the
+    trie. Where the toolchain builds the decode extension, it must serve."""
+    from maxmq_tpu_torch import native
+
+    if native.compiler() and native.python_include():
+        assert native.decode_module() is not None, native.build_errors
+    idx, topics = corpus(7, False)
+    engine = SigEngine(idx, device=cuda_card, auto_refresh=False)
+    engine.emit_intents = intents
+    route = ("python" if native.decode_module() is None else
+             "native-intents" if intents else "native-sets")
+    assert (engine.prewarm_decode_bases() > 0) == (route == "native-intents")
+    before = sig_kernel.sig_match_fixed.launches
+    got = engine.subscribers_fixed_batch(topics)
+    assert sig_kernel.sig_match_fixed.launches == before + 1
+    assert engine.decoded[route] == len(topics)
+    for t, g in zip(topics, got):
+        assert chip_smoke.normalize(g) == chip_smoke.normalize(
+            idx.subscribers(t)), t
+
+
 def dense_corpus(full_width: bool):
     """``dense_2k`` at full width (2,000 rows, 8 levels), or a narrow
     tree whose slots are not a multiple of 128; topics with '$' topics,

@@ -60,7 +60,8 @@ def test_subprocess_import_leaves_jax_out():
     """Import every module of the package in a fresh interpreter, build a
     SigEngine, a DenseEngine (kernel route), an NFAEngine, both sharded
     engines (on a mesh of CPU devices) and a MatcherService on the CPU,
-    match once, and check sys.modules."""
+    match once, and check sys.modules and the mapped native libraries
+    (the port's own, built from its sources; none of ``native/``)."""
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in PACKAGE.rglob("*.py") if p.name != "__main__.py")
@@ -102,12 +103,24 @@ def test_subprocess_import_leaves_jax_out():
                      if m.split(".")[0] in ("jax", "jaxlib")
                      or m == "maxmq_tpu" or m.startswith("maxmq_tpu."))
         print("FORBIDDEN", bad)
+        # native libraries: the port's own, never the JAX package's
+        from maxmq_tpu_torch import native
+        with open("/proc/self/maps") as f:
+            maps = f.read()
+        ref_dir = os.path.join({str(ROOT)!r}, "native") + os.sep
+        print("REF_NATIVE", sorted(set(line.split()[-1] for line in
+                                       maps.splitlines()
+                                       if ref_dir in line)))
+        print("PORT_NATIVE", all(str(native.library_path(s)) in maps
+                                 for s in native.SOURCES))
     """)
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "FORBIDDEN []" in proc.stdout, proc.stdout
+    assert "REF_NATIVE []" in proc.stdout, proc.stdout
+    assert "PORT_NATIVE True" in proc.stdout, proc.stdout
 
 
 def test_entry_points_refuse_without_cuda(monkeypatch, tmp_path, capsys):

@@ -169,7 +169,9 @@ SMOKE_CPU_SIZES = {"subs": {"mixed_100k": 2_000, "hash_plus_100k": 2_000,
                                     "width": 60},
                    "nfa_sample": 128,
                    "cluster_batch": 256,
-                   "cluster_batches": 2}
+                   "cluster_batches": 2,
+                   "decode_sample": 128,
+                   "frames": 200}
 
 
 def test_chip_smoke_phases_rehearse_on_cpu():
