@@ -80,7 +80,31 @@ Phases, each of which raises on failure:
    decode a shard, chained per topic) on the same batches, its
    ``ChainedIntents`` held against the set path and the trie, and both
    decodes timed on the same device output;
-12. each kernel's SASS opcode counts (``cuobjdump -sass``, where the
+12. the publish pipeline below the broker engine (run right after phase
+   4, on its engines): PUBLISH frames (60 % v5, 40 % v3.1.1, QoS 0/1/2
+   at 50/35/15 %, inbound topic aliases, 1 % retained; from seed 42)
+   framed and decoded by the port's codec, aliases resolved, matched by
+   ``SupervisedMatcher(MicroBatcher(SigEngine))`` at the reference's
+   production settings (window 200 us, batch 256, depth 3; deadline 250
+   ms, breaker 5 in 10 s, backoff 1 s to 30 s; intents on, buckets
+   warmed, decode bases prewarmed), fanned out with ``select_shared``
+   and each delivery built through the wire templates
+   (``Deliveries``), on ``mixed_100k`` (its own index: the clients' v5
+   identifiers and retain-as-published; bursts of 1,024 and a 512-publish
+   trickle) and ``iot_1m_share`` (the earlier phases' index and engine;
+   4,096 publishes). With the bypass off, then on: the match latency,
+   batch sizes, loop lag, full collections, decode routes, the bursts'
+   deliveries/s (the trickle's deliveries apart), the frame heads by
+   encoder and the bypass share are printed; every
+   answer is held against the CPU trie, every delivery frame (the first
+   256 publishes' at ``iot_1m_share``) against the same pipeline over
+   the trie, and the first 2,000 patched frames of a run against the
+   codec's ``encode()``; an answer from a supervisor hedge or a breaker
+   trip fails the run, and with the bypass off ``sig_match_fixed`` must
+   launch once per batch. On ``mixed_100k`` the faulted rungs follow
+   (``pipeline_faults``: error hedges tripping the breaker, a probe
+   closing it, a hang past the deadline, the Python frame heads);
+13. each kernel's SASS opcode counts (``cuobjdump -sass``, where the
    toolkit has it), the kernels line (JSON), the card line, and the
    result line.
 
@@ -91,7 +115,10 @@ or Python route fails the phase.
 
 Phases 8-11 run no hand-written kernel (the reference computes them in
 XLA, outside Pallas); each reads both kernels' launch counts, set to 0
-before it. The dense and NFA decodes are Python, as the reference's.
+before it. Phase 12 sets them to 0 before each of its runs and reads
+them after; its launches ride the kernels line under
+``publish_pipeline_launches``. The dense and NFA decodes are Python, as
+the reference's.
 The corpora are made here from seed 42 (a copy of the benchmark's corpus
 generator, and the ``dense_2k`` generator); the script imports nothing
 of the JAX package.
@@ -100,6 +127,8 @@ of the JAX package.
 from __future__ import annotations
 
 import asyncio
+import contextlib
+import gc
 import json
 import os
 import random
@@ -109,6 +138,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from array import array
 
 import numpy as np
 
@@ -128,7 +158,10 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # the decode's row memo) untimed, the dense_2k generator's arguments, the
 # NFA headline's decode sample, the cluster phase's batch and batch
 # count (bench config 5: batches of 8,192 on a 2 x 4 mesh), the signature
-# headline's Python decode sample, and the frames of the scanner check.
+# headline's Python decode sample, the frames of the scanner check, and the
+# publish pipeline's burst and, per corpus, its burst and trickle
+# publishes and how many burst publishes have every delivery frame
+# compared with the CPU-trie pipeline's.
 SIZES = {"subs": {"mixed_100k": 100_000, "hash_plus_100k": 100_000,
                   "iot_1m_share": 1_000_000, "cluster_100k": 100_000},
          "check_batch": 4_096 + 100,
@@ -144,7 +177,12 @@ SIZES = {"subs": {"mixed_100k": 100_000, "hash_plus_100k": 100_000,
          "cluster_batch": 8_192,
          "cluster_batches": 2,
          "decode_sample": 16_384,
-         "frames": 4_000}
+         "frames": 4_000,
+         "pipeline": {"burst": 1_024,
+                      "mixed_100k": {"burst": 16_384, "trickle": 512,
+                                     "compare": 16_384},
+                      "iot_1m_share": {"burst": 4_096, "trickle": 0,
+                                       "compare": 256}}}
 # engine counters of topics NOT served by the device path, per engine
 SIG_COUNTERS = ("host_matches", "fallbacks", "trie_routed")
 DENSE_COUNTERS = ("fallbacks",)
@@ -386,6 +424,414 @@ def mqtt_frames(n: int, seed: int) -> bytes:
                 break
         out += rng.integers(0, 256, rem, dtype=np.uint8).tobytes()
     return bytes(out)
+
+
+# -- phase 12: the publish pipeline below the broker engine -------------
+
+# The reference's production matcher settings (the JAX package's
+# utils/config.py:201-219): the batcher's window, batch and pipeline
+# depth, and the supervisor's deadline, breaker and backoff.
+PIPELINE_BATCHER = {"window_us": 200, "max_batch": 256, "pipeline_depth": 3}
+PIPELINE_SUPERVISOR = {"deadline_ms": 250.0, "breaker_threshold": 5,
+                       "breaker_window_s": 10.0, "backoff_initial_s": 1.0,
+                       "backoff_max_s": 30.0}
+# the publishes: the v5 share (the rest v3.1.1), QoS 0/1/2, the share of v5
+# publishes carrying an inbound topic alias, the retained share, and the
+# publisher connections of each version. The v5, QoS, alias and retained
+# shares are the phase's specification; the publisher count, and the
+# payload sizes and v5 property shares in ``publish_frames``, are coverage
+# choices with no fleet measurement behind them.
+PUB_MIX = {"v5": 0.6, "qos": (0.5, 0.35, 0.15), "alias": 0.1,
+           "retain": 0.01, "publishers": 32}
+# the subscribing clients ``cl-<i>``: the v5 share, the share of v5 clients
+# with an outbound topic-alias maximum (and its value), the share of v5
+# subscriptions with an identifier or retain-as-published (phase 12's own
+# ``mixed_100k`` index only), and the clients offline. Coverage choices, so
+# that every per-subscriber wire path carries traffic, not a fleet's mix:
+# the deliveries a second that phase 12 prints read this mix only.
+CLIENT_MIX = {"v5": 0.6, "alias": 0.3, "alias_max": 16, "identifier": 0.5,
+              "rap": 0.2, "offline": 0.05}
+# deliveries of a run also built by the codec's slow path (the outbound
+# Packet's ``encode()``) and held against the template frame
+SLOW_PATH_CHECKS = 2_000
+
+
+def port_kit():
+    """The protocol and trie classes the publish pipeline runs on, from
+    the port (``tests/test_torch_supervisor.py`` builds the same kit from
+    the JAX package and runs the same pipeline)."""
+    from types import SimpleNamespace
+
+    from maxmq_tpu_torch.matching import trie
+    from maxmq_tpu_torch.protocol import codec, packets, wire
+
+    return SimpleNamespace(
+        Packet=packets.Packet, FixedHeader=codec.FixedHeader,
+        PT=codec.PacketType, Subscription=packets.Subscription,
+        parse_stream=packets.parse_stream, write_varint=codec.write_varint,
+        wire=wire, TopicAliases=trie.TopicAliases, TopicIndex=trie.TopicIndex)
+
+
+class ClientTable:
+    """The subscribing clients ``cl-<i>`` of a corpus, from a seed: the
+    protocol version of each connection, its outbound topic-alias maximum
+    (0: none), whether it is offline, and the v5 subscription options that
+    ``subscription`` gives its filter (identifier, retain-as-published),
+    drawn by ``CLIENT_MIX`` from seed 42."""
+
+    def __init__(self, n: int):
+        rng = np.random.default_rng(42)
+        mix = CLIENT_MIX
+        self.v5 = rng.random(n) < mix["v5"]
+        self.alias_max = np.where(self.v5 & (rng.random(n) < mix["alias"]),
+                                  mix["alias_max"], 0)
+        self.offline = rng.random(n) < mix["offline"]
+        self.identifier = np.where(
+            self.v5 & (rng.random(n) < mix["identifier"]),
+            rng.integers(1, 268_435_456, n), 0)
+        self.rap = self.v5 & (rng.random(n) < mix["rap"])
+
+    def subscription(self, kit, i: int, filter_: str):
+        """Client ``i``'s subscription to ``filter_``: the corpus's QoS
+        (i % 3) with the client's v5 options."""
+        return kit.Subscription(filter=filter_, qos=i % 3,
+                                identifier=int(self.identifier[i]),
+                                retain_as_published=bool(self.rap[i]))
+
+
+def publish_frames(kit, topics: list[str], seed: int):
+    """One encoded PUBLISH frame per topic, in order, with the publisher
+    connection that sends it (``pub5-<k>`` speaks v5, ``pub4-<k>``
+    v3.1.1): QoS, retain, payload (16-256 random bytes), v5 properties
+    (user properties, correlation data, content type, message expiry,
+    payload format, response topic) and inbound topic aliases from a numpy
+    seed. An aliased publish carries topic and alias the first time its
+    publisher sends that topic, the alias alone (an empty topic) after."""
+    rng = np.random.default_rng(seed)
+    mix = PUB_MIX
+    n = len(topics)
+    v5 = rng.random(n) < mix["v5"]
+    qos = rng.choice(3, n, p=mix["qos"])
+    alias = v5 & (rng.random(n) < mix["alias"])
+    retain = rng.random(n) < mix["retain"]
+    pub = rng.integers(0, mix["publishers"], n)
+    plen = rng.integers(16, 257, n)
+    draws = rng.random((n, 6))
+    frames, owners, state = [], [], {}
+    for i, topic in enumerate(topics):
+        owner = f"pub{5 if v5[i] else 4}-{pub[i]}"
+        st = state.setdefault(owner, [0, {}])      # packet id, aliases
+        pk = kit.Packet(fixed=kit.FixedHeader(type=kit.PT.PUBLISH,
+                                              qos=int(qos[i]),
+                                              retain=bool(retain[i])),
+                        protocol_version=5 if v5[i] else 4, topic=topic,
+                        payload=rng.bytes(int(plen[i])))
+        if qos[i]:
+            st[0] = st[0] % 65535 + 1
+            pk.packet_id = st[0]
+        if v5[i]:
+            pr, d = pk.properties, draws[i]
+            if d[0] < 0.3:
+                pr.user_properties = [(f"k{j}", f"v{i}-{j}")
+                                      for j in range(1 + i % 3)]
+            if d[1] < 0.2:
+                pr.correlation_data = rng.bytes(8)
+            if d[2] < 0.2:
+                pr.content_type = "application/json"
+            if d[3] < 0.1:
+                pr.message_expiry = 3600
+            if d[4] < 0.1:
+                pr.payload_format = 0
+            if d[5] < 0.1:
+                pr.response_topic = f"reply/{owner}"
+            if alias[i]:
+                a = st[1].get(topic)
+                if a is None:
+                    a = st[1][topic] = len(st[1]) + 1
+                else:
+                    pk.topic = ""
+                pr.topic_alias = a
+        frames.append(pk.encode())
+        owners.append(owner)
+    return frames, owners
+
+
+class PubDecoder:
+    """The listener's half of a publish below the broker engine: framing
+    (``parse_stream``), ``Packet.decode`` at the publisher's protocol
+    version, the inbound topic alias resolved on the publisher's
+    connection (``TopicAliases``, the broker's maximum of 65,535) and the
+    origin set."""
+
+    ALIAS_MAX = 65_535
+
+    def __init__(self, kit) -> None:
+        self.kit = kit
+        self.aliases: dict = {}
+
+    def decode(self, frames: list[bytes], owners: list[str]) -> list:
+        kit = self.kit
+        buf = bytearray(b"".join(frames))
+        out = []
+        for (fh, body), owner in zip(kit.parse_stream(buf), owners):
+            v5 = owner.startswith("pub5")
+            pk = kit.Packet.decode(fh, body, 5 if v5 else 4)
+            if v5:
+                al = self.aliases.get(owner)
+                if al is None:
+                    al = self.aliases[owner] = kit.TopicAliases(
+                        self.ALIAS_MAX)
+                topic = al.resolve_inbound(pk.topic,
+                                           pk.properties.topic_alias)
+                if not topic:
+                    raise AssertionError(f"{owner}: unresolvable topic "
+                                         "alias")
+                pk.topic = topic
+            pk.origin = owner
+            out.append(pk)
+        if buf or len(out) != len(owners):
+            raise AssertionError("frames and publishers disagree")
+        return out
+
+
+class Deliveries:
+    """The broker's fan-out below its engine, for one pipeline: the
+    intents fast path or the set path with ``$share`` picks through
+    ``select_shared`` (the JAX package's broker/server.py:1381-1449), and
+    each delivery's frame as the broker's writers build it (:1465-1655):
+    the shared QoS-0 wire, or the publish template patched with the
+    effective QoS (the minimum of the publish's and the subscription's),
+    retain only with retain-as-published, the v5 identifiers and outbound
+    alias through ``sid_alias_seg``, and the packet id from a per-client
+    counter. Offline clients get no frame (QoS > 0 takes a packet id, as
+    the broker's inflight queue does). Results are read, never mutated
+    (F7). While ``keep`` is set each frame is kept with its client
+    (``frames`` groups them per client, in order); the first
+    ``SLOW_PATH_CHECKS`` patched frames are held against the outbound
+    Packet's ``encode()``. The bookkeeping adds few objects the garbage
+    collector tracks (immutable tuples, one flat list, an array of packet
+    ids), so a full collection during a run walks the pipeline's own
+    objects, not the measurement's."""
+
+    MAX_QOS = 2
+
+    def __init__(self, kit, clients: ClientTable) -> None:
+        self.kit = kit
+        self.clients = clients
+        self.selector = kit.TopicIndex()    # its own round-robin cursors
+        self.conn: dict = {}      # cid -> (version, aliases, online, index)
+        self.pids = array("l", [0]) * len(clients.v5)
+        self.sent: list = []      # (cid, frame) while ``keep``
+        self.keep = True
+        self.delivered = self.nbytes = self.queued = self.slow_checked = 0
+
+    @property
+    def frames(self) -> dict:
+        out: dict = {}
+        for cid, frame in self.sent:
+            out.setdefault(cid, []).append(frame)
+        return out
+
+    def _conn(self, cid: str):
+        c = self.conn.get(cid)
+        if c is None:
+            ct, i = self.clients, int(cid[3:])
+            am = int(ct.alias_max[i])
+            c = self.conn[cid] = (5 if ct.v5[i] else 4,
+                                  self.kit.TopicAliases(am) if am else None,
+                                  not ct.offline[i], i)
+        return c
+
+    def alive(self, cid: str) -> bool:
+        return self._conn(cid)[2]
+
+    def _next_pid(self, i: int) -> int:
+        pid = self.pids[i] % 65535 + 1
+        self.pids[i] = pid
+        return pid
+
+    def fan_out(self, result, packet) -> None:
+        if getattr(result, "to_set", None) is None:
+            shared = result.shared
+            if shared:
+                self._shared(shared, result.subscriptions.__contains__,
+                             packet)
+            for cid, sub in result.subscriptions.items():
+                self.publish(cid, sub, packet)
+            return
+        if len(result) != result.n:         # any shared candidates?
+            self._shared(result.shared, result.has_client, packet)
+        for cid, sub in result:
+            self.publish(cid, sub, packet)
+
+    def _shared(self, shared, has_plain, packet) -> None:
+        selected = {}
+        for (group, filt), candidates in shared.items():
+            pick = self.selector.select_shared(group, filt, candidates,
+                                               alive=self.alive)
+            if pick is not None:
+                cid, sub = pick
+                prev = selected.get(cid)
+                if prev is None or sub.qos > prev.qos:
+                    selected[cid] = sub
+        for cid, sub in selected.items():
+            if not has_plain(cid):
+                self.publish(cid, sub, packet)
+
+    def publish(self, cid: str, sub, packet) -> None:
+        if sub.no_local and packet.origin == cid:
+            return
+        version, aliases, online, i = self._conn(cid)
+        qos = min(packet.fixed.qos, sub.qos, self.MAX_QOS)
+        if not online:
+            if qos:
+                self._next_pid(i)
+                self.queued += 1
+            return
+        retain = bool(sub.retain_as_published and packet.fixed.retain)
+        v5 = version >= 5
+        if qos == 0 and not retain and not (
+                v5 and (sub.identifiers or sub.identifier or aliases)):
+            frame = self._wire0(packet, version)
+        else:
+            wire = self.kit.wire
+            ids, alias, alias_topic, pid = [], None, False, 0
+            if v5:
+                ids = sorted(set(sub.identifiers.values())
+                             or ({sub.identifier} if sub.identifier
+                                 else set()))
+                if aliases is not None:
+                    a, first = aliases.assign_outbound(packet.topic)
+                    if a:
+                        alias, alias_topic = a, not first
+            if qos:
+                pid = self._next_pid(i)
+            bufs, size = wire.publish_template(packet, version).patch(
+                qos, retain, pid, wire.sid_alias_seg(ids, alias) if v5
+                else b"", alias_topic)
+            frame = b"".join(bufs)
+            if len(frame) != size:
+                raise AssertionError("template size disagrees with frame")
+            if self.slow_checked < SLOW_PATH_CHECKS:
+                self._slow_check(frame, packet, version, qos, retain, pid,
+                                 ids, alias, alias_topic)
+        self.delivered += 1
+        self.nbytes += len(frame)
+        if self.keep:
+            self.sent.append((cid, frame))
+
+    def _wire0(self, packet, version: int) -> bytes:
+        """The QoS-0 frame shared by every subscriber of one version
+        that needs no per-subscriber field, built once per publish."""
+        cache = packet.__dict__.setdefault("_wire0", {})
+        wire = cache.get(version)
+        if wire is None:
+            if version < 5 or packet.properties.is_empty():
+                tb = packet.topic.encode()
+                body = bytearray(len(tb).to_bytes(2, "big"))
+                body += tb
+                if version >= 5:
+                    body.append(0)
+                body += packet.payload
+                head = bytearray([0x30])
+                self.kit.write_varint(head, len(body))
+                wire = bytes(head + body)
+            else:
+                wire = self._outbound(packet, version, 0, False, 0, [],
+                                      None, False).encode()
+            if self.slow_checked < SLOW_PATH_CHECKS:
+                self._slow_check(wire, packet, version, 0, False, 0, [],
+                                 None, False)
+            cache[version] = wire
+        return wire
+
+    @staticmethod
+    def _outbound(packet, version, qos, retain, pid, ids, alias,
+                  alias_topic):
+        """The delivery as the broker's slow path shapes it
+        (``_build_outbound``), a real Packet."""
+        out = packet.copy()
+        out.protocol_version = version
+        out.fixed.qos, out.fixed.dup, out.fixed.retain = qos, False, retain
+        out.packet_id = pid
+        if version < 5:
+            out.properties = type(out.properties)()
+        else:
+            out.properties.subscription_ids = list(ids)
+            out.properties.topic_alias = alias
+            if alias_topic:
+                out.topic = ""
+        return out
+
+    def _slow_check(self, frame, *args) -> None:
+        self.slow_checked += 1
+        want = self._outbound(*args).encode()
+        if frame != want:
+            raise AssertionError(f"delivery frame {frame.hex()} differs "
+                                 f"from the codec's encode {want.hex()}")
+
+
+class LoopLag:
+    """Event-loop lag while it runs: a task sleeping 1 ms at a time
+    records how late each wake-up came (ms)."""
+
+    def __init__(self) -> None:
+        self.samples: list[float] = []
+        self._task = None
+
+    def start(self) -> None:
+        self._task = asyncio.get_running_loop().create_task(self._run())
+
+    async def _run(self) -> None:
+        while True:
+            t0 = time.perf_counter()
+            await asyncio.sleep(0.001)
+            self.samples.append((time.perf_counter() - t0) * 1e3 - 1.0)
+
+    async def stop(self) -> None:
+        self._task.cancel()
+        try:
+            await self._task
+        except asyncio.CancelledError:
+            pass
+
+
+def spread(values) -> list:
+    """[p50, p99, max] of ``values`` (None when empty)."""
+    if not len(values):
+        return [None, None, None]
+    a = np.asarray(values, dtype=np.float64)
+    return [float(np.percentile(a, 50)), float(np.percentile(a, 99)),
+            float(a.max())]
+
+
+@contextlib.contextmanager
+def full_collections():
+    """The durations (ms) of the garbage collector's full (generation-2)
+    passes while the block runs."""
+    pauses: list[float] = []
+    t0 = [0.0]
+
+    def note(phase, info):
+        if info["generation"] == 2:
+            if phase == "start":
+                t0[0] = time.perf_counter()
+            else:
+                pauses.append((time.perf_counter() - t0[0]) * 1e3)
+
+    gc.callbacks.append(note)
+    try:
+        yield pauses
+    finally:
+        gc.callbacks.remove(note)
+
+
+async def timed_match(matcher, topic: str):
+    """One match through ``subscribers_async`` and its latency (s) from
+    enqueue to result."""
+    t0 = time.perf_counter()
+    result = await matcher.subscribers_async(topic)
+    return result, time.perf_counter() - t0
 
 
 def card_line() -> str:
@@ -1077,6 +1523,415 @@ class Smoke:
                                      "from the native sets")
         log(f"[decode] {name}: {json.dumps(rec)}")
         return rec
+
+    # -- phase 12: the publish pipeline -------------------------------
+
+    def pipeline_supervisor(self) -> dict:
+        """The supervisor's settings: the production ones, unless the size
+        table overrides some (the CPU rehearsal, whose plain kernel shares
+        the host with other work, widens the deadline)."""
+        return {**PIPELINE_SUPERVISOR,
+                **self.sizes["pipeline"].get("supervisor", {})}
+
+    def pipeline_corpus(self, name: str):
+        """(index, engine, clients) of the publish pipeline on corpus
+        ``name``. ``iot_1m_share`` reuses the index and SigEngine of the
+        earlier phases (the benchmark corpus: QoS, no identifiers), so no
+        1M compile is repeated. ``mixed_100k`` gets an index of its own:
+        the same filters, clients and QoS with the clients' v5 options
+        (identifiers, retain-as-published), which the earlier phases'
+        corpus lacks, and a SigEngine with the production defaults."""
+        filters, _gen, index = self.corpus(name)
+        clients = ClientTable(len(filters))
+        if name != "mixed_100k":
+            return index, self.engine(name), clients
+        from maxmq_tpu_torch.matching.sig import SigEngine
+        from maxmq_tpu_torch.matching.trie import TopicIndex
+
+        kit = port_kit()
+        t0 = time.perf_counter()
+        idx = TopicIndex()
+        for i, f in enumerate(filters):
+            idx.subscribe(f"cl-{i}", clients.subscription(kit, i, f))
+        engine = SigEngine(idx, device=self.device)
+        log(f"[pipeline] {name}: {len(filters)} subscriptions with the "
+            f"clients' v5 options indexed and compiled in "
+            f"{time.perf_counter() - t0:.1f} s")
+        return idx, engine, clients
+
+    @staticmethod
+    def trie_frames(kit, clients, answer, traffic: dict, burst: int,
+                    limit: int):
+        """The CPU-trie pipeline: the same decode and delivery helper over
+        ``TopicIndex.subscribers`` (``answer``), for the first ``limit``
+        burst publishes and every trickle publish."""
+        dlv = Deliveries(kit, clients)
+        dec = PubDecoder(kit)
+        frames, owners = traffic["burst"]
+        for a in range(0, limit, burst):
+            b = min(a + burst, limit)
+            for p in dec.decode(frames[a:b], owners[a:b]):
+                dlv.fan_out(answer(p.topic), p)
+        for p in dec.decode(*traffic["trickle"]):
+            dlv.fan_out(answer(p.topic), p)
+        return dlv
+
+    async def pipeline_run(self, kit, engine, index, clients, traffic: dict,
+                           bypass: bool, answer, limit: int) -> dict:
+        """One unfaulted run of the pipeline: bursts of ``burst`` frames
+        decoded and enqueued at once through ``subscribers_async`` of a
+        ``SupervisedMatcher(MicroBatcher(engine))`` at the production
+        settings (the next burst starts when the last settles, and its
+        deliveries are built after that), then the trickle publishes one
+        at a time. Any answer not from the engine (the supervisor's error,
+        deadline or breaker_open hedge, a breaker trip), an answer unequal
+        to the trie's, or a topic on the Python decode fails it."""
+        from maxmq_tpu_torch import native
+        from maxmq_tpu_torch.matching.batcher import MicroBatcher
+        from maxmq_tpu_torch.matching.supervisor import SupervisedMatcher
+
+        wire = kit.wire
+        batcher = MicroBatcher(engine, cpu_bypass=bypass, **PIPELINE_BATCHER)
+        sup = SupervisedMatcher(batcher, index=index,
+                                **self.pipeline_supervisor())
+        sizes = []
+        note = batcher._note_batch
+
+        def note_batch(batch, note=note):
+            sizes.append(len(batch))
+            note(batch)
+
+        batcher._note_batch = note_batch
+        bypass_ms = []
+        run_bypass = batcher._run_bypass
+
+        def timed_bypass(batch, topics, ver, run_bypass=run_bypass):
+            t0 = time.perf_counter()
+            run_bypass(batch, topics, ver)
+            bypass_ms.append((time.perf_counter() - t0) * 1e3)
+
+        batcher._run_bypass = timed_bypass
+        burst = self.sizes["pipeline"]["burst"]
+        dec, dlv = PubDecoder(kit), Deliveries(kit, clients)
+        base = {k: getattr(engine, k) for k in ("matches",) + SIG_COUNTERS}
+        decoded0 = dict(engine.decoded)
+        heads0 = dict(wire.heads)
+        lag = LoopLag()
+        lat, answers = [], []
+        match_s = fan_s = 0.0
+        frames, owners = traffic["burst"]
+        # the heap frozen at this quiescent point, as the benchmark does
+        # after its warm-up (bench.py:622-634): what the earlier runs left
+        # joins the permanent generation, so a full collection during the
+        # run walks only what the run allocates (``publish_pipelines``
+        # thaws it all after the phase)
+        gc.collect()
+        gc.freeze()
+        try:
+            self.zero_kernel_counts()
+            with full_collections() as gc_ms:
+                t_run = time.perf_counter()
+                for a in range(0, len(frames), burst):
+                    pkts = dec.decode(frames[a:a + burst], owners[a:a + burst])
+                    t0 = time.perf_counter()
+                    lag.start()
+                    res = await asyncio.gather(*(timed_match(sup, p.topic)
+                                                 for p in pkts))
+                    await lag.stop()
+                    t1 = time.perf_counter()
+                    for j, (p, (r, dt)) in enumerate(zip(pkts, res)):
+                        lat.append(dt * 1e3)
+                        answers.append((p.topic, r))
+                        if p.fixed.retain:
+                            index.retain(p)
+                        dlv.keep = a + j < limit
+                        dlv.fan_out(r, p)
+                    match_s += t1 - t0
+                    fan_s += time.perf_counter() - t1
+                wall = time.perf_counter() - t_run
+                burst_delivered = dlv.delivered
+                burst_launches = self.kernel_counts()["sig_match_fixed"]
+                burst_batches = len(sizes)
+                dlv.keep = True
+                trickle = []
+                for p in dec.decode(*traffic["trickle"]):
+                    r, dt = await timed_match(sup, p.topic)
+                    trickle.append(dt * 1e3)
+                    answers.append((p.topic, r))
+                    dlv.fan_out(r, p)
+                launches = self.kernel_counts()["sig_match_fixed"]
+        finally:
+            await batcher.close()
+        bad = [t for t, r in answers if not same_answer(r, answer(t))]
+        d = {k: getattr(engine, k) - v for k, v in base.items()}
+        out = {
+            "bypass": bypass, "publishes": len(frames),
+            "trickle_publishes": len(trickle),
+            "deliveries": dlv.delivered, "delivery_bytes": dlv.nbytes,
+            "burst_deliveries": burst_delivered,
+            "trickle_deliveries": dlv.delivered - burst_delivered,
+            "queued_offline": dlv.queued,
+            "deliveries_per_s": burst_delivered / wall,
+            "burst_wall_s": wall, "match_s": match_s, "fan_out_s": fan_s,
+            "fan_out_deliveries_per_s": burst_delivered / max(fan_s, 1e-9),
+            "match_ms_p50_p99_max": spread(lat),
+            "trickle_ms_p50_p99_max": spread(trickle),
+            "loop_lag_ms_p50_p99_max": spread(lag.samples),
+            "gc_full_collections": len(gc_ms),
+            "gc_full_ms_max": max(gc_ms, default=0.0),
+            "batch_sizes": {str(k): sizes.count(k)
+                            for k in sorted(set(sizes))},
+            "batches": len(sizes), "burst_batches": burst_batches,
+            "launches": launches, "burst_launches": burst_launches,
+            "bypassed": batcher.bypasses, "cache_hits": batcher.cache_hits,
+            "bypass_batch_ms_p50_p99_max": spread(bypass_ms),
+            "first_bypass_batch_ms": bypass_ms[0] if bypass_ms else None,
+            "device_rtt_ms": batcher.device_rtt * 1e3,
+            "batch_errors": batcher.errors,
+            "fallbacks_by_reason": sup.fallbacks_by_reason,
+            "breaker_trips": sup.breaker_trips,
+            "decoded": {k: v - decoded0[k]
+                        for k, v in engine.decoded.items()},
+            "heads": {k: v - heads0[k] for k, v in wire.heads.items()},
+            "slow_path_checked": dlv.slow_checked,
+            "mismatches": len(bad), **d}
+        topics = out["publishes"] + out["trickle_publishes"]
+        out["kernel_share"] = 1 - (out["bypassed"] + out["cache_hits"]) \
+            / topics
+        out["bypass_share"] = out["bypassed"] / topics
+        out["frames"] = dlv
+        hedged = {k: v for k, v in out["fallbacks_by_reason"].items()
+                  if k != "overflow" and v}
+        if hedged or out["breaker_trips"]:
+            raise AssertionError(f"answers not from the engine: {hedged}, "
+                                 f"{out['breaker_trips']} breaker trips")
+        if bad:
+            raise AssertionError(f"{len(bad)} answers differ from the CPU "
+                                 f"trie, first {bad[0]!r}")
+        if native.decode_module() is not None and out["heads"]["python"]:
+            raise AssertionError(f"{out['heads']['python']} frame heads "
+                                 "took the Python encoder unfaulted")
+        if not bypass and (out["bypassed"] or out["batch_errors"]):
+            raise AssertionError("with the bypass off every batch must "
+                                 "reach the engine")
+        if (not bypass and self.device.type == "cuda"
+                and launches != len(sizes)):
+            raise AssertionError(f"{launches} sig_match_fixed launches for "
+                                 f"{len(sizes)} dispatched batches")
+        return out
+
+    @staticmethod
+    def frames_equal(what: str, dev, trie) -> int:
+        """Every client's frames, in order, equal between the two
+        pipelines; returns the frames compared."""
+        got, want = dev.frames, trie.frames
+        if got != want:
+            bad = sorted(c for c in set(got) | set(want)
+                         if got.get(c) != want.get(c))
+            raise AssertionError(f"{what}: the delivery frames of "
+                                 f"{len(bad)} clients differ from the "
+                                 f"CPU-trie pipeline's, first {bad[0]}")
+        return len(dev.sent)
+
+    async def pipeline_faults(self, kit, engine, index, clients,
+                              traffic: dict, answer) -> dict:
+        """The ladder's rungs on the card's pipeline, each answer held
+        against the trie: (1) DEVICE_MATCH raising until disarmed gives
+        five error hedges, one at a time, and the breaker trips; the next
+        publishes are answered ``breaker_open`` with no device call; after
+        the 1 s backoff one probe reaches the card and closes it. (2) One
+        hang of twice the deadline (0.5 s) gives exactly one deadline
+        hedge. (3) With NATIVE_ENCODE
+        armed the Python heads build every delivery frame, byte-equal to
+        the unarmed CPU-trie pipeline's."""
+        from maxmq_tpu_torch import faults
+        from maxmq_tpu_torch.matching.batcher import MicroBatcher
+        from maxmq_tpu_torch.matching.supervisor import SupervisedMatcher
+
+        batcher = MicroBatcher(engine, cpu_bypass=False, **PIPELINE_BATCHER)
+        kw = self.pipeline_supervisor()
+        sup = SupervisedMatcher(batcher, index=index, **kw)
+        hang_s = 2 * kw["deadline_ms"] / 1e3
+        dec = PubDecoder(kit)
+        pkts = dec.decode(*traffic["faults"])
+        bad = 0
+
+        def check(p, r):
+            nonlocal bad
+            bad += not same_answer(r, answer(p.topic))
+
+        faults.clear()
+        rec = {}
+        try:
+            faults.arm(faults.DEVICE_MATCH, "raise", count=-1)
+            for p in pkts[:5]:
+                check(p, await sup.subscribers_async(p.topic))
+            rec["tripped"] = {"state": sup.breaker_state_name,
+                              "trips": sup.breaker_trips,
+                              **sup.fallbacks_by_reason}
+            fired = faults.fired.get(faults.DEVICE_MATCH, 0)
+            res = await asyncio.gather(*(sup.subscribers_async(p.topic)
+                                         for p in pkts[5:21]))
+            for p, r in zip(pkts[5:21], res):
+                check(p, r)
+            rec["open"] = {"fired_while_open": faults.fired.get(
+                faults.DEVICE_MATCH, 0) - fired, **sup.fallbacks_by_reason}
+            rec["raises_fired"] = faults.fired.get(faults.DEVICE_MATCH, 0)
+            faults.disarm(faults.DEVICE_MATCH)
+            await asyncio.sleep(kw["backoff_initial_s"]
+                                + 0.05)
+            self.zero_kernel_counts()
+            check(pkts[21], await sup.subscribers_async(pkts[21].topic))
+            rec["probe"] = {"state": sup.breaker_state_name,
+                            "recoveries": sup.breaker_recoveries,
+                            "launches": self.kernel_counts()[
+                                "sig_match_fixed"],
+                            "degraded_s": sup.degraded_seconds}
+
+            faults.arm(faults.DEVICE_MATCH, "hang", count=1, delay_s=hang_s)
+            r, dt = await timed_match(sup, pkts[22].topic)
+            check(pkts[22], r)
+            await asyncio.sleep(hang_s + 0.1)    # the hung call finishes
+            rec["hang"] = {"ms": dt * 1e3, "state": sup.breaker_state_name,
+                           **sup.fallbacks_by_reason}
+
+            step3 = pkts[23:]
+            want = Deliveries(kit, clients)
+            for p in PubDecoder(kit).decode(*traffic["faults"])[23:]:
+                want.fan_out(answer(p.topic), p)
+            heads0 = dict(kit.wire.heads)
+            faults.arm(faults.NATIVE_ENCODE, "raise", count=-1)
+            res = await asyncio.gather(*(sup.subscribers_async(p.topic)
+                                         for p in step3))
+            got = Deliveries(kit, clients)
+            for p, r in zip(step3, res):
+                check(p, r)
+                got.fan_out(r, p)
+            faults.disarm(faults.NATIVE_ENCODE)
+            rec["encode"] = {
+                "heads": {k: v - heads0[k]
+                          for k, v in kit.wire.heads.items()},
+                "frames": self.frames_equal("faulted encode", got, want),
+                "deliveries": got.delivered}
+        finally:
+            faults.clear()
+            await batcher.close()
+        rec.update(fallbacks_by_reason=sup.fallbacks_by_reason,
+                   breaker_trips=sup.breaker_trips,
+                   breaker_recoveries=sup.breaker_recoveries,
+                   breaker_state=sup.breaker_state_name, mismatches=bad)
+        log(f"[pipeline] faults: {json.dumps(rec)}")
+        t, o, pr, h = rec["tripped"], rec["open"], rec["probe"], rec["hang"]
+        ok = (bad == 0
+              and t["error"] == 5 and t["trips"] == 1
+              and t["state"] == "open" and sup.breaker_trips == 1
+              and o["fired_while_open"] == 0 and o["breaker_open"] == 16
+              and pr["state"] == "closed" and pr["recoveries"] == 1
+              and h["deadline"] == 1 and h["state"] == "closed"
+              and rec["fallbacks_by_reason"]["error"] == 5
+              and rec["fallbacks_by_reason"]["breaker_open"] == 16
+              and rec["encode"]["heads"]["native"] == 0
+              and rec["encode"]["heads"]["python"] > 0)
+        if self.device.type == "cuda" and pr["launches"] < 1:
+            ok = False
+        if not ok:
+            raise AssertionError(f"the faulted rungs did not trip, hedge and "
+                                 f"close as specified: {rec}")
+        return rec
+
+    async def publish_pipeline(self, name: str) -> dict:
+        """Phase 12 on corpus ``name``: the production boot of the
+        matcher (intents on, the bucket ladder warmed, the decode bases
+        prewarmed), the traffic encoded, the CPU-trie pipeline's frames,
+        then the run with the bypass off and the run with it on (the
+        reference's default), and on ``mixed_100k`` the faulted rungs."""
+        kit = port_kit()
+        sz = self.sizes["pipeline"][name]
+        burst = self.sizes["pipeline"]["burst"]
+        if sz["trickle"] and sz["compare"] != sz["burst"]:
+            raise ValueError("the trickle frames compare only after every "
+                             "burst publish was compared")
+        index, engine, clients = self.pipeline_corpus(name)
+        _f, gen, _i = self.corpus(name)
+        t0 = time.perf_counter()
+        burst_topics = gen(sz["burst"], seed2=4000)
+        traffic = {
+            "burst": publish_frames(kit, burst_topics, 42),
+            "trickle": publish_frames(kit, gen(sz["trickle"], seed2=4100),
+                                      43),
+            "faults": publish_frames(kit, gen(279, seed2=4200), 44)}
+        emit0 = engine.emit_intents
+        engine.emit_intents = True
+        engine.warm_buckets(PIPELINE_BATCHER["max_batch"], background=False)
+        prewarm = engine.prewarm_decode_bases()
+        answers = {}
+
+        def answer(topic):
+            r = answers.get(topic)
+            if r is None:
+                r = answers[topic] = index.subscribers(topic)
+            return r
+
+        want = self.trie_frames(kit, clients, answer, traffic, burst,
+                                sz["compare"])
+        for t in burst_topics:      # every burst answer is checked
+            answer(t)
+        setup_s = time.perf_counter() - t0
+        out = {"corpus": name, "subs": index.subscription_count,
+               "burst": burst, "setup_s": setup_s, "prewarm_chunks": prewarm,
+               "compared_publishes": sz["compare"]}
+        try:
+            for label, bypass in (("bypass_off", False), ("bypass_on", True)):
+                run = await self.pipeline_run(kit, engine, index, clients,
+                                              traffic, bypass, answer,
+                                              sz["compare"])
+                run["frames_compared"] = self.frames_equal(
+                    f"{name} {label}", run.pop("frames"), want)
+                out[label] = run
+                log(f"[pipeline] {name} {label}: {json.dumps(run)}")
+                self.check_decoded(f"pipeline {name} {label}",
+                                   run["decoded"])
+            if name == "mixed_100k":
+                out["faults"] = await self.pipeline_faults(
+                    kit, engine, index, clients, traffic, answer)
+            retained = {p.topic: p.payload
+                        for p in PubDecoder(kit).decode(*traffic["burst"])
+                        if p.fixed.retain}
+            if any(index.retained_get(t).payload != v
+                   for t, v in retained.items()):
+                raise AssertionError("a retained publish was not stored")
+            out["retained"] = len(retained)
+        finally:
+            engine.emit_intents = emit0
+            if name == "mixed_100k":
+                engine.close()
+        return out
+
+    async def publish_pipelines(self) -> dict:
+        """Phase 12 on both corpora, with the heap frozen from its start
+        (each run freezes what it finds anew) and thawed and collected at
+        its end, as bench.py:622-646 does around a config's timed passes:
+        the phases after it run on the heap they would have without it."""
+        out = {}
+        t0 = time.perf_counter()
+        gc.collect()
+        gc.freeze()
+        out["freeze_s"] = time.perf_counter() - t0
+        try:
+            for name in ("mixed_100k", "iot_1m_share"):
+                out[name] = await self.publish_pipeline(name)
+        finally:
+            t0 = time.perf_counter()
+            gc.unfreeze()
+            gc.collect()
+            out["thaw_s"] = time.perf_counter() - t0
+            log(f"[pipeline] heap frozen in {out['freeze_s']:.1f} s, thawed "
+                f"and collected in {out['thaw_s']:.1f} s")
+        out["launches"] = {f"{n} {label}": out[n][label]["launches"]
+                           for n in ("mixed_100k", "iot_1m_share")
+                           for label in ("bypass_off", "bypass_on")}
+        log(f"[pipeline] heads: {json.dumps(dict(port_kit().wire.heads))}")
+        return out
 
     # -- dense phases (5-7) ---------------------------------------------
 
@@ -1976,6 +2831,8 @@ class Smoke:
         heads = {name: self.phase(f"sig headline {name}", self.headline,
                                   name)
                  for name in ("iot_1m_share", "mixed_100k")}
+        pipeline = self.phase("publish pipeline", lambda: asyncio.run(
+            self.publish_pipelines()))
         for engine in self.engines.values():
             engine.close()
         self.engines.clear()
@@ -2003,6 +2860,7 @@ class Smoke:
                    library_ms=None, bit_equal=self.record["bit_equal"],
                    shape=f"iot_1m_share batch {h['bucket']}",
                    ms_256=h["kernel_ms_256"],
+                   publish_pipeline_launches=pipeline["launches"],
                    headline={k: {f: v[f] for f in
                                  ("kernel_ms", "kernel_ms_256", "plain_ms",
                                   "bound_ms", "bound_by", "launches")}

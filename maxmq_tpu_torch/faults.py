@@ -1,8 +1,9 @@
 """Deterministic fault injection for the matcher degradation ladder.
 
 The registry core of the JAX package's ``faults.py``, for the sites the
-matcher service runs: a device call that raises or hangs, a table
-recompile that fails, a service socket that drops. Sites cost one dict
+matcher service and the publish pipeline run: a device call that raises
+or hangs, a table recompile that fails, a service socket that drops, a
+native frame-head encode that fails. Sites cost one dict
 lookup on an (almost always) empty dict when nothing is armed.
 
 ``arm(site, mode, count)`` fires the fault for exactly the next
@@ -45,6 +46,9 @@ class InjectedFault(DeviceMatchError):
 DEVICE_MATCH = "device.match"          # engine device-batch entry points
 DEVICE_RECOMPILE = "device.recompile"  # engine refresh()/table compile
 SERVICE_SOCKET = "service.socket"      # matcher-service client connection
+NATIVE_ENCODE = "native.encode"        # C publish-frame head assembly
+                                       # (trips fall back to the
+                                       # pure-Python encoder)
 
 
 class _Spec:
@@ -92,6 +96,11 @@ class FaultRegistry:
         with self._lock:
             self._specs.clear()
             self.fired.clear()
+
+    def any_armed(self) -> bool:
+        """True when ANY site is armed: the cheap hot-path guard before
+        a keyed fire (the wire head encoder, once per delivery)."""
+        return bool(self._specs)
 
     def arm_from_spec(self, spec: str) -> None:
         """Parse a ``MAXMQ_FAULTS``-style csv and arm each entry."""

@@ -1,16 +1,15 @@
 """CPU reference topic matcher: a subscription trie with full MQTT wildcard
-semantics. It is the matcher service's index, the exact fallback for
-topics the device path overflows, and the semantic oracle the device
-path is tested against.
+semantics, holding the broker's retained messages in the same trie. It is
+the exact fallback for topics the device path overflows, the supervisor's
+answer when the device path fails, and the semantic oracle the device path
+is tested against.
 
-Copy of the subscription half of the JAX package's ``matching/trie.py``
-(retained messages and topic aliases belong to the broker, which this
-package does not carry yet). ``SubscriberSet`` is rebound to the C type
-of the port's decode extension (``native.decode_module``, built at
-import when ``g++`` and ``Python.h`` are present, then cached by hash),
-so the native decode and the Python paths return one result type; with
-no toolchain, a failed build or ``MAXMQ_NO_NATIVE`` it stays the Python
-class below.
+Copy of the JAX package's ``matching/trie.py``. ``SubscriberSet`` is
+rebound to the C type of the port's decode extension
+(``native.decode_module``, built at import when ``g++`` and ``Python.h``
+are present, then cached by hash), so the native decode and the Python
+paths return one result type; with no toolchain, a failed build or
+``MAXMQ_NO_NATIVE`` it stays the Python class below.
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ from __future__ import annotations
 import threading
 from collections import deque
 
-from ..protocol.packets import Subscription
+from ..protocol.packets import Packet, Subscription
 from .topics import is_dollar, parse_share, split_levels
 
 JOURNAL_CAP = 4096   # mutations kept for overlay replay; beyond this a
@@ -28,7 +27,7 @@ JOURNAL_CAP = 4096   # mutations kept for overlay replay; beyond this a
 def subs_version(index) -> int:
     """The subscription-only version of an index (falls back to the full
     version for index-likes without one): what device matchers key their
-    staleness on."""
+    staleness on, so retained-message churn never forces a recompile."""
     v = getattr(index, "sub_version", None)
     return v if v is not None else getattr(index, "version", 0)
 
@@ -36,8 +35,10 @@ def subs_version(index) -> int:
 class VersionedTopicCache:
     """FIFO-bounded topic -> result cache keyed on a subscription
     version: any subscribe/unsubscribe bumps the version and silently
-    invalidates every entry. Cached results are SHARED objects; consumers
-    must treat them as immutable and deep_copy before mutating."""
+    invalidates every entry. Shared by the broker's trie-path match
+    cache and the MicroBatcher's matcher-mode cache — cached results
+    are SHARED objects; consumers must treat them as immutable and
+    deep_copy before mutating."""
 
     __slots__ = ("_cache", "maxsize")
 
@@ -65,11 +66,13 @@ def merge_subscription(base: Subscription | None, new: Subscription,
                        filter_: str) -> Subscription:
     """Merge overlapping matching filters for one client: max QoS wins, v5
     subscription identifiers union (keyed by filter), flags from the newer.
+
+    Parity: packets.go:250-270 (Subscription.Merge) in the reference.
     """
     if base is None and not new.identifier and not new.identifiers:
         # single matching filter, no v5 subscription identifier — the
-        # common fan-out case: no copy needed (consumers never mutate
-        # the returned Subscription)
+        # overwhelmingly common fan-out case: no copy needed (consumers
+        # never mutate the returned Subscription)
         return new
     merged = Subscription(
         filter=new.filter, qos=new.qos, no_local=new.no_local,
@@ -98,7 +101,14 @@ def _copy_subscription(s: Subscription) -> Subscription:
 
 class SubscriberSet:
     """Result of a topic match: per-client merged non-shared subscriptions and
-    shared-group candidate maps (group -> client -> subscription)."""
+    shared-group candidate maps (group -> client -> subscription).
+
+    A plain __slots__ class, not a dataclass: one of these is built per
+    matched topic on the fan-out hot path, and slot storage makes both
+    the constructor and the attribute reads measurably cheaper. When the
+    maxmq_decode C extension is present, the name below is rebound to
+    its C twin (same surface, C-speed construction); this class stays as
+    the documented fallback and the semantic reference."""
 
     __slots__ = ("subscriptions", "shared")
 
@@ -111,6 +121,8 @@ class SubscriberSet:
         self.shared = {} if shared is None else shared
 
     def __eq__(self, other) -> bool:
+        # duck-typed (not isinstance): must hold across the C twin and
+        # this fallback, and the module global is rebindable
         try:
             return (self.subscriptions == other.subscriptions
                     and self.shared == other.shared)
@@ -126,13 +138,23 @@ class SubscriberSet:
             self.subscriptions.get(client_id), sub, filter_)
 
     def deep_copy(self) -> "SubscriberSet":
-        """Copies of every Subscription record (matching aliases the
-        stored records)."""
+        """Copies of every Subscription record. Matching aliases stored
+        Subscription objects for speed; hand a hook that may mutate
+        delivery parameters this copy, never the originals."""
         cp = _copy_subscription
         return SubscriberSet(
             subscriptions={c: cp(s) for c, s in self.subscriptions.items()},
             shared={k: {c: cp(s) for c, s in m.items()}
                     for k, m in self.shared.items()})
+
+    def select_copy(self) -> "SubscriberSet":
+        """Fresh outer dicts over ALIASED records — what the
+        on_select_subscribers modify chain receives by default (hooks
+        may add/drop/replace entries; records are immutable by
+        contract, ADR 009)."""
+        return SubscriberSet(
+            subscriptions=dict(self.subscriptions),
+            shared={k: dict(m) for k, m in self.shared.items()})
 
     def add_shared(self, group: str, filter_: str, client_id: str,
                    sub: Subscription) -> None:
@@ -155,26 +177,33 @@ except Exception:       # any load failure keeps the Python class
 
 
 class _Node:
-    __slots__ = ("children", "subscriptions", "shared")
+    __slots__ = ("children", "subscriptions", "shared", "retained")
 
     def __init__(self) -> None:
         self.children: dict[str, _Node] = {}
         self.subscriptions: dict[str, Subscription] = {}
         self.shared: dict[str, dict[str, Subscription]] = {}
+        self.retained: Packet | None = None
 
     def empty(self) -> bool:
-        return not self.children and not self.subscriptions and not self.shared
+        return (not self.children and not self.subscriptions
+                and not self.shared and self.retained is None)
 
 
 class TopicIndex:
-    """Thread-safe subscription trie."""
+    """Thread-safe subscription + retained-message trie."""
 
     def __init__(self) -> None:
         self._root = _Node()
         self._lock = threading.RLock()
+        self._share_cursor: dict[tuple[str, str], int] = {}
         self.subscription_count = 0
-        # bumped on every mutation; device matchers key staleness on it
+        self.retained_count = 0
+        # bumped on every mutation; lets the NFA engine detect staleness
         self.version = 0
+        # bumped on SUBSCRIPTION mutations only — device matchers key
+        # their staleness off this so retained-message churn never forces
+        # a table recompile
         self.sub_version = 0
         # journal of recent subscription mutations, so matchers can serve
         # adds/removes as a host-side overlay while a recompile runs in
@@ -227,9 +256,11 @@ class TopicIndex:
                 holders = node.shared.get(group)
                 if not holders or client_id not in holders:
                     return False
+                sub_filter = holders[client_id].filter
                 del holders[client_id]
                 if not holders:
                     del node.shared[group]
+                    self._share_cursor.pop((group, sub_filter), None)
             else:
                 if client_id not in node.subscriptions:
                     return False
@@ -274,6 +305,22 @@ class TopicIndex:
     # Matching
     # ------------------------------------------------------------------
 
+    def walk_subscriptions(self):
+        """Yield every installed (client_id, Subscription) pair, shared
+        ones with their original ``$share/group/...`` filter. Snapshot
+        semantics under the index lock; used to seed external matchers
+        (the matcher service) with pre-existing state."""
+        with self._lock:
+            out = []
+            stack = [self._root]
+            while stack:
+                node = stack.pop()
+                stack.extend(node.children.values())
+                out.extend(node.subscriptions.items())
+                for holders in node.shared.values():
+                    out.extend(holders.items())
+        yield from out
+
     def subscribers(self, topic: str) -> SubscriberSet:
         """All subscriptions matching a published topic name.
 
@@ -314,14 +361,129 @@ class TopicIndex:
             for client_id, sub in holders.items():
                 out.add_shared(group, sub.filter, client_id, sub)
 
+    def select_shared(self, group: str, filter_: str,
+                      candidates: dict[str, Subscription],
+                      alive=None) -> tuple[str, Subscription] | None:
+        """Pick one receiver for a `$share` (group, filter) pair: round-robin
+        over the sorted candidate set, skipping clients rejected by the
+        ``alive`` predicate.
+
+        The reference picks effectively-arbitrarily (map iteration order,
+        topics.go:255-270); round-robin gives fairer load spreading.
+        """
+        if not candidates:
+            return None
+        ordered = sorted(candidates)
+        key = (group, filter_)
+        with self._lock:
+            cur = self._share_cursor.get(key, -1)
+            for i in range(1, len(ordered) + 1):
+                idx = (cur + i) % len(ordered)
+                cid = ordered[idx]
+                if alive is None or alive(cid):
+                    self._share_cursor[key] = idx
+                    return cid, candidates[cid]
+        return None
+
     # ------------------------------------------------------------------
-    # Introspection (signature compiler input)
+    # Retained messages
+    # ------------------------------------------------------------------
+
+    def retain(self, packet: Packet) -> int:
+        """Store/replace/clear the retained message for packet.topic.
+        Returns +1 stored-new, 0 replaced, -1 cleared (empty payload)."""
+        levels = split_levels(packet.topic)
+        with self._lock:
+            if not packet.payload:
+                # clearing walk; avoid creating nodes
+                path: list[tuple[_Node, str]] = []
+                node = self._root
+                for level in levels:
+                    child = node.children.get(level)
+                    if child is None:
+                        return 0
+                    path.append((node, level))
+                    node = child
+                if node.retained is None:
+                    return 0
+                node.retained = None
+                self.retained_count -= 1
+                self._trim(path, node)
+                self.version += 1
+                return -1
+            node = self._root
+            for level in levels:
+                node = node.children.setdefault(level, _Node())
+            existed = node.retained is not None
+            node.retained = packet
+            if not existed:
+                self.retained_count += 1
+            self.version += 1
+            return 0 if existed else 1
+
+    def retained_get(self, topic: str) -> Packet | None:
+        """Exact-topic retained lookup (no wildcard expansion)."""
+        with self._lock:
+            node = self._root
+            for level in split_levels(topic):
+                node = node.children.get(level)
+                if node is None:
+                    return None
+            return node.retained
+
+    def retained_for(self, filter_: str) -> list[Packet]:
+        """Retained messages matching a subscription filter (wildcard-aware;
+        '#'/'+' at the first level skip '$' topics [MQTT-4.7.2-1])."""
+        levels = split_levels(filter_)
+        out: list[Packet] = []
+        with self._lock:
+            self._scan_retained(self._root, levels, 0, out)
+        out.sort(key=lambda p: p.created)
+        return out
+
+    def _scan_retained(self, node: _Node, levels: list[str], depth: int,
+                       out: list[Packet]) -> None:
+        if depth == len(levels):
+            if node.retained is not None:
+                out.append(node.retained)
+            return
+        level = levels[depth]
+        if level == "#":
+            self._collect_subtree_retained(node, depth == 0, out)
+            return
+        if level == "+":
+            for name, child in node.children.items():
+                if depth == 0 and name.startswith("$"):
+                    continue
+                self._scan_retained(child, levels, depth + 1, out)
+            return
+        child = node.children.get(level)
+        if child is not None:
+            self._scan_retained(child, levels, depth + 1, out)
+
+    @staticmethod
+    def _collect_subtree_retained(node: _Node, top: bool,
+                                  out: list[Packet]) -> None:
+        """'#' matches the parent level itself and every descendant;
+        top-level '$' children are excluded [MQTT-4.7.2-1]."""
+        stack = [(node, top)]
+        while stack:
+            n, top = stack.pop()
+            if n.retained is not None:
+                out.append(n.retained)
+            for name, child in n.children.items():
+                if top and name.startswith("$"):
+                    continue
+                stack.append((child, False))
+
+    # ------------------------------------------------------------------
+    # Introspection (NFA compiler input, $SYS counters)
     # ------------------------------------------------------------------
 
     def all_subscriptions(self) -> list[tuple[str, str, Subscription, str]]:
         """All (filter, client_id, subscription, group) entries, materialized
         under the lock so callers iterate a stable snapshot. ``group`` is ''
-        for non-shared."""
+        for non-shared. Used by the NFA compiler."""
         out: list[tuple[str, str, Subscription, str]] = []
         with self._lock:
             stack: list[tuple[_Node, list[str]]] = [(self._root, [])]
@@ -336,3 +498,40 @@ class TopicIndex:
                 for name, child in node.children.items():
                     stack.append((child, path + [name]))
         return out
+
+
+class TopicAliases:
+    """Per-client inbound/outbound v5 topic alias maps.
+
+    Parity: topics.go:21-105 in the reference.
+    """
+
+    def __init__(self, maximum: int) -> None:
+        self.maximum = maximum
+        self.inbound: dict[int, str] = {}
+        self.outbound: dict[str, int] = {}
+        self._next_out = 0
+
+    def resolve_inbound(self, topic: str, alias: int | None) -> str | None:
+        """Apply/learn an inbound alias; None means the alias is invalid."""
+        if alias is None:
+            return topic
+        if alias == 0 or alias > self.maximum:
+            return None
+        if topic:
+            self.inbound[alias] = topic
+            return topic
+        return self.inbound.get(alias)
+
+    def assign_outbound(self, topic: str) -> tuple[int, bool]:
+        """Return (alias, first_use). alias 0 = no alias available."""
+        if self.maximum <= 0:
+            return 0, False
+        existing = self.outbound.get(topic)
+        if existing is not None:
+            return existing, False
+        if self._next_out >= self.maximum:
+            return 0, False
+        self._next_out += 1
+        self.outbound[topic] = self._next_out
+        return self._next_out, True

@@ -19,6 +19,9 @@ Exposes:
   signature, and the exact / '+' / '#' host probes, fused or apart.
 * ``scan_frames`` — the MQTT fixed-header frame scanner.
 * ``decode_module`` — the ``maxmq_torch_decode`` CPython extension.
+* ``refdecode`` — the spec-derived reference MQTT decoder
+  (``csrc/host/maxmq_torch_refdecode.cpp``, a C ABI): a test oracle for
+  the codec, loaded by nothing on the publish path.
 
 Everything degrades gracefully: ``available()`` is False when the library
 cannot be built or loaded (or ``MAXMQ_NO_NATIVE`` is set) and callers
@@ -47,6 +50,11 @@ CXXFLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-Wextra", "-pthread",
 # source stem -> (library stem, needs Python.h)
 SOURCES = {"maxmq_torch_native": ("libmaxmq_torch_native", False),
            "maxmq_torch_decode": ("maxmq_torch_decode", True)}
+# the codec's test oracle: built the same way, on demand (``refdecode``),
+# never by ``build_all`` (it is no part of the runtime)
+ORACLE_SOURCES = {"maxmq_torch_refdecode": ("libmaxmq_torch_refdecode",
+                                            False)}
+_ALL_SOURCES = {**SOURCES, **ORACLE_SOURCES}
 
 _lib = None
 _load_lock = threading.Lock()
@@ -77,7 +85,7 @@ def python_include() -> str | None:
 
 def _flags(source: str) -> list[str]:
     flags = list(CXXFLAGS)
-    if SOURCES[source][1]:
+    if _ALL_SOURCES[source][1]:
         inc = python_include()
         if inc is None:
             raise RuntimeError("Python.h not found: the decode extension "
@@ -90,7 +98,7 @@ def _flags(source: str) -> list[str]:
 def library_path(source: str):
     """The shared library that ``csrc/host/<source>.cpp`` builds to
     (built or not)."""
-    stem, is_ext = SOURCES[source]
+    stem, is_ext = _ALL_SOURCES[source]
     src = (SOURCE_DIR / f"{source}.cpp").read_bytes()
     key = src + " ".join(_flags(source)).encode()
     if is_ext:                 # the extension's ABI is the interpreter's
@@ -268,6 +276,35 @@ def decode_module():
             build_errors["maxmq_torch_decode"] = str(exc)
             _decode_mod = None
         return _decode_mod
+
+
+_refdecode = None
+
+
+def refdecode():
+    """The reference decoder's ``mq_ref_decode(first_byte, remaining,
+    body, body_len, protocol_version, out, out_cap)`` (canonical text
+    into ``out``; -1 on reject, -2 when ``out`` is too small), built at
+    first use, or None with the reason in ``build_errors``. It ignores
+    ``MAXMQ_NO_NATIVE``: an oracle, not a fast path."""
+    global _refdecode
+    with _load_lock:
+        if _refdecode is None:
+            path = _built("maxmq_torch_refdecode")
+            if path is None:
+                return None
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as exc:
+                build_errors["maxmq_torch_refdecode"] = str(exc)
+                return None
+            fn = lib.mq_ref_decode
+            fn.restype = ctypes.c_int64
+            fn.argtypes = [ctypes.c_uint8, ctypes.c_int64, ctypes.c_char_p,
+                           ctypes.c_int64, ctypes.c_int32, ctypes.c_char_p,
+                           ctypes.c_int64]
+            _refdecode = fn
+        return _refdecode
 
 
 class NativeVocab:

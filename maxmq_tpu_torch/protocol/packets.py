@@ -1,13 +1,41 @@
-"""The subscription record carried by SUBSCRIBE packets and match results.
+"""MQTT control packets: one concrete ``Packet`` model + per-type codecs.
 
-Copy of ``Subscription`` from the JAX package's ``protocol/packets.py``
-(the packet codecs stay with the broker, which this package does not
-carry yet). Field names, order and defaults are the wire contract of the
-matcher service's JSON encoding (``matching/service.py``)."""
+All 15 packet types for protocol versions 3 (MQTT 3.1), 4 (MQTT 3.1.1) and
+5 (MQTT 5.0). Properties blocks are encoded/decoded only for v5.
+
+Copy of the JAX package's ``protocol/packets.py``. ``Subscription``'s
+field names, order and defaults are also the wire contract of the matcher
+service's JSON encoding (``matching/service.py``): change them in step.
+"""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+from . import codes
+from .codec import (
+    FixedHeader,
+    MalformedPacketError,
+    PacketType as PT,
+    read_binary,
+    read_string,
+    read_uint16,
+    valid_utf8_string,
+    write_binary,
+    write_string,
+    write_uint16,
+)
+from .properties import Properties, blank_properties
+
+PROTOCOL_NAMES = {3: "MQIsdp", 4: "MQTT", 5: "MQTT"}
+
+
+class ProtocolError(ValueError):
+    """A spec violation that must terminate the network connection."""
+
+    def __init__(self, code: codes.Code, detail: str = ""):
+        super().__init__(detail or code.reason)
+        self.code = code
 
 
 @dataclass
@@ -22,3 +50,569 @@ class Subscription:
     identifier: int = 0  # v5 subscription identifier attached at subscribe time
     # Merged view when one client holds several overlapping matching filters.
     identifiers: dict[str, int] = field(default_factory=dict)
+
+    def options_byte(self) -> int:
+        return ((self.qos & 0x3)
+                | (0x04 if self.no_local else 0)
+                | (0x08 if self.retain_as_published else 0)
+                | ((self.retain_handling & 0x3) << 4))
+
+    @classmethod
+    def from_options_byte(cls, filter_: str, b: int, v5: bool) -> "Subscription":
+        if (b & 0x3) == 3:
+            raise MalformedPacketError("subscription qos 3 is malformed")  # [MQTT-3.8.3-4]
+        if v5:
+            if b & 0xC0:
+                raise MalformedPacketError("subscription options reserved bits set")
+            rh = (b >> 4) & 0x3
+            if rh == 3:
+                raise MalformedPacketError("retain handling 3 is malformed")
+            return cls(filter=filter_, qos=b & 0x3, no_local=bool(b & 0x04),
+                       retain_as_published=bool(b & 0x08), retain_handling=rh)
+        if b & 0xFC:
+            raise MalformedPacketError("subscription options reserved bits set")
+        return cls(filter=filter_, qos=b & 0x3)
+
+
+@dataclass
+class Will:
+    """Last Will & Testament captured from CONNECT."""
+
+    topic: str = ""
+    payload: bytes = b""
+    qos: int = 0
+    retain: bool = False
+    properties: Properties = field(default_factory=Properties)
+
+    @property
+    def flag(self) -> bool:
+        return bool(self.topic)
+
+
+@dataclass
+class Packet:
+    """A decoded (or to-be-encoded) MQTT control packet of any type."""
+
+    fixed: FixedHeader = field(default_factory=FixedHeader)
+    protocol_version: int = 4
+
+    # CONNECT
+    protocol_name: str = ""
+    clean_start: bool = False
+    keepalive: int = 0
+    client_id: str = ""
+    username: bytes = b""
+    password: bytes = b""
+    username_flag: bool = False
+    password_flag: bool = False
+    will: Will | None = None
+
+    # CONNACK
+    session_present: bool = False
+
+    # PUBLISH / acks / subscribe
+    topic: str = ""
+    payload: bytes = b""
+    packet_id: int = 0
+    reason_code: int = 0
+    reason_codes: list[int] = field(default_factory=list)  # SUBACK/UNSUBACK
+    filters: list[Subscription] = field(default_factory=list)
+
+    properties: Properties = field(default_factory=Properties)
+
+    # Runtime bookkeeping (not wire data).
+    created: float = 0.0  # unix seconds; used for inflight/retained expiry
+    origin: str = ""      # client id that produced the packet
+
+    @property
+    def type(self) -> int:
+        return self.fixed.type
+
+    def copy(self) -> "Packet":
+        p = Packet(
+            fixed=FixedHeader(**self.fixed.__dict__),
+            protocol_version=self.protocol_version,
+            protocol_name=self.protocol_name,
+            clean_start=self.clean_start,
+            keepalive=self.keepalive,
+            client_id=self.client_id,
+            username=self.username,
+            password=self.password,
+            username_flag=self.username_flag,
+            password_flag=self.password_flag,
+            session_present=self.session_present,
+            topic=self.topic,
+            payload=self.payload,
+            packet_id=self.packet_id,
+            reason_code=self.reason_code,
+            reason_codes=list(self.reason_codes),
+            properties=self.properties.copy(),
+            created=self.created,
+            origin=self.origin,
+        )
+        if self.will is not None:
+            p.will = Will(topic=self.will.topic, payload=self.will.payload,
+                          qos=self.will.qos, retain=self.will.retain,
+                          properties=self.will.properties.copy())
+        p.filters = [Subscription(filter=s.filter, qos=s.qos, no_local=s.no_local,
+                                  retain_as_published=s.retain_as_published,
+                                  retain_handling=s.retain_handling,
+                                  identifier=s.identifier,
+                                  identifiers=dict(s.identifiers))
+                     for s in self.filters]
+        return p
+
+    @property
+    def v5(self) -> bool:
+        return self.protocol_version >= 5
+
+    # ------------------------------------------------------------------
+    # Encoding
+    # ------------------------------------------------------------------
+
+    def encode(self) -> bytes:  # qa: complex
+        body = bytearray()
+        t = self.fixed.type
+        if t == PT.CONNECT:
+            self._enc_connect(body)
+        elif t == PT.CONNACK:
+            body.append(1 if self.session_present else 0)
+            body.append(self.reason_code & 0xFF)
+            if self.v5:
+                self.properties.encode(body, PT.CONNACK)
+        elif t == PT.PUBLISH:
+            write_string(body, self.topic)
+            if self.fixed.qos > 0:
+                write_uint16(body, self.packet_id)
+            if self.v5:
+                self.properties.encode(body, PT.PUBLISH)
+            body.extend(self.payload)
+        elif t in (PT.PUBACK, PT.PUBREC, PT.PUBREL, PT.PUBCOMP):
+            write_uint16(body, self.packet_id)
+            if self.v5:
+                if self.reason_code != 0 or not self.properties.is_empty():
+                    body.append(self.reason_code & 0xFF)
+                    self.properties.encode(body, t)
+        elif t == PT.SUBSCRIBE:
+            write_uint16(body, self.packet_id)
+            if self.v5:
+                self.properties.encode(body, PT.SUBSCRIBE)
+            for sub in self.filters:
+                write_string(body, sub.filter)
+                body.append(sub.options_byte() if self.v5 else sub.qos & 0x3)
+        elif t == PT.SUBACK:
+            write_uint16(body, self.packet_id)
+            if self.v5:
+                self.properties.encode(body, PT.SUBACK)
+            body.extend(c & 0xFF for c in self.reason_codes)
+        elif t == PT.UNSUBSCRIBE:
+            write_uint16(body, self.packet_id)
+            if self.v5:
+                self.properties.encode(body, PT.UNSUBSCRIBE)
+            for sub in self.filters:
+                write_string(body, sub.filter)
+        elif t == PT.UNSUBACK:
+            write_uint16(body, self.packet_id)
+            if self.v5:
+                self.properties.encode(body, PT.UNSUBACK)
+                body.extend(c & 0xFF for c in self.reason_codes)
+        elif t in (PT.PINGREQ, PT.PINGRESP):
+            pass
+        elif t == PT.DISCONNECT:
+            if self.v5 and (self.reason_code != 0 or not self.properties.is_empty()):
+                body.append(self.reason_code & 0xFF)
+                self.properties.encode(body, PT.DISCONNECT)
+        elif t == PT.AUTH:
+            if self.reason_code != 0 or not self.properties.is_empty():
+                body.append(self.reason_code & 0xFF)
+                self.properties.encode(body, PT.AUTH)
+        else:
+            raise ProtocolError(codes.ErrInvalidPacketType)
+
+        self.fixed.remaining = len(body)
+        out = bytearray()
+        self.fixed.encode(out)
+        out.extend(body)
+        return bytes(out)
+
+    def _connect_flags(self) -> int:
+        flags = 0
+        if self.clean_start:
+            flags |= 0x02
+        if self.will is not None and self.will.flag:
+            flags |= 0x04 | ((self.will.qos & 0x3) << 3)
+            if self.will.retain:
+                flags |= 0x20
+        if self.password_flag:
+            flags |= 0x40
+        if self.username_flag:
+            flags |= 0x80
+        return flags
+
+    def _enc_connect(self, body: bytearray) -> None:
+        write_string(body, PROTOCOL_NAMES.get(self.protocol_version, "MQTT"))
+        body.append(self.protocol_version)
+        body.append(self._connect_flags())
+        write_uint16(body, self.keepalive)
+        if self.v5:
+            self.properties.encode(body, PT.CONNECT)
+        write_string(body, self.client_id)
+        if self.will is not None and self.will.flag:
+            if self.v5:
+                self.will.properties.encode(body, -1)
+            write_string(body, self.will.topic)
+            write_binary(body, self.will.payload)
+        if self.username_flag:
+            write_binary(body, self.username)
+        if self.password_flag:
+            write_binary(body, self.password)
+
+    # ------------------------------------------------------------------
+    # Decoding (body only; fixed header is parsed by the transport)
+    # ------------------------------------------------------------------
+
+    @classmethod
+    def decode(cls, fixed: FixedHeader, body: bytes,  # qa: complex
+               protocol_version: int = 4) -> "Packet":
+        if fixed.remaining > len(body):
+            # parse_stream always hands a complete body; a shorter one
+            # means a truncated buffer was fed directly (the conformance
+            # corpus's Mal* fixtures do exactly this)
+            raise MalformedPacketError("body shorter than remaining length")
+        p = _blank_packet(fixed, protocol_version)
+        t = fixed.type
+        try:
+            if t == PT.CONNECT:
+                p._dec_connect(body)
+            elif t == PT.CONNACK:
+                off = 0
+                p.session_present = bool(body[off] & 0x1); off += 1
+                p.reason_code = body[off]; off += 1
+                if p.v5:
+                    p.properties, off = Properties.decode(body, off, PT.CONNACK)
+            elif t == PT.PUBLISH:
+                p._dec_publish(body)
+            elif t in (PT.PUBACK, PT.PUBREC, PT.PUBREL, PT.PUBCOMP):
+                p.packet_id, off = read_uint16(body, 0)
+                if p.v5 and len(body) > off:
+                    p.reason_code = body[off]; off += 1
+                    if len(body) > off:
+                        p.properties, off = Properties.decode(body, off, t)
+            elif t == PT.SUBSCRIBE:
+                p._dec_subscribe(body)
+            elif t == PT.SUBACK:
+                p.packet_id, off = read_uint16(body, 0)
+                if p.v5:
+                    p.properties, off = Properties.decode(body, off, PT.SUBACK)
+                p.reason_codes = list(body[off:])
+            elif t == PT.UNSUBSCRIBE:
+                p._dec_unsubscribe(body)
+            elif t == PT.UNSUBACK:
+                p.packet_id, off = read_uint16(body, 0)
+                if p.v5:
+                    p.properties, off = Properties.decode(body, off, PT.UNSUBACK)
+                    p.reason_codes = list(body[off:])
+            elif t in (PT.PINGREQ, PT.PINGRESP):
+                pass
+            elif t == PT.DISCONNECT:
+                if p.v5 and body:
+                    p.reason_code = body[0]
+                    if len(body) > 1:
+                        p.properties, _ = Properties.decode(body, 1, PT.DISCONNECT)
+            elif t == PT.AUTH:
+                if not p.v5:
+                    # type 15 is reserved before MQTT 5 [MQTT-2.2.1]
+                    raise ProtocolError(codes.ErrProtocolViolation,
+                                        "AUTH packet on pre-v5 connection")
+                if body:
+                    p.reason_code = body[0]
+                    if len(body) > 1:
+                        p.properties, _ = Properties.decode(body, 1, PT.AUTH)
+            else:
+                raise ProtocolError(codes.ErrInvalidPacketType)
+        except IndexError as e:
+            raise MalformedPacketError(f"truncated {PT.NAMES.get(t, t)} body") from e
+        return p
+
+    def _dec_connect(self, body: bytes) -> None:
+        off = 0
+        self.protocol_name, off = read_string(body, off)
+        self.protocol_version = body[off]; off += 1
+        expected = PROTOCOL_NAMES.get(self.protocol_version)
+        if expected is None or self.protocol_name != expected:
+            raise ProtocolError(codes.ErrUnsupportedProtocolVersion,
+                                f"unknown protocol {self.protocol_name!r} "
+                                f"v{self.protocol_version}")
+        flags = body[off]; off += 1
+        will_flag = self._check_connect_flags(flags)
+        self.keepalive, off = read_uint16(body, off)
+        if self.v5:
+            self.properties, off = Properties.decode(body, off, PT.CONNECT)
+        self.client_id, off = read_string(body, off)
+        if will_flag:
+            off = self._dec_will(body, off, flags)
+        if self.username_flag:
+            self.username, off = read_binary(body, off)
+        if self.password_flag:
+            self.password, off = read_binary(body, off)
+        if off != len(body):
+            raise MalformedPacketError("trailing bytes after CONNECT payload")
+
+    def _check_connect_flags(self, flags: int) -> bool:
+        """Validate the CONNECT flags byte; returns the will flag."""
+        if flags & 0x01:
+            raise ProtocolError(codes.ErrProtocolViolation,
+                                "connect reserved flag set")  # [MQTT-3.1.2-3]
+        self.clean_start = bool(flags & 0x02)
+        will_flag = bool(flags & 0x04)
+        will_qos = (flags >> 3) & 0x3
+        will_retain = bool(flags & 0x20)
+        self.password_flag = bool(flags & 0x40)
+        self.username_flag = bool(flags & 0x80)
+        if not will_flag and (will_qos or will_retain):
+            raise ProtocolError(codes.ErrProtocolViolation,
+                                "will qos/retain without will flag")
+        if will_qos > 2:
+            raise ProtocolError(codes.ErrProtocolViolation, "will qos 3")
+        if self.password_flag and not self.username_flag and not self.v5:
+            # [MQTT-3.1.2-22]; v5 lifts this restriction.
+            raise ProtocolError(codes.ErrProtocolViolation,
+                                "password flag without username flag")
+        return will_flag
+
+    def _dec_will(self, body: bytes, off: int, flags: int) -> int:
+        self.will = Will(qos=(flags >> 3) & 0x3,
+                         retain=bool(flags & 0x20))
+        if self.v5:
+            self.will.properties, off = Properties.decode(body, off, -1)
+        self.will.topic, off = read_string(body, off)
+        self.will.payload, off = read_binary(body, off)
+        if not self.will.topic:
+            raise ProtocolError(codes.ErrProtocolViolation, "empty will topic")
+        return off
+
+    def _dec_publish(self, body: bytes) -> None:
+        off = 0
+        self.topic, off = read_string(body, off)
+        if self.fixed.qos > 0:
+            self.packet_id, off = read_uint16(body, off)
+            if self.packet_id == 0:
+                raise ProtocolError(codes.ErrProtocolViolation,
+                                    "publish qos>0 with packet id 0")
+        if self.v5:
+            self.properties, off = Properties.decode(body, off, PT.PUBLISH)
+        self.payload = bytes(body[off:])
+
+    def _dec_subscribe(self, body: bytes) -> None:
+        self.packet_id, off = read_uint16(body, 0)
+        if self.packet_id == 0:
+            raise ProtocolError(codes.ErrProtocolViolation, "subscribe packet id 0")
+        if self.v5:
+            self.properties, off = Properties.decode(body, off, PT.SUBSCRIBE)
+            if len(self.properties.subscription_ids) > 1:
+                raise ProtocolError(codes.ErrProtocolViolation,
+                                    "multiple subscription ids")
+        while off < len(body):
+            filt, off = read_string(body, off)
+            if off >= len(body):
+                raise MalformedPacketError("subscribe filter missing options byte")
+            sub = Subscription.from_options_byte(filt, body[off], self.v5)
+            off += 1
+            if self.properties.subscription_ids:
+                sub.identifier = self.properties.subscription_ids[0]
+            self.filters.append(sub)
+        if not self.filters:
+            raise ProtocolError(codes.ErrProtocolViolation,
+                                "subscribe with no filters")  # [MQTT-3.8.3-3]
+
+    def _dec_unsubscribe(self, body: bytes) -> None:
+        self.packet_id, off = read_uint16(body, 0)
+        if self.packet_id == 0:
+            raise ProtocolError(codes.ErrProtocolViolation, "unsubscribe packet id 0")
+        if self.v5:
+            self.properties, off = Properties.decode(body, off, PT.UNSUBSCRIBE)
+        while off < len(body):
+            filt, off = read_string(body, off)
+            self.filters.append(Subscription(filter=filt))
+        if not self.filters:
+            raise ProtocolError(codes.ErrProtocolViolation,
+                                "unsubscribe with no filters")
+
+    # ------------------------------------------------------------------
+    # Validation beyond decode-time checks
+    # ------------------------------------------------------------------
+
+    def validate_publish(self) -> None:
+        if self.fixed.qos > 0 and not self.packet_id:
+            raise ProtocolError(codes.ErrProtocolViolation,
+                                "qos > 0 publish without packet id"
+                                )  # [MQTT-2.2.1-3]
+        if self.fixed.qos == 0 and self.packet_id:
+            raise ProtocolError(codes.ErrProtocolViolation,
+                                "qos 0 publish with packet id"
+                                )  # [MQTT-2.2.1-2]
+        if self.properties.subscription_ids:
+            # only the server sends subscription identifiers
+            raise ProtocolError(codes.ErrProtocolViolation,
+                                "subscription identifier from client"
+                                )  # [MQTT-3.3.4-6]
+        if not self.topic:
+            # a v5 publish may carry only a topic alias [MQTT-3.3.2-6]
+            if self.v5 and self.properties.topic_alias:
+                return
+            raise ProtocolError(codes.ErrTopicNameInvalid, "empty topic")
+        if "+" in self.topic or "#" in self.topic:
+            raise ProtocolError(codes.ErrTopicNameInvalid,
+                                "wildcards in publish topic")  # [MQTT-3.3.2-2]
+        if not valid_utf8_string(self.topic.encode("utf-8")):
+            raise ProtocolError(codes.ErrTopicNameInvalid)
+
+    def encode_under(self, max_size: int) -> bytes | None:
+        """Encode within ``max_size`` bytes, discarding the optional
+        problem-info properties (reason string, then user properties)
+        when they don't fit — [MQTT-3.2.2-19/20] and siblings; the
+        reference includes each iff the packet stays under the cap
+        (properties.go:290-296, 323-334). None = still oversize after
+        dropping everything droppable (the caller drops the packet,
+        [MQTT-3.1.2-25])."""
+        wire = self.encode()
+        if not max_size or len(wire) <= max_size:
+            return wire
+        if not self.v5:
+            return None
+        p = self.copy()
+        rs = p.properties.reason_string
+        up = p.properties.user_properties
+        p.properties.reason_string = ""
+        p.properties.user_properties = []
+        wire = p.encode()
+        if len(wire) > max_size:
+            return None
+        if rs:                       # re-admit what still fits, in the
+            p.properties.reason_string = rs      # reference's order
+            trial = p.encode()
+            if len(trial) <= max_size:
+                wire = trial
+            else:
+                p.properties.reason_string = ""
+        if up:
+            p.properties.user_properties = up
+            trial = p.encode()
+            if len(trial) <= max_size:
+                wire = trial
+        return wire
+
+    def reason_code_valid(self) -> bool:
+        """Whether the reason code is one the spec allows for this packet
+        type (reference parity surface: ReasonCodeValid,
+        vendor/.../v2/packets/packets.go:779-829; AUTH per AuthValidate,
+        packets.go:1133-1141 [MQTT-3.15.2-1])."""
+        t = self.fixed.type
+        allowed = _VALID_REASONS.get(t)
+        return allowed is None or self.reason_code in allowed
+
+
+# Spec-allowed reason codes per packet type. Types absent here are
+# unconstrained (PUBACK mirrors the reference, whose switch has no case
+# for it — packets.go:779-829).
+_VALID_REASONS = {
+    PT.PUBREC: frozenset({
+        codes.Success.value, codes.NoMatchingSubscribers.value,
+        codes.ErrUnspecifiedError.value,
+        codes.ErrImplementationSpecificError.value,
+        codes.ErrNotAuthorized.value, codes.ErrTopicNameInvalid.value,
+        codes.ErrPacketIdentifierInUse.value,
+        codes.ErrQuotaExceeded.value,
+        codes.ErrPayloadFormatInvalid.value}),
+    PT.PUBREL: frozenset({
+        codes.Success.value, codes.ErrPacketIdentifierNotFound.value}),
+    PT.PUBCOMP: frozenset({
+        codes.Success.value, codes.ErrPacketIdentifierNotFound.value}),
+    PT.SUBACK: frozenset({
+        codes.GrantedQos0.value, codes.GrantedQos1.value,
+        codes.GrantedQos2.value, codes.ErrUnspecifiedError.value,
+        codes.ErrImplementationSpecificError.value,
+        codes.ErrNotAuthorized.value, codes.ErrTopicFilterInvalid.value,
+        codes.ErrPacketIdentifierInUse.value,
+        codes.ErrQuotaExceeded.value,
+        codes.ErrSharedSubscriptionsNotSupported.value,
+        codes.ErrSubscriptionIdentifiersNotSupported.value,
+        codes.ErrWildcardSubscriptionsNotSupported.value}),
+    PT.UNSUBACK: frozenset({
+        codes.Success.value, codes.NoSubscriptionExisted.value,
+        codes.ErrUnspecifiedError.value,
+        codes.ErrImplementationSpecificError.value,
+        codes.ErrNotAuthorized.value, codes.ErrTopicFilterInvalid.value,
+        codes.ErrPacketIdentifierInUse.value}),
+    PT.AUTH: frozenset({
+        codes.Success.value, codes.ContinueAuthentication.value,
+        codes.ReAuthenticate.value}),
+}
+
+
+# Dataclass construction runs on the per-packet hot path; building from
+# prebuilt default templates (immutable values shared, the three mutable
+# fields set fresh) costs ~1/3 of the generated __init__. Parity is
+# pinned by the conformance corpus (tests/test_tpackets.py) and
+# test_packets.py — every decoded packet goes through this.
+_PACKET_TEMPLATE: dict | None = None
+
+
+def _blank_packet(fixed: FixedHeader, protocol_version: int) -> "Packet":
+    global _PACKET_TEMPLATE
+    if _PACKET_TEMPLATE is None:
+        import dataclasses
+
+        tmpl = {k: v for k, v in Packet().__dict__.items()
+                if not isinstance(v, (list, dict, Properties, FixedHeader))}
+        # a future mutable field must be added to the resets below, not
+        # silently shared or dropped
+        assert set(tmpl) | {"fixed", "protocol_version", "reason_codes",
+                            "filters", "properties"} == \
+            {f.name for f in dataclasses.fields(Packet)}
+        _PACKET_TEMPLATE = tmpl
+    q = object.__new__(Packet)
+    q.__dict__.update(_PACKET_TEMPLATE)
+    q.fixed = fixed
+    q.protocol_version = protocol_version
+    q.reason_codes = []
+    q.filters = []
+    q.properties = blank_properties()
+    return q
+
+
+def parse_stream(buf: bytearray, max_packet_size: int = 0):
+    """Incremental framing: yield (FixedHeader, body) pairs consumed from buf.
+
+    Leaves any trailing partial packet in ``buf``. Raises MalformedPacketError
+    on an unparseable fixed header, ProtocolError(ErrPacketTooLarge) when a
+    frame exceeds max_packet_size (0 = unlimited).
+    """
+    while True:
+        if len(buf) < 2:
+            return
+        first = buf[0]
+        # variable byte integer for remaining length
+        remaining = 0
+        shift = 0
+        i = 1
+        while True:
+            if i >= len(buf):
+                return  # need more bytes
+            b = buf[i]
+            remaining |= (b & 0x7F) << shift
+            i += 1
+            if not b & 0x80:
+                break
+            shift += 7
+            if shift > 21:
+                raise MalformedPacketError("remaining length varint too long")
+        total = i + remaining
+        if max_packet_size and total > max_packet_size:
+            raise ProtocolError(codes.ErrPacketTooLarge)
+        if len(buf) < total:
+            return
+        fh = FixedHeader.decode(first, remaining)
+        body = bytes(buf[i:total])
+        del buf[:total]
+        yield fh, body

@@ -1,0 +1,350 @@
+"""MQTT v5 properties: identifiers, per-packet validity matrix, encode/decode.
+
+Parity surface: vendor/github.com/mochi-co/mqtt/v2/packets/properties.go in the
+reference (27 properties + validity matrix). Re-derived from the MQTT 5.0 spec
+section 2.2.2.
+
+Copy of the JAX package's ``protocol/properties.py``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+from .codec import (
+    MalformedPacketError,
+    PacketType as PT,
+    read_binary,
+    read_string,
+    read_uint16,
+    read_uint32,
+    read_varint,
+    write_binary,
+    write_string,
+    write_uint16,
+    write_uint32,
+    write_varint,
+)
+
+# Property identifiers (MQTT 5.0 table 2-4).
+PAYLOAD_FORMAT = 0x01
+MESSAGE_EXPIRY = 0x02
+CONTENT_TYPE = 0x03
+RESPONSE_TOPIC = 0x08
+CORRELATION_DATA = 0x09
+SUBSCRIPTION_ID = 0x0B
+SESSION_EXPIRY = 0x11
+ASSIGNED_CLIENT_ID = 0x12
+SERVER_KEEP_ALIVE = 0x13
+AUTH_METHOD = 0x15
+AUTH_DATA = 0x16
+REQUEST_PROBLEM_INFO = 0x17
+WILL_DELAY = 0x18
+REQUEST_RESPONSE_INFO = 0x19
+RESPONSE_INFO = 0x1A
+SERVER_REFERENCE = 0x1C
+REASON_STRING = 0x1F
+RECEIVE_MAXIMUM = 0x21
+TOPIC_ALIAS_MAX = 0x22
+TOPIC_ALIAS = 0x23
+MAXIMUM_QOS = 0x24
+RETAIN_AVAILABLE = 0x25
+USER_PROPERTY = 0x26
+MAXIMUM_PACKET_SIZE = 0x27
+WILDCARD_SUB_AVAILABLE = 0x28
+SUB_ID_AVAILABLE = 0x29
+SHARED_SUB_AVAILABLE = 0x2A
+
+# Validity matrix: property id -> set of packet types it may appear in.
+# "will" marks properties valid in the CONNECT will-properties block.
+WILL = -1
+_VALID: dict[int, frozenset[int]] = {
+    PAYLOAD_FORMAT: frozenset({PT.PUBLISH, WILL}),
+    MESSAGE_EXPIRY: frozenset({PT.PUBLISH, WILL}),
+    CONTENT_TYPE: frozenset({PT.PUBLISH, WILL}),
+    RESPONSE_TOPIC: frozenset({PT.PUBLISH, WILL}),
+    CORRELATION_DATA: frozenset({PT.PUBLISH, WILL}),
+    SUBSCRIPTION_ID: frozenset({PT.PUBLISH, PT.SUBSCRIBE}),
+    SESSION_EXPIRY: frozenset({PT.CONNECT, PT.CONNACK, PT.DISCONNECT}),
+    ASSIGNED_CLIENT_ID: frozenset({PT.CONNACK}),
+    SERVER_KEEP_ALIVE: frozenset({PT.CONNACK}),
+    AUTH_METHOD: frozenset({PT.CONNECT, PT.CONNACK, PT.AUTH}),
+    AUTH_DATA: frozenset({PT.CONNECT, PT.CONNACK, PT.AUTH}),
+    REQUEST_PROBLEM_INFO: frozenset({PT.CONNECT}),
+    WILL_DELAY: frozenset({WILL}),
+    REQUEST_RESPONSE_INFO: frozenset({PT.CONNECT}),
+    RESPONSE_INFO: frozenset({PT.CONNACK}),
+    SERVER_REFERENCE: frozenset({PT.CONNACK, PT.DISCONNECT}),
+    REASON_STRING: frozenset({
+        PT.CONNACK, PT.PUBACK, PT.PUBREC, PT.PUBREL, PT.PUBCOMP, PT.SUBACK,
+        PT.UNSUBACK, PT.DISCONNECT, PT.AUTH}),
+    RECEIVE_MAXIMUM: frozenset({PT.CONNECT, PT.CONNACK}),
+    TOPIC_ALIAS_MAX: frozenset({PT.CONNECT, PT.CONNACK}),
+    TOPIC_ALIAS: frozenset({PT.PUBLISH}),
+    MAXIMUM_QOS: frozenset({PT.CONNACK}),
+    RETAIN_AVAILABLE: frozenset({PT.CONNACK}),
+    USER_PROPERTY: frozenset({
+        PT.CONNECT, PT.CONNACK, PT.PUBLISH, PT.PUBACK, PT.PUBREC, PT.PUBREL,
+        PT.PUBCOMP, PT.SUBSCRIBE, PT.SUBACK, PT.UNSUBSCRIBE, PT.UNSUBACK,
+        PT.DISCONNECT, PT.AUTH, WILL}),
+    MAXIMUM_PACKET_SIZE: frozenset({PT.CONNECT, PT.CONNACK}),
+    WILDCARD_SUB_AVAILABLE: frozenset({PT.CONNACK}),
+    SUB_ID_AVAILABLE: frozenset({PT.CONNACK}),
+    SHARED_SUB_AVAILABLE: frozenset({PT.CONNACK}),
+}
+
+
+@dataclass
+class Properties:
+    """Decoded v5 property block. ``None`` / empty means "absent"."""
+
+    payload_format: int | None = None
+    message_expiry: int | None = None
+    content_type: str = ""
+    response_topic: str = ""
+    correlation_data: bytes = b""
+    subscription_ids: list[int] = field(default_factory=list)
+    session_expiry: int | None = None
+    assigned_client_id: str = ""
+    server_keep_alive: int | None = None
+    auth_method: str = ""
+    auth_data: bytes = b""
+    request_problem_info: int | None = None
+    will_delay: int | None = None
+    request_response_info: int | None = None
+    response_info: str = ""
+    server_reference: str = ""
+    reason_string: str = ""
+    receive_maximum: int | None = None
+    topic_alias_max: int | None = None
+    topic_alias: int | None = None
+    maximum_qos: int | None = None
+    retain_available: int | None = None
+    user_properties: list[tuple[str, str]] = field(default_factory=list)
+    maximum_packet_size: int | None = None
+    wildcard_sub_available: int | None = None
+    sub_id_available: int | None = None
+    shared_sub_available: int | None = None
+
+    def is_empty(self) -> bool:
+        return self == Properties()
+
+    def copy(self) -> "Properties":
+        p = Properties(**{k: v for k, v in self.__dict__.items()
+                          if k not in ("subscription_ids", "user_properties")})
+        p.subscription_ids = list(self.subscription_ids)
+        p.user_properties = list(self.user_properties)
+        return p
+
+    # -- encoding -----------------------------------------------------------
+
+    def encode(self, out: bytearray, packet_type: int) -> None:  # qa: complex
+        """Append the property-length varint + property block for packet_type."""
+        body = bytearray()
+        ctx = packet_type
+
+        def ok(pid: int) -> bool:
+            return ctx in _VALID[pid]
+
+        if self.payload_format is not None and ok(PAYLOAD_FORMAT):
+            body.append(PAYLOAD_FORMAT)
+            body.append(self.payload_format & 0xFF)
+        if self.message_expiry is not None and ok(MESSAGE_EXPIRY):
+            body.append(MESSAGE_EXPIRY)
+            write_uint32(body, self.message_expiry)
+        if self.content_type and ok(CONTENT_TYPE):
+            body.append(CONTENT_TYPE)
+            write_string(body, self.content_type)
+        if self.response_topic and ok(RESPONSE_TOPIC):
+            body.append(RESPONSE_TOPIC)
+            write_string(body, self.response_topic)
+        if self.correlation_data and ok(CORRELATION_DATA):
+            body.append(CORRELATION_DATA)
+            write_binary(body, self.correlation_data)
+        if ok(SUBSCRIPTION_ID):
+            for sid in self.subscription_ids:
+                body.append(SUBSCRIPTION_ID)
+                write_varint(body, sid)
+        if self.session_expiry is not None and ok(SESSION_EXPIRY):
+            body.append(SESSION_EXPIRY)
+            write_uint32(body, self.session_expiry)
+        if self.assigned_client_id and ok(ASSIGNED_CLIENT_ID):
+            body.append(ASSIGNED_CLIENT_ID)
+            write_string(body, self.assigned_client_id)
+        if self.server_keep_alive is not None and ok(SERVER_KEEP_ALIVE):
+            body.append(SERVER_KEEP_ALIVE)
+            write_uint16(body, self.server_keep_alive)
+        if self.auth_method and ok(AUTH_METHOD):
+            body.append(AUTH_METHOD)
+            write_string(body, self.auth_method)
+        if self.auth_data and ok(AUTH_DATA):
+            body.append(AUTH_DATA)
+            write_binary(body, self.auth_data)
+        if self.request_problem_info is not None and ok(REQUEST_PROBLEM_INFO):
+            body.append(REQUEST_PROBLEM_INFO)
+            body.append(self.request_problem_info & 0xFF)
+        if self.will_delay is not None and ok(WILL_DELAY):
+            body.append(WILL_DELAY)
+            write_uint32(body, self.will_delay)
+        if self.request_response_info is not None and ok(REQUEST_RESPONSE_INFO):
+            body.append(REQUEST_RESPONSE_INFO)
+            body.append(self.request_response_info & 0xFF)
+        if self.response_info and ok(RESPONSE_INFO):
+            body.append(RESPONSE_INFO)
+            write_string(body, self.response_info)
+        if self.server_reference and ok(SERVER_REFERENCE):
+            body.append(SERVER_REFERENCE)
+            write_string(body, self.server_reference)
+        if self.reason_string and ok(REASON_STRING):
+            body.append(REASON_STRING)
+            write_string(body, self.reason_string)
+        if self.receive_maximum is not None and ok(RECEIVE_MAXIMUM):
+            body.append(RECEIVE_MAXIMUM)
+            write_uint16(body, self.receive_maximum)
+        if self.topic_alias_max is not None and ok(TOPIC_ALIAS_MAX):
+            body.append(TOPIC_ALIAS_MAX)
+            write_uint16(body, self.topic_alias_max)
+        if self.topic_alias is not None and ok(TOPIC_ALIAS):
+            body.append(TOPIC_ALIAS)
+            write_uint16(body, self.topic_alias)
+        if self.maximum_qos is not None and ok(MAXIMUM_QOS):
+            body.append(MAXIMUM_QOS)
+            body.append(self.maximum_qos & 0xFF)
+        if self.retain_available is not None and ok(RETAIN_AVAILABLE):
+            body.append(RETAIN_AVAILABLE)
+            body.append(self.retain_available & 0xFF)
+        if ok(USER_PROPERTY):
+            for k, v in self.user_properties:
+                body.append(USER_PROPERTY)
+                write_string(body, k)
+                write_string(body, v)
+        if self.maximum_packet_size is not None and ok(MAXIMUM_PACKET_SIZE):
+            body.append(MAXIMUM_PACKET_SIZE)
+            write_uint32(body, self.maximum_packet_size)
+        if self.wildcard_sub_available is not None and ok(WILDCARD_SUB_AVAILABLE):
+            body.append(WILDCARD_SUB_AVAILABLE)
+            body.append(self.wildcard_sub_available & 0xFF)
+        if self.sub_id_available is not None and ok(SUB_ID_AVAILABLE):
+            body.append(SUB_ID_AVAILABLE)
+            body.append(self.sub_id_available & 0xFF)
+        if self.shared_sub_available is not None and ok(SHARED_SUB_AVAILABLE):
+            body.append(SHARED_SUB_AVAILABLE)
+            body.append(self.shared_sub_available & 0xFF)
+
+        write_varint(out, len(body))
+        out.extend(body)
+
+    # -- decoding -----------------------------------------------------------
+
+    @classmethod
+    def decode(cls, buf: bytes, off: int, packet_type: int) -> tuple["Properties", int]:  # qa: complex
+        """Read the property-length varint + block; validate per packet type."""
+        length, off = read_varint(buf, off)
+        end = off + length
+        if end > len(buf):
+            raise MalformedPacketError("truncated properties block")
+        p = blank_properties()
+        seen: set[int] = set()
+        while off < end:
+            pid, off = read_varint(buf, off)
+            valid_in = _VALID.get(pid)
+            if valid_in is None or packet_type not in valid_in:
+                raise MalformedPacketError(
+                    f"property {pid:#x} invalid for packet type {packet_type}")
+            if pid in seen and pid not in (USER_PROPERTY, SUBSCRIPTION_ID):
+                raise MalformedPacketError(f"duplicate property {pid:#x}")
+            seen.add(pid)
+            if pid == PAYLOAD_FORMAT:
+                p.payload_format = buf[off]; off += 1
+            elif pid == MESSAGE_EXPIRY:
+                p.message_expiry, off = read_uint32(buf, off)
+            elif pid == CONTENT_TYPE:
+                p.content_type, off = read_string(buf, off)
+            elif pid == RESPONSE_TOPIC:
+                p.response_topic, off = read_string(buf, off)
+            elif pid == CORRELATION_DATA:
+                p.correlation_data, off = read_binary(buf, off)
+            elif pid == SUBSCRIPTION_ID:
+                sid, off = read_varint(buf, off)
+                if sid == 0:
+                    raise MalformedPacketError("subscription id 0 is malformed")
+                p.subscription_ids.append(sid)
+            elif pid == SESSION_EXPIRY:
+                p.session_expiry, off = read_uint32(buf, off)
+            elif pid == ASSIGNED_CLIENT_ID:
+                p.assigned_client_id, off = read_string(buf, off)
+            elif pid == SERVER_KEEP_ALIVE:
+                p.server_keep_alive, off = read_uint16(buf, off)
+            elif pid == AUTH_METHOD:
+                p.auth_method, off = read_string(buf, off)
+            elif pid == AUTH_DATA:
+                p.auth_data, off = read_binary(buf, off)
+            elif pid == REQUEST_PROBLEM_INFO:
+                p.request_problem_info = buf[off]; off += 1
+            elif pid == WILL_DELAY:
+                p.will_delay, off = read_uint32(buf, off)
+            elif pid == REQUEST_RESPONSE_INFO:
+                p.request_response_info = buf[off]; off += 1
+            elif pid == RESPONSE_INFO:
+                p.response_info, off = read_string(buf, off)
+            elif pid == SERVER_REFERENCE:
+                p.server_reference, off = read_string(buf, off)
+            elif pid == REASON_STRING:
+                p.reason_string, off = read_string(buf, off)
+            elif pid == RECEIVE_MAXIMUM:
+                p.receive_maximum, off = read_uint16(buf, off)
+                if p.receive_maximum == 0:
+                    raise MalformedPacketError("receive maximum 0 is malformed")
+            elif pid == TOPIC_ALIAS_MAX:
+                p.topic_alias_max, off = read_uint16(buf, off)
+            elif pid == TOPIC_ALIAS:
+                p.topic_alias, off = read_uint16(buf, off)
+                if p.topic_alias == 0:
+                    raise MalformedPacketError("topic alias 0 is malformed")
+            elif pid == MAXIMUM_QOS:
+                p.maximum_qos = buf[off]; off += 1
+                if p.maximum_qos > 1:
+                    raise MalformedPacketError("maximum qos must be 0 or 1")
+            elif pid == RETAIN_AVAILABLE:
+                p.retain_available = buf[off]; off += 1
+            elif pid == USER_PROPERTY:
+                k, off = read_string(buf, off)
+                v, off = read_string(buf, off)
+                p.user_properties.append((k, v))
+            elif pid == MAXIMUM_PACKET_SIZE:
+                p.maximum_packet_size, off = read_uint32(buf, off)
+                if p.maximum_packet_size == 0:
+                    raise MalformedPacketError("maximum packet size 0 is malformed")
+            elif pid == WILDCARD_SUB_AVAILABLE:
+                p.wildcard_sub_available = buf[off]; off += 1
+            elif pid == SUB_ID_AVAILABLE:
+                p.sub_id_available = buf[off]; off += 1
+            elif pid == SHARED_SUB_AVAILABLE:
+                p.shared_sub_available = buf[off]; off += 1
+            if off > end:
+                raise MalformedPacketError("property ran past block end")
+        return p, off
+
+
+_PROPS_TEMPLATE: dict | None = None
+
+
+def blank_properties() -> "Properties":
+    """Template-built Properties: immutable defaults shared, the two
+    list fields fresh — ~1/3 the cost of the generated __init__ on the
+    per-packet decode path."""
+    global _PROPS_TEMPLATE
+    if _PROPS_TEMPLATE is None:
+        import dataclasses
+
+        tmpl = {k: v for k, v in Properties().__dict__.items()
+                if not isinstance(v, (list, dict))}
+        # a future mutable field must be added to the resets below, not
+        # silently shared or dropped
+        assert set(tmpl) | {"subscription_ids", "user_properties"} ==             {f.name for f in dataclasses.fields(Properties)}
+        _PROPS_TEMPLATE = tmpl
+    q = object.__new__(Properties)
+    q.__dict__.update(_PROPS_TEMPLATE)
+    q.subscription_ids = []
+    q.user_properties = []
+    return q

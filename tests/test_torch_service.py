@@ -171,7 +171,13 @@ SMOKE_CPU_SIZES = {"subs": {"mixed_100k": 2_000, "hash_plus_100k": 2_000,
                    "cluster_batch": 256,
                    "cluster_batches": 2,
                    "decode_sample": 128,
-                   "frames": 200}
+                   "frames": 200,
+                   "pipeline": {"burst": 64,
+                                "supervisor": {"deadline_ms": 1_000.0},
+                                "mixed_100k": {"burst": 256, "trickle": 16,
+                                               "compare": 256},
+                                "iot_1m_share": {"burst": 128, "trickle": 0,
+                                                 "compare": 64}}}
 
 
 def test_chip_smoke_phases_rehearse_on_cpu():
