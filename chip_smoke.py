@@ -27,8 +27,8 @@ Phases, each of which raises on failure:
    16-bit words and one without 32-bit words;
 3. the signature service path: the port's MatcherService on a unix
    socket, driven through its ServiceMatcher client with the 100K
-   ``mixed_100k`` subscriptions (one OP_SUB frame each) and nine OP_MATCH
-   requests of 8 x 4,096 + 1 x 65,536 topics, twice: with the batcher's
+   ``mixed_100k`` subscriptions (one OP_SUB frame each) and five OP_MATCH
+   requests of 4 x 4,096 + 1 x 8,192 topics, twice: with the batcher's
    adaptive host bypass (the default), then with the bypass off, where the
    kernel must serve most topics; every answer is held against the CPU
    trie, and the decode that served is printed (the native set decode
@@ -38,11 +38,12 @@ Phases, each of which raises on failure:
    dispatch/collect, every topic through the kernel and the native set
    decode, and the kernel held against its plain version on one headline
    batch; the kernel is also timed on the service's 256-topic batch, and
-   the plane bytes a launch reads are printed. On one more batch the
-   decode runs three ways: the native sets, the native intents after
-   ``prewarm_decode_bases``, and the Python decode on a 16,384-topic
-   sample (cold, then with its row memo warm); the intents equal the sets
-   on every topic, the Python decode the native one on the sample;
+   the plane bytes a launch reads are printed. On one more batch, of
+   65,536 topics, the decode runs three ways: the native sets, the
+   native intents after ``prewarm_decode_bases``, and the Python decode
+   on a 16,384-topic sample (cold, then with its row memo warm); the
+   intents equal the sets on every topic, the Python decode the native
+   one on the sample;
 5. ``dense_walk_words`` (K4 with the pack and the sparse extract fused)
    against its plain version on the card, bit for bit on (word_idx,
    word_val, overflow), on ``dense_2k`` (the dense kernel's full
@@ -53,7 +54,7 @@ Phases, each of which raises on failure:
 6. the dense service path: the MatcherService with the dense engine
    factory (``DenseEngine`` behind the MicroBatcher, host bypass off; the
    tables fit the kernel, so it serves), the 100,000 ``dense_2k``
-   subscriptions as OP_SUB frames and the nine OP_MATCH requests; every
+   subscriptions as OP_SUB frames and the five OP_MATCH requests; every
    answer is held against the CPU trie;
 7. dense headline: ``DenseEngine`` at batch 262,144 on ``dense_2k``,
    pipelined, with the kernel (and on 256 topics), its plain version
@@ -65,7 +66,7 @@ Phases, each of which raises on failure:
    device-served answer against the CPU trie;
 9. NFA service: the MatcherService with ``MicroBatcher(NFAEngine)`` (host
    bypass off), the ``mixed_100k`` subscriptions as OP_SUB frames and the
-   nine OP_MATCH requests, every answer against the CPU trie;
+   five OP_MATCH requests, every answer against the CPU trie;
 10. NFA headline: ``NFAEngine`` at ``iot_1m_share``, one 262,144-topic
    batch: host tokenize, the device program (CUDA events; launches and
    busy time by ``torch.profiler``), the overflow share, the peak memory,
@@ -104,7 +105,24 @@ Phases, each of which raises on failure:
    launch once per batch. On ``mixed_100k`` the faulted rungs follow
    (``pipeline_faults``: error hedges tripping the breaker, a probe
    closing it, a hang past the deadline, the Python frame heads);
-13. each kernel's SASS opcode counts (``cuobjdump -sass``, where the
+13. what the broker engine imports, on the card: (a) the content
+   evaluator (``filtering.columnar``; the reference benchmark's predicates
+   and payloads, ``mqttplus_inputs``) at 64 x 4,096 and 10,000 x 256, the
+   torch backend on the card held equal to NumPy and to the per-message
+   loop, with no breaker fallback, each backend's column build, eval
+   (host clock and CUDA events), evals/s and launches a flush; (b) a
+   ``PipelineTracer`` on ``SupervisedMatcher(MicroBatcher(SigEngine))``
+   at phase 12's settings and ``mixed_100k`` corpus, bursts of phase 12's
+   frames (after one untimed warm pass) with every publish sampled and
+   with sampling off in turns (on, off, off, on), the spans split as the
+   broker splits them (``trace_match_spans``); the tracer and matcher
+   registrations served by ``MetricsServer`` and scraped over HTTP (every
+   matcher counter equal to its attribute, the stage counts equal to the
+   sampled publishes, the Chrome export JSON); then the matcher service
+   (its adaptive bypass, then the bypass off) with a tracer on its
+   client, each request split into service time and socket time by the
+   service's stamps;
+14. each kernel's SASS opcode counts (``cuobjdump -sass``, where the
    toolkit has it), the kernels line (JSON), the card line, and the
    result line.
 
@@ -117,8 +135,9 @@ Phases 8-11 run no hand-written kernel (the reference computes them in
 XLA, outside Pallas); each reads both kernels' launch counts, set to 0
 before it. Phase 12 sets them to 0 before each of its runs and reads
 them after; its launches ride the kernels line under
-``publish_pipeline_launches``. The dense and NFA decodes are Python, as
-the reference's.
+``publish_pipeline_launches``, and phase 13's tracing runs' under
+``tracing_launches``. The dense and NFA decodes are Python, as the
+reference's.
 The corpora are made here from seed 42 (a copy of the benchmark's corpus
 generator, and the ``dense_2k`` generator); the script imports nothing
 of the JAX package.
@@ -128,6 +147,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import faulthandler
 import gc
 import json
 import os
@@ -148,6 +168,10 @@ import numpy as np
 # figure; this is the lane count times the clock).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# Past this many seconds the run prints every thread's stack to stderr
+# and exits 1, so a run that would outlast its 1,200 s limit says where
+# it was instead of being stopped from outside.
+WATCHDOG_S = 1_100
 
 # The run's sizes: subscriptions per corpus, the kernel-check batch (not a
 # bucket size, so pad rows ride along), the largest synthetic edge batch of
@@ -158,14 +182,22 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # the decode's row memo) untimed, the dense_2k generator's arguments, the
 # NFA headline's decode sample, the cluster phase's batch and batch
 # count (bench config 5: batches of 8,192 on a 2 x 4 mesh), the signature
-# headline's Python decode sample, the frames of the scanner check, and the
+# headline's batch decoded three ways and its Python decode sample, the
+# frames of the scanner check, and the
 # publish pipeline's burst and, per corpus, its burst and trickle
 # publishes and how many burst publishes have every delivery frame
-# compared with the CPU-trie pipeline's.
+# compared with the CPU-trie pipeline's, the content evaluator's shapes
+# (predicates x payloads: the reference benchmark's 64 x 4,096, and its
+# configured bounds, ``filter_max_subscriptions`` x ``filter_batch_max``)
+# and timed flushes, and the tracing phase's bursts (of the pipeline's
+# burst size) and service topics. The service requests and the decode
+# batch are the depth that was cut to keep the whole run near half of its
+# 1,200 s limit (the host side of the service phases, and full collections
+# of the heap there, grow with the topics sent).
 SIZES = {"subs": {"mixed_100k": 100_000, "hash_plus_100k": 100_000,
                   "iot_1m_share": 1_000_000, "cluster_100k": 100_000},
          "check_batch": 4_096 + 100,
-         "service_rounds": (4_096,) * 8 + (65_536,),
+         "service_rounds": (4_096,) * 4 + (8_192,),
          "service_warm": 1_024,
          "headline_batch": 262_144,
          "headline_batches": 2,
@@ -176,13 +208,16 @@ SIZES = {"subs": {"mixed_100k": 100_000, "hash_plus_100k": 100_000,
          "nfa_sample": 4_096,
          "cluster_batch": 8_192,
          "cluster_batches": 2,
+         "decode_batch": 65_536,
          "decode_sample": 16_384,
          "frames": 4_000,
          "pipeline": {"burst": 1_024,
                       "mixed_100k": {"burst": 16_384, "trickle": 512,
                                      "compare": 16_384},
                       "iot_1m_share": {"burst": 4_096, "trickle": 0,
-                                       "compare": 256}}}
+                                       "compare": 256}},
+         "content": {"shapes": ((64, 4_096), (10_000, 256)), "reps": 3},
+         "tracing": {"bursts": 4, "service_topics": 4_096}}
 # engine counters of topics NOT served by the device path, per engine
 SIG_COUNTERS = ("host_matches", "fallbacks", "trie_routed")
 DENSE_COUNTERS = ("fallbacks",)
@@ -406,6 +441,35 @@ def same_answer(a, b) -> bool:
                 y.qos, y.no_local, y.identifiers):
             return False
     return True
+
+
+def mqttplus_inputs(preds: int, msgs: int):
+    """(predicate texts, decoded payloads) of the content plane's
+    benchmark: a copy of the JAX package's generator, ``bench.py:2612-2632``
+    (``bench_mqttplus``): ``random.Random(7)``, three fields, every fifth
+    predicate compound, every seventh negated, ``rpm`` missing on every
+    seventh payload."""
+    rng = random.Random(7)
+    fields = ("payload.temp", "payload.hum", "payload.rpm")
+    exprs = []
+    for i in range(preds):
+        f = fields[i % len(fields)]
+        op = rng.choice((">", "<", ">=", "<="))
+        e = f"{f}{op}{round(rng.uniform(0, 100), 1)}"
+        if i % 5 == 0:
+            g = fields[(i + 1) % len(fields)]
+            e = f"({e})&&{g}!={round(rng.uniform(0, 100), 1)}"
+        elif i % 7 == 0:
+            e = f"!({e})||payload.hum>90"
+        exprs.append(e)
+    objs = []
+    for i in range(msgs):
+        o = {"temp": round(rng.uniform(-10, 110), 2),
+             "hum": round(rng.uniform(0, 100), 2)}
+        if i % 7:
+            o["rpm"] = rng.randint(0, 10_000)
+        objs.append(o)
+    return exprs, objs
 
 
 def mqtt_frames(n: int, seed: int) -> bytes:
@@ -826,12 +890,51 @@ def full_collections():
         gc.callbacks.remove(note)
 
 
+@contextlib.contextmanager
+def collector_paused():
+    """The cyclic garbage collector off while the block runs, on again
+    after: for the set-up builds of a corpus and of an engine's tables,
+    whose objects live on after the build, so every pass over them while
+    they pile up finds nothing. The services compile their tables with
+    the collector on, as a broker would."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 async def timed_match(matcher, topic: str):
     """One match through ``subscribers_async`` and its latency (s) from
     enqueue to result."""
     t0 = time.perf_counter()
     result = await matcher.subscribers_async(topic)
     return result, time.perf_counter() - t0
+
+
+def trace_match_spans(tracer, matcher, tr, fut) -> None:
+    """The matcher leg of one sampled publish as the broker splits it (a
+    copy of the JAX package's ``server.py:1281-1301``): enqueue to the
+    batcher's dispatch mark is ``match_queue``, dispatch to its done mark
+    ``match_device``, done to now ``pipeline_wait``; the supervisor's rung
+    when it is not closed marks the trace degraded."""
+    if tr is None or not tr.t_match:
+        return
+    now = tracer.clock()
+    td = getattr(fut, "_t_dispatch", 0)
+    tdone = getattr(fut, "_t_done", 0)
+    if td:
+        tr.span("match_queue", tr.t_match, td)
+        tr.span("match_device", td, tdone or now)
+    else:
+        tr.span("match_device", tr.t_match, tdone or now)
+    if tdone and now > tdone:
+        tr.span("pipeline_wait", tdone, now)
+    rung = getattr(matcher, "breaker_state_name", None)
+    if rung and rung != "closed":
+        tr.degraded = rung
 
 
 def card_line() -> str:
@@ -985,16 +1088,18 @@ class Smoke:
         from maxmq_tpu_torch.protocol import Subscription
 
         t0 = time.perf_counter()
-        filters, gen = build_corpus(
-            self.sizes["subs"][name], seed=42,
-            share_frac=0.1 if name in ("iot_1m_share", "cluster_100k")
-            else 0.0,
-            hash_plus=name == "hash_plus_100k")
-        index = TopicIndex()
-        for i, f in enumerate(filters):
-            index.subscribe(f"cl-{i}", Subscription(filter=f, qos=i % 3))
+        with collector_paused():
+            filters, gen = build_corpus(
+                self.sizes["subs"][name], seed=42,
+                share_frac=0.1 if name in ("iot_1m_share", "cluster_100k")
+                else 0.0,
+                hash_plus=name == "hash_plus_100k")
+            index = TopicIndex()
+            for i, f in enumerate(filters):
+                index.subscribe(f"cl-{i}", Subscription(filter=f,
+                                                        qos=i % 3))
         log(f"[corpus] {name}: {len(filters)} subscriptions indexed in "
-            f"{time.perf_counter() - t0:.1f} s")
+            f"{time.perf_counter() - t0:.1f} s (collector paused)")
         self.corpora[name] = (filters, gen, index)
         return self.corpora[name]
 
@@ -1004,11 +1109,12 @@ class Smoke:
 
             _f, _g, index = self.corpus(name)
             t0 = time.perf_counter()
-            self.engines[name] = SigEngine(
-                index, device=self.device, auto_refresh=False,
-                fixed_max_rows=14 if name == "iot_1m_share" else 7)
+            with collector_paused():
+                self.engines[name] = SigEngine(
+                    index, device=self.device, auto_refresh=False,
+                    fixed_max_rows=14 if name == "iot_1m_share" else 7)
             log(f"[corpus] {name}: tables compiled and uploaded in "
-                f"{time.perf_counter() - t0:.1f} s")
+                f"{time.perf_counter() - t0:.1f} s (collector paused)")
         return self.engines[name]
 
     def check_decoded(self, what: str, decoded: dict) -> None:
@@ -1453,7 +1559,7 @@ class Smoke:
         if self.device.type == "cuda":
             out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         out["decode_forms"] = self.decode_forms(name, engine, gen(
-            batch, seed2=2100))
+            self.sizes["decode_batch"], seed2=2100))
         log(f"[headline] {name}: {json.dumps(out)}")
         log(f"[headline] {name}: library yardstick: none — no single "
             "PyTorch call computes this function")
@@ -2311,9 +2417,11 @@ class Smoke:
     # -- NFA phases (9-11) and the cluster phase (12) --------------------
 
     def phase(self, name: str, fn, *args):
-        """Run one phase and log its wall time and the routes its host
-        prep took. Where the native runtime is loaded, a topic prepared
-        by numpy or tokenized by the Python loop fails the phase."""
+        """Run one phase and log its wall time, the garbage collector's
+        full passes in it (count, total and longest ms) and the routes
+        its host prep took. Where the native runtime is loaded, a topic
+        prepared by numpy or tokenized by the Python loop fails the
+        phase."""
         from maxmq_tpu_torch import native
         from maxmq_tpu_torch.matching import sig_tables, topics
 
@@ -2321,8 +2429,12 @@ class Smoke:
                     "tokenized": topics.tokenized}
         before = {k: dict(c) for k, c in counters.items()}
         t0 = time.perf_counter()
-        out = fn(*args)
+        with full_collections() as pauses:
+            out = fn(*args)
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+        log(f"[phase] {name}: full collections {len(pauses)}, "
+            f"{sum(pauses):.1f} ms, longest {max(pauses, default=0.0):.1f} "
+            "ms")
         routes = {k: {r: n - before[k][r] for r, n in c.items()}
                   for k, c in counters.items()}
         log(f"[phase] {name}: host prep {json.dumps(routes)}")
@@ -2388,11 +2500,13 @@ class Smoke:
 
         _f, _g, index = self.corpus(name)
         t0 = time.perf_counter()
-        engine = NFAEngine(index, width=width, max_rows=max_rows,
-                           device=self.device, auto_refresh=False)
+        with collector_paused():
+            engine = NFAEngine(index, width=width, max_rows=max_rows,
+                               device=self.device, auto_refresh=False)
         t = engine.tables
         log(f"[nfa] {name} width {width} max_rows {max_rows}: tables "
-            f"compiled and uploaded in {time.perf_counter() - t0:.1f} s: "
+            f"compiled and uploaded in {time.perf_counter() - t0:.1f} s "
+            "(collector paused): "
             f"{t.n_nodes} nodes, {t.table_size} edge slots, "
             f"{len(t.row_entries)} rows, {len(t.vocab)} tokens")
         if (width, max_rows) == (32, 128):
@@ -2476,7 +2590,7 @@ class Smoke:
     async def nfa_service_path(self) -> dict:
         """The MatcherService with the NFA engine factory
         (``MicroBatcher(NFAEngine)``, host bypass off), the ``mixed_100k``
-        subscriptions as OP_SUB frames and the nine OP_MATCH requests;
+        subscriptions as OP_SUB frames and the five OP_MATCH requests;
         every answer is held against the CPU trie."""
         from maxmq_tpu_torch.matching.batcher import MicroBatcher
         from maxmq_tpu_torch.matching.engine import NFAEngine
@@ -2721,7 +2835,8 @@ class Smoke:
         for label, cls in (("sig", ShardedSigEngine),
                            ("nfa", ShardedNFAEngine)):
             t0 = time.perf_counter()
-            engine = cls(index, mesh=mesh(CLUSTER_MESH, dev))
+            with collector_paused():
+                engine = cls(index, mesh=mesh(CLUSTER_MESH, dev))
             rec = {"compile_s": time.perf_counter() - t0}
             n = bad = 0
             t_match = 0.0
@@ -2812,6 +2927,411 @@ class Smoke:
         log(f"[cluster] sig intents: {json.dumps(rec)}")
         return rec
 
+    # -- phase 13: what the broker engine imports ----------------------
+
+    def content_evaluator(self) -> dict:
+        """Phase 13 (a): the content evaluator at each shape of the size
+        table (predicates x payloads from ``mqttplus_inputs``). Each
+        backend's matrix is held equal to the per-message loop's (and the
+        torch one to NumPy's); the torch backend must serve every flush
+        from the device (no breaker fallback) and its matrix come off a
+        tensor on the device. Printed: the column build, each backend's
+        eval on the host clock (copies included) and, for torch, in CUDA
+        events, evals/s, and the launches of one flush (``torch.profiler``)."""
+        from maxmq_tpu_torch.filtering.columnar import (
+            ColumnarEvaluator, build_columns, device_matrix,
+            eval_reference_batch)
+        from maxmq_tpu_torch.filtering.expr import compile_expr
+
+        reps = self.sizes["content"]["reps"]
+        out = []
+        for n_preds, n_msgs in self.sizes["content"]["shapes"]:
+            exprs, objs = mqttplus_inputs(n_preds, n_msgs)
+            preds = [compile_expr(e) for e in exprs]
+            fields = tuple(dict.fromkeys(f for p in preds for f in p.fields))
+            programs = [p.program for p in preds]
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                cols = build_columns(objs, fields)
+            build_ms = (time.perf_counter() - t0) * 1e3 / reps
+            t0 = time.perf_counter()
+            loop = eval_reference_batch(preds, objs)
+            loop_ms = (time.perf_counter() - t0) * 1e3
+            pairs = n_preds * n_msgs
+            rec = {"shape": f"{n_preds} x {n_msgs}",
+                   "program_ops": sum(len(p) for p in programs),
+                   "build_columns_ms": build_ms,
+                   "passing_share": float(loop.mean()),
+                   "reference_loop_ms": loop_ms,
+                   "reference_loop_evals_per_s": pairs / loop_ms * 1e3}
+            mats = {}
+            for backend in ("numpy", "torch"):
+                ev = ColumnarEvaluator(backend=backend, device=self.device)
+
+                def flush(ev=ev):
+                    return ev.eval_batch(programs, cols, n_msgs)
+
+                flush()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    mats[backend] = flush()
+                host_ms = (time.perf_counter() - t0) * 1e3 / reps
+                r = {"eval_ms_host": host_ms,
+                     "evals_per_s": pairs / host_ms * 1e3,
+                     "device_fallbacks": ev.device_fallbacks,
+                     "mismatches": int((mats[backend] != loop).sum())}
+                if backend == "torch":
+                    if self.device.type == "cuda":
+                        r["eval_ms_events"] = self.time_ms(flush, reps)
+                    prof = self.profile(flush)
+                    r["launches_per_flush"] = (prof or {}).get("launches")
+                    r["device_busy_ms"] = (prof or {}).get("busy_ms")
+                    r["copies_per_flush"] = (prof or {}).get("copies")
+                    r["top_kernels"] = (prof or {}).get("top", [])[:3]
+                    dm = device_matrix(programs, cols, n_msgs, self.device)
+                    r["result_device"] = str(dm.device)
+                    if dm.device.type != self.device.type:
+                        raise AssertionError(f"content {rec['shape']}: the "
+                                             f"matrix came off {dm.device}")
+                rec[backend] = r
+            rec["torch_vs_numpy_mismatches"] = int(
+                (mats["torch"] != mats["numpy"]).sum())
+            log(f"[content] {json.dumps(rec)}")
+            if (rec["torch_vs_numpy_mismatches"]
+                    or any(rec[b]["mismatches"] for b in mats)):
+                raise AssertionError(f"content {rec['shape']}: the "
+                                     "matrices differ")
+            if rec["torch"]["device_fallbacks"]:
+                raise AssertionError(f"content {rec['shape']}: "
+                                     f"{rec['torch']['device_fallbacks']} "
+                                     "flushes fell back to NumPy unfaulted")
+            out.append(rec)
+        return {"shapes": out}
+
+    async def traced_run(self, kit, engine, index, traffic, sample_n: int,
+                         answer) -> tuple:
+        """One run of phase 12's frames in bursts through a fresh
+        ``SupervisedMatcher(MicroBatcher(engine))`` at the production
+        settings, bypass off, with a ``PipelineTracer`` of stride
+        ``sample_n`` on the batcher. Each sampled publish gets the
+        broker's matcher spans when its future is awaited in order;
+        latency runs from enqueue to the future's result. Returns the
+        run's record, the tracer and the supervisor."""
+        from maxmq_tpu_torch.matching.batcher import MicroBatcher
+        from maxmq_tpu_torch.matching.supervisor import SupervisedMatcher
+        from maxmq_tpu_torch.trace import PipelineTracer
+
+        burst = self.sizes["pipeline"]["burst"]
+        batcher = MicroBatcher(engine, cpu_bypass=False, **PIPELINE_BATCHER)
+        sup = SupervisedMatcher(batcher, index=index,
+                                **self.pipeline_supervisor())
+        tracer = PipelineTracer(sample_n=sample_n)
+        batcher.tracer = tracer
+        frames, owners = traffic
+        dec = PubDecoder(kit)
+        lat, bad, marked = [], 0, 0
+        spans = {s: [] for s in ("match_queue", "match_device",
+                                 "pipeline_wait")}
+        self.zero_kernel_counts()
+        try:
+            with full_collections() as gc_ms:
+                t_run = time.perf_counter()
+                for a in range(0, len(frames), burst):
+                    pending = []
+                    for p in dec.decode(frames[a:a + burst],
+                                        owners[a:a + burst]):
+                        tr = (tracer.sample(p.topic, p.fixed.qos, p.origin)
+                              if tracer.sample_n else None)
+                        t0 = time.perf_counter()
+                        if tr is not None:
+                            tr.t_match = tracer.clock()
+                        fut = sup.enqueue(p.topic)
+                        done = [0.0]
+                        fut.add_done_callback(
+                            lambda _f, d=done: d.__setitem__(
+                                0, time.perf_counter()))
+                        pending.append((p.topic, tr, fut, t0, done))
+                    for topic, tr, fut, t0, done in pending:
+                        r = await fut
+                        marked += bool(getattr(fut, "_t_dispatch", 0))
+                        if not same_answer(r, answer(topic)):
+                            bad += 1
+                        if tr is not None:
+                            trace_match_spans(tracer, sup, tr, fut)
+                            tracer.finish(tr)
+                            for stage, _t, dur in tr.spans:
+                                spans[stage].append(dur / 1e6)
+                    await asyncio.sleep(0)  # the last done stamps run
+                    lat.extend((done[0] - t0) * 1e3
+                               for _t, _tr, _f, t0, done in pending)
+                wall = time.perf_counter() - t_run
+                launches = self.kernel_counts()["sig_match_fixed"]
+        finally:
+            await batcher.close()
+        out = {"sample_n": sample_n, "publishes": len(frames),
+               "wall_s": wall, "match_ms_p50_p99_max": spread(lat),
+               "sampled": tracer.sampled, "allocations": tracer.allocations,
+               "marked_futures": marked,
+               "stage_ms_p50_p99_max": {k: spread(v)
+                                        for k, v in spans.items() if v},
+               "stage_quantiles": tracer.stage_quantiles(),
+               "batches": batcher.batches, "launches": launches,
+               "cache_hits": batcher.cache_hits, "batch_errors": batcher.errors,
+               "fallbacks_by_reason": sup.fallbacks_by_reason,
+               "breaker_trips": sup.breaker_trips,
+               "gc_full_collections": len(gc_ms),
+               "gc_full_ms_max": max(gc_ms, default=0.0),
+               "mismatches": bad}
+        hedged = {k: v for k, v in sup.fallbacks_by_reason.items()
+                  if k != "overflow" and v}
+        if hedged or sup.breaker_trips or bad or batcher.errors:
+            raise AssertionError(f"traced run (sample_n {sample_n}): "
+                                 f"hedges {hedged}, trips "
+                                 f"{sup.breaker_trips}, {bad} answers unequal "
+                                 f"to the trie, {batcher.errors} errors")
+        n = len(frames)
+        dispatched = n - batcher.cache_hits
+        if sample_n:
+            if tracer.sampled != n or marked != dispatched:
+                raise AssertionError(f"{tracer.sampled} sampled and {marked} "
+                                     f"marked of {n} publishes")
+        elif tracer.allocations or marked:
+            raise AssertionError(f"tracing off: {tracer.allocations} traces "
+                                 f"allocated, {marked} futures marked")
+        if self.device.type == "cuda" and launches != batcher.batches:
+            raise AssertionError(f"{launches} sig_match_fixed launches for "
+                                 f"{batcher.batches} batches")
+        return out, tracer, sup
+
+    def scrape(self, tracer, sup, engine, sampled: int, dispatched: int):
+        """The tracer's and the matcher-side registrations served by
+        ``MetricsServer`` on a free local port and scraped over HTTP:
+        every matcher counter equals its attribute, the stage histograms
+        count the sampled publishes (``match_queue`` the dispatched ones:
+        a cache hit has no queue), the Chrome export parses."""
+        import urllib.request
+        from types import SimpleNamespace
+
+        from maxmq_tpu_torch import metrics
+
+        reg = metrics.Registry()
+        metrics._register_trace_metrics(reg, SimpleNamespace(tracer=tracer))
+        metrics._register_fallback_metrics(reg, sup)
+        metrics._register_transport_metrics(reg, sup)
+        metrics._register_breaker_metrics(reg, sup)
+        metrics._register_kernel_width_metrics(reg, engine)
+        srv = metrics.MetricsServer("127.0.0.1:0", reg, tracer=tracer)
+        srv.start()
+        try:
+            base = f"http://127.0.0.1:{srv.bound_port}"
+            with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+                text = r.read().decode()
+            with urllib.request.urlopen(base + "/traces/chrome",
+                                        timeout=30) as r:
+                chrome = json.loads(r.read())
+        finally:
+            srv.stop()
+        got = {}
+        for line in text.splitlines():
+            if line and not line.startswith("#"):
+                name, _, value = line.rpartition(" ")
+                got[name] = float(value)
+        want = {f'maxmq_matcher_fallbacks_total{{reason="{k}"}}': v
+                for k, v in sup.fallbacks_by_reason.items()}
+        want.update({
+            "maxmq_matcher_batch_errors_total": sup.errors,
+            "maxmq_matcher_breaker_state": sup.breaker_state,
+            "maxmq_matcher_breaker_trips_total": sup.breaker_trips,
+            "maxmq_matcher_breaker_recoveries_total": sup.breaker_recoveries,
+            "maxmq_matcher_degraded_seconds_total": sup.degraded_seconds,
+            "maxmq_matcher_refresh_failures_total": sup.refresh_failures,
+            "maxmq_broker_trace_sampled_total": tracer.sampled,
+            'maxmq_broker_publish_stage_seconds_count{stage="match_device"}':
+                sampled,
+            'maxmq_broker_publish_stage_seconds_count{stage="match_queue"}':
+                dispatched})
+        for width in ("16", "32"):
+            want[f'maxmq_matcher_kernel_words{{width="{width}"}}'] = \
+                engine.kernel_plan[f"n_words{width}"]
+            want[f'maxmq_matcher_kernel_groups{{width="{width}"}}'] = \
+                engine.kernel_plan[f"groups{width}"]
+        e2e = sum(v for k, v in got.items()
+                  if k.startswith("maxmq_broker_publish_e2e_seconds_count"))
+        diff = {k: (got.get(k), v) for k, v in want.items()
+                if got.get(k) != float(v)}
+        if diff or e2e != sampled:
+            raise AssertionError(f"scraped /metrics disagrees with the "
+                                 f"objects: {diff}, e2e count {e2e}")
+        events = chrome["traceEvents"]
+        if not events:
+            raise AssertionError("the Chrome export has no events")
+        return {"series": len(got), "checked": len(want) + 1,
+                "metrics_bytes": len(text), "chrome_events": len(events)}
+
+    async def service_tracing(self, burst: int, bypass: bool) -> dict:
+        """The matcher service with a tracer on its client: the
+        ``mixed_100k`` subscriptions as OP_SUB frames, then the size
+        table's topics in bursts, one request a topic, each answer held
+        against the CPU trie, with the service batcher's host bypass on
+        (its default) or off. The service stamps its dispatch and done
+        marks on every reply (ADR 017); the client rebases them, so each
+        request splits into service time (``match_device``: the service's
+        batcher, engine and decode) and the rest (``match_queue``: both
+        socket directions, JSON and the client's own loop)."""
+        from maxmq_tpu_torch.matching.service import (MatcherService,
+                                                      ServiceMatcher)
+        from maxmq_tpu_torch.protocol import Subscription
+        from maxmq_tpu_torch.trace import PipelineTracer
+
+        filters, gen, mirror = self.corpus("mixed_100k")
+        topics = gen(self.sizes["tracing"]["service_topics"], seed2=5000)
+        path = os.path.join(tempfile.mkdtemp(prefix="maxmq-smoke-"),
+                            "m.sock")
+        svc = MatcherService(path, device=self.device)
+        await svc.start()
+        client = ServiceMatcher(path)
+        tracer = PipelineTracer(sample_n=1)
+        total, service, socket_, bad = [], [], [], 0
+        try:
+            await client.connect()
+            t0 = time.perf_counter()
+            for i, f in enumerate(filters):
+                client.forward_subscribe(
+                    f"cl-{i}", Subscription(filter=f, qos=i % 3))
+            await client.subscribers_async("smoke/barrier")
+            engine = svc.matcher.engine
+            while engine.tables.version != svc.index.sub_version:
+                engine.refresh_soon()
+                await asyncio.sleep(0.05)
+                if time.perf_counter() - t0 > 600:
+                    raise TimeoutError("service tables never caught up")
+            engine.close()      # waits for the rotation's background warm
+            setup_s = time.perf_counter() - t0
+            svc.matcher.cpu_bypass = bypass
+            warm = gen(self.sizes["service_warm"], seed2=99)
+            await asyncio.gather(*(client.enqueue(t) for t in warm))
+            client.tracer = tracer
+            bypass0, launches0 = svc.matcher.bypasses, \
+                self.kernel_counts()["sig_match_fixed"]
+            for a in range(0, len(topics), burst):
+                pending = []
+                for t in topics[a:a + burst]:
+                    tr = tracer.sample(t, 0, "svc")
+                    t0 = time.perf_counter()
+                    tr.t_match = tracer.clock()
+                    fut = client.enqueue(t)
+                    done = [0.0]
+                    fut.add_done_callback(
+                        lambda _f, d=done: d.__setitem__(
+                            0, time.perf_counter()))
+                    pending.append((t, tr, fut, t0, done))
+                for t, tr, fut, t0, done in pending:
+                    r = await fut
+                    trace_match_spans(tracer, client, tr, fut)
+                    tracer.finish(tr)
+                    if normalize(r) != normalize(mirror.subscribers(t)):
+                        bad += 1
+                await asyncio.sleep(0)      # the last done stamps run
+                for t, tr, fut, t0, done in pending:
+                    ms = (done[0] - t0) * 1e3
+                    svc_ms = (fut._t_done - fut._t_dispatch) / 1e6
+                    total.append(ms)
+                    service.append(svc_ms)
+                    socket_.append(ms - svc_ms)
+            bypassed = svc.matcher.bypasses - bypass0
+            launches = self.kernel_counts()["sig_match_fixed"] - launches0
+        finally:
+            await client.close()
+            await svc.close()
+        out = {"bypass": bypass, "topics": len(topics), "burst": burst,
+               "setup_s": setup_s,
+               "request_ms_p50_p99_max": spread(total),
+               "service_ms_p50_p99_max": spread(service),
+               "socket_ms_p50_p99_max": spread(socket_),
+               "service_share": sum(service) / max(sum(total), 1e-9),
+               "bypassed": bypassed, "launches": launches,
+               "stage_quantiles": tracer.stage_quantiles(),
+               "mismatches": bad}
+        if bad:
+            raise AssertionError(f"{bad} service answers differ from the "
+                                 "CPU trie")
+        if tracer.stage_hist["match_device"].count != len(topics):
+            raise AssertionError("a service reply carried no stamps")
+        if not bypass and (bypassed or (self.device.type == "cuda"
+                                        and launches <= 0)):
+            raise AssertionError(f"with the bypass off {bypassed} topics "
+                                 f"were bypassed, {launches} launches")
+        return out
+
+    async def matcher_tracing(self) -> dict:
+        """Phase 13 (b): the tracer and metrics on the port's matcher
+        stack. Phase 12's ``mixed_100k`` corpus and production boot
+        (intents on, buckets warmed, decode bases prewarmed) and the first
+        bursts of its frames: one untimed pass warms the engine and its
+        decode caches on those topics, then the runs alternate traced
+        (every publish sampled) and untraced (traced, untraced, untraced,
+        traced), then the last traced run's registrations are scraped over
+        HTTP, then the service runs with its adaptive bypass and with the
+        bypass off. The heap is frozen for the phase, as phase 12 does."""
+        from maxmq_tpu_torch.matching.batcher import MicroBatcher
+
+        kit = port_kit()
+        cfg = self.sizes["tracing"]
+        burst = self.sizes["pipeline"]["burst"]
+        _f, gen, _i = self.corpus("mixed_100k")
+        index, engine, _clients = self.pipeline_corpus("mixed_100k")
+        n = cfg["bursts"] * burst
+        topics = gen(n, seed2=4000)
+        traffic = publish_frames(kit, topics, 42)
+        engine.emit_intents = True
+        engine.warm_buckets(PIPELINE_BATCHER["max_batch"], background=False)
+        engine.prewarm_decode_bases()
+        answers = {}
+
+        def answer(topic):
+            r = answers.get(topic)
+            if r is None:
+                r = answers[topic] = index.subscribers(topic)
+            return r
+
+        out = {"publishes": n, "burst": burst, "traced": [],
+               "untraced": []}
+        t0 = time.perf_counter()
+        warm = MicroBatcher(engine, cpu_bypass=False, **PIPELINE_BATCHER)
+        try:
+            for a in range(0, n, burst):
+                await asyncio.gather(*(warm.enqueue(t)
+                                       for t in topics[a:a + burst]))
+        finally:
+            await warm.close()
+        out["warm_s"] = time.perf_counter() - t0
+        gc.freeze()
+        try:
+            for sample_n in (1, 0, 0, 1):
+                rec, tracer, sup = await self.traced_run(
+                    kit, engine, index, traffic, sample_n, answer)
+                label = "traced" if sample_n else "untraced"
+                out[label].append(rec)
+                log(f"[tracing] {label}: {json.dumps(rec)}")
+            out["scrape"] = self.scrape(tracer, sup, engine, n,
+                                        n - rec["cache_hits"])
+            log(f"[tracing] scrape: {json.dumps(out['scrape'])}")
+            out["service"] = {}
+            for mode, bypass in (("adaptive", True), ("device", False)):
+                out["service"][mode] = await self.service_tracing(burst,
+                                                                  bypass)
+                log(f"[tracing] service {mode}: "
+                    f"{json.dumps(out['service'][mode])}")
+        finally:
+            gc.unfreeze()
+            engine.close()
+        out["launches"] = {
+            "traced": [r["launches"] for r in out["traced"]],
+            "untraced": [r["launches"] for r in out["untraced"]],
+            **{f"service_{m}": r["launches"]
+               for m, r in out["service"].items()}}
+        return out
+
     # -- all phases ----------------------------------------------------
 
     def run(self) -> dict:
@@ -2852,6 +3372,9 @@ class Smoke:
         self.nfa_engines.clear()
         self.corpora.pop("iot_1m_share", None)
         self.phase("cluster", self.cluster)
+        content = self.phase("content evaluator", self.content_evaluator)
+        tracing = self.phase("matcher tracing", lambda: asyncio.run(
+            self.matcher_tracing()))
         h = heads["iot_1m_share"]
         sig = dict(KERNELS["sig_match_fixed"], launches=service["launches"],
                    max_abs_err=self.record["max_abs_err"],
@@ -2861,6 +3384,7 @@ class Smoke:
                    shape=f"iot_1m_share batch {h['bucket']}",
                    ms_256=h["kernel_ms_256"],
                    publish_pipeline_launches=pipeline["launches"],
+                   tracing_launches=tracing["launches"],
                    headline={k: {f: v[f] for f in
                                  ("kernel_ms", "kernel_ms_256", "plain_ms",
                                   "bound_ms", "bound_by", "launches")}
@@ -2875,7 +3399,8 @@ class Smoke:
                      shape=f"dense_2k batch {dh['bucket']}",
                      walk_ms=dh["walk_ms"], ms_256=dh["kernel_ms_256"],
                      headline_launches=dh["launches"])
-        return {"kernels": [sig, dense]}
+        return {"kernels": [sig, dense], "content": content,
+                "tracing": tracing}
 
 
 def main() -> int:
@@ -2895,6 +3420,7 @@ def main() -> int:
               f"script ({exc})", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     card = card_line()
     log(f"[card] {card}")
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2927,9 +3453,10 @@ def main() -> int:
                     f"{loop['n']} instructions {json.dumps(loop['ops'])}")
 
     result = Smoke("cuda").run()
+    faulthandler.cancel_dump_traceback_later()
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
-    print(json.dumps(result), flush=True)
+    print(json.dumps({"kernels": result["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

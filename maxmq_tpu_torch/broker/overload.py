@@ -1,0 +1,138 @@
+"""Broker overload-protection ladder state (ADR 012).
+
+ADR 011 made the *matcher* degrade predictably; this module is the same
+discipline for the host/network path: byte-accounted outbound queues,
+a slow-consumer stall policy, CONNECT admission control, and global
+load-shed watermarks. One :class:`OverloadState` per broker aggregates
+the queued-byte total across every client's outbound queue and owns the
+shed/recover hysteresis; :class:`TokenBucket` gates CONNECT storms per
+listener. All counters are plain ints mutated on the asyncio loop
+thread and read tear-free from the metrics scrape thread under the GIL
+(the same contract as ``sys_info.SysInfo``).
+
+Copy of the JAX package's ``broker/overload.py``.
+"""
+
+from __future__ import annotations
+
+import time
+
+# labelled per-client drop metric cardinality bound: only the top-N
+# offenders are ever exported ($SYS and /metrics both); see ADR 012
+TOP_OFFENDERS = 8
+
+
+class TokenBucket:
+    """Rate gate for CONNECT admission: ``rate`` tokens/second with a
+    ``burst`` ceiling; an empty bucket refuses the socket instead of
+    letting a CONNECT storm queue handshake work unboundedly."""
+
+    __slots__ = ("rate", "burst", "tokens", "_last")
+
+    def __init__(self, rate: float, burst: int = 0) -> None:
+        self.rate = float(rate)
+        self.burst = float(burst) if burst > 0 else max(1.0, self.rate)
+        self.tokens = self.burst
+        self._last = time.monotonic()
+
+    def allow(self, now: float | None = None) -> bool:
+        if self.rate <= 0:
+            return True
+        if now is None:
+            now = time.monotonic()
+        self.tokens = min(self.burst,
+                          self.tokens + (now - self._last) * self.rate)
+        self._last = now
+        if self.tokens >= 1.0:
+            self.tokens -= 1.0
+            return True
+        return False
+
+
+class OverloadState:
+    """Global byte accounting + watermark hysteresis + ladder counters.
+
+    ``queued_bytes`` sums the wire bytes sitting in every client's
+    outbound queue (maintained by ``client.OutboundQueue``). Crossing
+    ``broker_byte_budget * overload_high_water`` enters the shedding
+    regime (QoS0 fan-out dropped, retained delivery deferred); dropping
+    back below ``broker_byte_budget * overload_low_water`` recovers.
+    A ``broker_byte_budget`` of 0 disables the watermarks entirely.
+    """
+
+    def __init__(self, capabilities) -> None:
+        self.caps = capabilities
+        self.queued_bytes = 0
+        self.shedding = False
+        self.sheds = 0              # entries into the shedding regime
+        self.recoveries = 0         # exits back below the low-water mark
+        self.shed_messages = 0      # QoS0 deliveries dropped while shedding
+        self.budget_drops = 0       # deliveries dropped by byte budgets
+        self.qos_drops = 0          # QoS>0 sends rolled back (quota+inflight)
+        self.deferred_retained = 0  # retained deliveries parked by shedding
+        self.connects_refused = 0   # token-bucket socket refusals
+        self.half_open_refused = 0  # half-open-handshake cap refusals
+        self.stalled_disconnects = 0
+        self.disk_full_sheds = 0    # QoS0-irrelevant storage rewrites
+                                    # shed by the ENOSPC rung (ADR 024)
+        # -- zero-copy fan-out ledger (ADR 019) ------------------------
+        # one publish should cost one encode: template_sends counts
+        # deliveries assembled from a shared template (wire0 cache hits
+        # included), slow_encodes the per-subscriber Packet encodes
+        # that remain (hook overrides, oversize fallbacks, resends).
+        # shared_bytes/copied_bytes split every delivered wire byte by
+        # whether fan-out copied it per subscriber — the bench's
+        # bytes-copied-per-publish ledger reads these.
+        self.template_builds = 0    # shared templates encoded
+        self.template_sends = 0     # deliveries from shared wire
+        self.slow_encodes = 0       # per-subscriber full encodes left
+        self.shared_bytes = 0       # delivered bytes reused, not copied
+        self.copied_bytes = 0       # delivered bytes copied/subscriber
+        self.writev_batches = 0     # transport.writelines burst flushes
+        self.writev_buffers = 0     # buffers handed to writelines
+
+    # -- byte accounting (called by every OutboundQueue put/get) -------
+
+    def note_put(self, size: int) -> None:
+        self.queued_bytes += size
+        caps = self.caps
+        if (not self.shedding and caps.broker_byte_budget
+                and self.queued_bytes
+                >= caps.broker_byte_budget * caps.overload_high_water):
+            self.shedding = True
+            self.sheds += 1
+
+    def note_get(self, size: int) -> None:
+        self.queued_bytes -= size
+        if self.shedding and self.below_low_water():
+            self.shedding = False
+            self.recoveries += 1
+
+    def below_low_water(self) -> bool:
+        caps = self.caps
+        return (not caps.broker_byte_budget
+                or self.queued_bytes
+                <= caps.broker_byte_budget * caps.overload_low_water)
+
+
+def top_offenders(clients, n: int = TOP_OFFENDERS) -> list[dict]:
+    """The worst slow consumers by dropped deliveries, bounded to ``n``
+    entries — the cardinality cap for the labelled per-client metric
+    and the ``$SYS/broker/clients/top_dropped`` payload.
+
+    Ranked by the drops a client's OWN backpressure caused (queue/byte
+    budget, stalls) — global watermark sheds and global-budget refusals
+    land on whatever recipient happens to be addressed and would
+    otherwise bury the one slow consumer that triggered them under the
+    healthy majority. Per-client shed/global counts stay visible in
+    ``drops_by_reason`` and the row's ``dropped_total``."""
+    rows = []
+    for c in clients:
+        owned = (c.dropped_msgs - c.drops_by_reason.get("shed", 0)
+                 - c.drops_by_reason.get("global_budget", 0))
+        if owned > 0:
+            rows.append((owned, c.dropped_bytes, c.dropped_msgs, c.id))
+    rows.sort(reverse=True)
+    return [{"client": cid, "dropped": owned, "bytes": b,
+             "dropped_total": total}
+            for owned, b, total, cid in rows[:n]]

@@ -38,8 +38,10 @@ def make_parser() -> argparse.ArgumentParser:
 def cmd_version() -> int:
     import torch
 
-    print(f"maxmq-tpu-torch {__version__} (torch {torch.__version__}, "
-          f"cuda {torch.version.cuda})")
+    from .utils.build import get_info
+
+    print(f"{get_info().long_version()} (maxmq-tpu-torch {__version__}, "
+          f"torch {torch.__version__}, cuda {torch.version.cuda})")
     return 0
 
 

@@ -1,0 +1,239 @@
+"""Hook/plugin boundary: every observable broker event, with the same four
+dispatch semantics the reference engine gives its hooks:
+
+* notify: every hook is invoked, return values ignored
+* modify-chain: each hook may return a replacement packet/subscription
+  (``on_packet_read``, ``on_publish``, ``on_subscribe``, ``on_will``)
+* any-allow: authentication/ACL pass if ANY hook allows
+  (``on_connect_authenticate``, ``on_acl_check``)
+* first-non-empty: persistence getters return the first hook's non-empty
+  result (``stored_*``)
+
+Parity surface: vendor/github.com/mochi-co/mqtt/v2/hooks.go in the reference
+(35-event Hook interface + Hooks dispatcher). The TPU matcher plugs in at
+``on_select_subscribers`` exactly like the reference's OnSelectSubscribers.
+
+Copy of the JAX package's ``hooks/base.py``.
+"""
+
+from __future__ import annotations
+
+from typing import TYPE_CHECKING, Any
+
+if TYPE_CHECKING:
+    from ..matching.trie import SubscriberSet
+    from ..protocol.packets import Packet, Subscription, Will
+
+
+class Hook:
+    """Base hook: override any subset of events. All defaults are no-ops that
+    preserve the modify-chain value unchanged.
+
+    Modify-chain events receive the VALUE FIRST (packet/will/subscriber set),
+    then the client — the order the Hooks.modify dispatcher passes them in.
+    """
+
+    id = "hook"
+
+    def init(self, config: Any) -> None:  # called at add time
+        pass
+
+    def stop(self) -> None:
+        pass
+
+    # -- lifecycle ----------------------------------------------------------
+    def on_started(self) -> None: ...
+    def on_stopped(self) -> None: ...
+    def on_sys_info_tick(self, info) -> None: ...
+
+    # -- connection ---------------------------------------------------------
+    def on_connect(self, client, packet: "Packet") -> None:
+        """May raise ProtocolError to reject the connection."""
+
+    def on_connect_authenticate(self, client, packet: "Packet") -> bool:
+        return False
+
+    def on_acl_check(self, client, topic: str, write: bool) -> bool:
+        return False
+
+    def on_session_establish(self, client, packet: "Packet") -> None: ...
+    def on_session_established(self, client, packet: "Packet") -> None: ...
+    def on_disconnect(self, client, err, expire: bool) -> None: ...
+    def on_auth_packet(self, packet: "Packet", client) -> "Packet":
+        return packet
+
+    # -- packet flow --------------------------------------------------------
+    def on_packet_read(self, packet: "Packet", client) -> "Packet":
+        return packet
+
+    def on_packet_encode(self, packet: "Packet", client) -> "Packet":
+        return packet
+
+    def on_packet_sent(self, client, packet: "Packet", nbytes: int) -> None: ...
+    def on_packet_processed(self, client, packet: "Packet", err) -> None: ...
+
+    # -- subscribe / unsubscribe -------------------------------------------
+    def on_subscribe(self, packet: "Packet", client) -> "Packet":
+        return packet
+
+    def on_subscribed(self, client, packet: "Packet",
+                      reason_codes: list[int], counts: list[int]) -> None: ...
+
+    def on_select_subscribers(self, subscribers: "SubscriberSet",
+                              packet: "Packet") -> "SubscriberSet":
+        """Intercept the matched subscriber set before shared-group
+        selection (reference: hooks.go:334-345 OnSelectSubscribers).
+
+        Contract: the set's OUTER dicts are the hook's to mutate
+        (add/drop/replace entries), but the Subscription RECORDS are
+        aliased from the matcher's caches and immutable — mutating one
+        corrupts every concurrent delivery sharing it (ADR 009; the
+        churn suite samples records for grafted state). A hook that
+        needs to rewrite record fields must set the class attribute
+        ``select_subscribers_mutates_records = True``; it then receives
+        a deep copy and pays that cost per publish. Hooks that only
+        filter $share groups can set
+        ``select_subscribers_shared_only = True`` for the cheapest
+        path."""
+        return subscribers
+
+    def on_unsubscribe(self, packet: "Packet", client) -> "Packet":
+        return packet
+
+    def on_unsubscribed(self, client, packet: "Packet") -> None: ...
+
+    # -- publish ------------------------------------------------------------
+    def on_publish(self, packet: "Packet", client) -> "Packet":
+        """May raise RejectPacket to drop, or ProtocolError to disconnect."""
+        return packet
+
+    def on_published(self, client, packet: "Packet") -> None: ...
+    def on_publish_dropped(self, client, packet: "Packet") -> None: ...
+
+    # -- retained -----------------------------------------------------------
+    def on_retain_message(self, client, packet: "Packet", stored: int) -> None: ...
+    def on_retain_published(self, client, packet: "Packet") -> None: ...
+    def on_retained_expired(self, filter_: str) -> None: ...
+
+    # -- QoS ----------------------------------------------------------------
+    def on_qos_publish(self, client, packet: "Packet", sent: float,
+                       resends: int) -> None: ...
+    def on_qos_complete(self, client, packet: "Packet") -> None: ...
+    def on_qos_dropped(self, client, packet: "Packet") -> None: ...
+    def on_packet_id_exhausted(self, client, packet: "Packet") -> None: ...
+
+    # -- wills / expiry -----------------------------------------------------
+    def on_will(self, will: "Will", client) -> "Will":
+        return will
+
+    def on_will_sent(self, client, packet: "Packet") -> None: ...
+    def on_client_expired(self, client) -> None: ...
+
+    # -- persistence (first-non-empty getters + write-through events) ------
+    def stored_clients(self) -> list:
+        return []
+
+    def stored_subscriptions(self) -> list:
+        return []
+
+    def stored_inflight_messages(self) -> list:
+        return []
+
+    def stored_retained_messages(self) -> list:
+        return []
+
+    def stored_sys_info(self):
+        return None
+
+
+class RejectPacket(Exception):
+    """Raised by on_publish to silently drop a packet (ack but don't route)."""
+
+    def __init__(self, ack_success: bool = True):
+        super().__init__("packet rejected by hook")
+        self.ack_success = ack_success
+
+
+_MODIFY = {"on_packet_read", "on_packet_encode", "on_subscribe", "on_will",
+           "on_publish", "on_unsubscribe", "on_auth_packet",
+           "on_select_subscribers"}
+_ANY_ALLOW = {"on_connect_authenticate", "on_acl_check"}
+_FIRST_NON_EMPTY = {"stored_clients", "stored_subscriptions",
+                    "stored_inflight_messages", "stored_retained_messages",
+                    "stored_sys_info"}
+
+
+class Hooks:
+    """Ordered hook dispatcher."""
+
+    def __init__(self) -> None:
+        self._hooks: list[Hook] = []
+        # event -> hooks overriding it; computed once per hook-set change
+        # (dispatch runs several times per packet on the fan-out path)
+        self._override_cache: dict[str, list[Hook]] = {}
+
+    def add(self, hook: Hook, config: Any = None) -> Hook:
+        hook.init(config)
+        self._hooks.append(hook)
+        self._override_cache.clear()
+        return hook
+
+    def stop_all(self) -> None:
+        for h in self._hooks:
+            try:
+                h.stop()
+            except Exception:
+                pass
+
+    def __iter__(self):
+        return iter(self._hooks)
+
+    def __len__(self) -> int:
+        return len(self._hooks)
+
+    def _overriders(self, event: str) -> list[Hook]:
+        lst = self._override_cache.get(event)
+        if lst is None:
+            base = getattr(Hook, event)
+            lst = [h for h in self._hooks
+                   if getattr(type(h), event, base) is not base]
+            self._override_cache[event] = lst
+        return lst
+
+    def overrides(self, event: str) -> bool:
+        """True when any hook implements ``event`` (fast-path gates)."""
+        return bool(self._overriders(event))
+
+    def notify(self, event: str, *args) -> None:
+        for h in self._overriders(event):
+            getattr(h, event)(*args)
+
+    def modify(self, event: str, value, *args):
+        """Chain ``value`` through every hook implementing ``event``. The
+        extra ``args`` are passed after the value."""
+        assert event in _MODIFY, event
+        for h in self._overriders(event):
+            out = getattr(h, event)(value, *args)
+            if out is not None:
+                value = out
+        return value
+
+    def any_allow(self, event: str, *args) -> bool:
+        assert event in _ANY_ALLOW, event
+        for h in self._overriders(event):
+            if getattr(h, event)(*args):
+                return True
+        # With no auth hooks installed the broker refuses everything, same as
+        # the reference (an explicit allow-all hook must be added).
+        return False
+
+    def provides(self, event: str) -> bool:
+        return any(True for _ in self._overriders(event))
+
+    def first_non_empty(self, event: str):
+        assert event in _FIRST_NON_EMPTY, event
+        for h in self._overriders(event):
+            out = getattr(h, event)()
+            if out:
+                return out
+        return None if event == "stored_sys_info" else []

@@ -1,0 +1,326 @@
+"""Flat configuration with TOML file + ``MAXMQ_*`` environment overlay.
+
+Parity surface: internal/config/config.go in the reference — one flat struct
+of snake_case keys covering logging, metrics, and broker settings; defaults
+(config.go:98-119); a TOML ``maxmq.conf`` searched in the working directory,
+``/etc/maxmq``, then ``/etc`` (126-142); environment variables named
+``MAXMQ_<UPPER_KEY>`` override the file (149-183). This build adds the
+matcher/runtime knobs the reference has no equivalent for.
+
+Copy of the JAX package's ``utils/config.py`` with the same keys and
+defaults. The content plane's device backend is named ``torch`` here; the
+loader reads the JAX package's ``jnp`` as ``torch``, so a config file
+written for it loads unchanged.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from dataclasses import dataclass, fields
+import tomllib
+
+
+@dataclass
+class Config:
+    # -- logging (config.go: log block) -------------------------------------
+    log_format: str = "pretty"          # json | text ("pretty" = text)
+    log_level: str = "info"             # trace|debug|info|warn|error|fatal
+    machine_id: int = 0                 # snowflake machine id, [0,1023]
+
+    # -- metrics HTTP server ------------------------------------------------
+    metrics_enabled: bool = True
+    metrics_address: str = ":8888"
+    metrics_path: str = "/metrics"
+    metrics_profiling: bool = False
+
+    # -- broker listeners ---------------------------------------------------
+    workers: int = 0                    # >1: SO_REUSEPORT delivery-worker
+                                        # pool + fan-out bus (ADR 005)
+    mqtt_tcp_address: str = ":1883"
+    mqtt_ws_address: str = ""           # optional websocket listener
+    mqtt_unix_socket: str = ""          # optional unix-socket listener
+    mqtt_sys_http_address: str = ""     # optional $SYS JSON stats endpoint
+
+    # -- broker capabilities (internal/mqtt/config.go fields → mochi
+    #    Capabilities, server.go:76-91) --------------------------------------
+    mqtt_shutdown_timeout: int = 15     # graceful-close deadline, seconds
+    # per-connection read-chunk bytes. The reference's default (2048) is
+    # a Go bufio size; asyncio pays a coroutine round-trip per read, so
+    # the default stays at the historical 64KiB chunk — set explicitly
+    # to bound per-connection buffering
+    mqtt_buffer_size: int = 65536
+    mqtt_min_protocol_version: int = 3
+    mqtt_max_keep_alive: int = 7200
+    mqtt_session_expiry_interval: int = 0xFFFFFFFF
+    mqtt_max_message_expiry_interval: int = 0xFFFFFFFF
+    mqtt_max_packet_size: int = 0       # 0 = unlimited
+    mqtt_max_inflight_messages: int = 1024
+    mqtt_receive_maximum: int = 1024
+    mqtt_max_qos: int = 2
+    mqtt_max_topic_alias: int = 65535
+    mqtt_retain_available: bool = True
+    mqtt_wildcard_subscription_available: bool = True
+    mqtt_subscription_id_available: bool = True
+    mqtt_shared_subscription_available: bool = True
+    mqtt_max_outbound_queue: int = 1024
+    mqtt_sys_topic_interval: int = 1    # seconds between $SYS refreshes
+
+    # -- broker overload-protection ladder (ADR 012) -------------------------
+    # per-client queued outbound wire bytes; oldest QoS0 deliveries are
+    # shed first, then new deliveries refuse. 0 = count cap only.
+    broker_client_byte_budget: int = 8 << 20
+    broker_byte_budget: int = 0         # global queued-byte budget; 0 = off
+    connect_rate: float = 0.0           # CONNECT admissions/sec/listener
+    connect_burst: int = 0              # bucket depth; 0 = max(1, rate)
+    connect_half_open_max: int = 0      # cap on handshakes awaiting CONNECT
+    stall_deadline_ms: int = 60_000     # writer no-progress disconnect; 0 off
+    broker_overload_high_water: float = 0.8   # shed above budget * high
+    broker_overload_low_water: float = 0.5    # recover below budget * low
+
+    # -- cluster federation (ADR 013) ----------------------------------------
+    cluster_node_id: str = ""           # non-empty enables federation
+    cluster_peers: str = ""             # "nodeB@host:1884,nodeC@host:1885"
+    cluster_link_qos: int = 0           # forward QoS cap on bridge links
+    cluster_max_hops: int = 3           # forwarded-publish hop ceiling
+    cluster_link_byte_budget: int = 4 << 20  # per-link queued bytes; 0 off
+    cluster_link_keepalive: float = 10.0     # bridge ping interval, seconds
+
+    # -- federated sessions (ADR 016) ----------------------------------------
+    # replicate session metadata + inflight windows to bridge peers so
+    # a client reconnecting to ANY node resumes with session-present=1
+    cluster_session_replication: bool = True
+    # inflight replication policy: always = publisher QoS acks wait
+    # (bounded) for peer replication acks — a SIGKILLed node's peer can
+    # redeliver every PUBACKed message; batched = replicate async (a
+    # crash can lose the in-flight window); off = metadata only
+    cluster_session_sync: str = "batched"
+    cluster_session_sync_timeout_ms: int = 750      # barrier degrade bound
+    cluster_session_takeover_timeout_ms: int = 750  # state-pull wait bound
+
+    # -- partition tolerance (ADR 018) ---------------------------------------
+    # cross-node publish durability: coupled = when session_sync is
+    # "always", QoS>0 forwards ride QoS1 links, park for retry-after-
+    # heal when stranded, and the publisher's ack waits (bounded) for
+    # the peers' forward acks; always = the fwd barrier regardless of
+    # session_sync; off = pre-018 fire-and-forget forwards
+    cluster_fwd_durability: str = "coupled"
+    # replica-side expiry fallback for a DEAD owner's sessions that
+    # carry no expiry metadata (seconds; 0 = keep such replicas
+    # forever, the pre-018 behavior)
+    cluster_replica_expiry_s: float = 3600.0
+    # cluster-wide $share ownership: weighted = per-publish rotation
+    # weighted by each node's live member count; pin = lowest node id
+    # owns every pick (the pre-018 / ADR-005 trade)
+    cluster_share_balance: str = "weighted"
+
+    # -- WAN deployments (ADR 022) -------------------------------------------
+    # per-link liveness/barrier deadlines stretch with the measured
+    # peer RTT: deadline = floor + k x RTT (the floors are the knobs
+    # above — link keepalive, sync/takeover timeouts, willfire grace).
+    # 0 pins every deadline to its loopback floor (pre-022 behavior);
+    # at loopback RTT the k-term is ~0 either way
+    cluster_rtt_deadline_k: float = 4.0
+
+    # -- cluster observability plane (ADR 017) --------------------------------
+    # carry trace context on forwarded publishes to capability-
+    # negotiated peers (one correlated trace across the cluster) and
+    # return the remote span breakdowns to the origin
+    cluster_trace_propagation: bool = True
+    cluster_trace_return: bool = True
+    # per-node metric-snapshot gossip feeding /cluster/metrics and
+    # $SYS/broker/cluster/health/*; 0 disables the periodic gossip
+    # (skew probes and trace returns stay on)
+    cluster_telemetry_interval_s: float = 5.0
+    cluster_telemetry_full_every: int = 10   # full snapshot every Nth send
+
+    # -- publish-path tracing (ADR 015) ---------------------------------------
+    # sample every Nth publish into the pipeline tracer (0 = off; off
+    # costs one branch per stage). Sampled publishes feed the per-stage
+    # latency histograms, the flight recorder (/traces, /traces/chrome
+    # on the metrics server) and $SYS/broker/trace/*.
+    trace_sample_n: int = 0
+    trace_slow_ms: float = 0.0          # flight-record only e2e >= this;
+                                        # 0 records every sampled publish
+    trace_ring: int = 64                # flight-recorder entries kept
+
+    # -- zero-copy fan-out (ADR 019) ------------------------------------------
+    # assemble patched-template frame heads with the C encoder when the
+    # native extension loads (any native error falls back per call to
+    # the byte-identical Python builder); off forces pure Python
+    broker_native_encode: bool = True
+    # coalesce writer-task wake-ups to one per event-loop iteration so
+    # a 1->N fan-out wakes each subscriber's writer once with its full
+    # backlog queued; off restores the per-enqueue direct wake
+    broker_flush_coalesce: bool = True
+
+    # -- MQTT+ content plane (ADR 023) ----------------------------------------
+    # parse ?$expr=/?$agg= subscription options and run the vectorized
+    # payload-predicate / windowed-aggregation plane on the publish
+    # batch path; off leaves '?' a plain topic character end to end
+    filter_enabled: bool = True
+    filter_backend: str = "numpy"       # numpy | torch | auto (torch
+                                        # rides the card with a breaker
+                                        # fallback to numpy, ADR 011;
+                                        # "jnp" loads as torch)
+    filter_max_subscriptions: int = 10000  # content subs per broker
+    filter_max_expr_len: int = 512      # $expr source-length bound
+    filter_max_fields: int = 64         # distinct decoded payload fields
+    filter_batch_max: int = 256         # pipeline publishes per eval flush
+    filter_window_min_s: float = 0.5    # accepted $win range, seconds
+    filter_window_max_s: float = 3600.0
+    # stretch (off by default): annotate route advertisements with the
+    # predicates of fully-gated filters so a bridge peer skips forwards
+    # no remote predicate can pass — counted, correctness-preserving
+    cluster_content_routes: bool = False
+
+    # -- event loop (ADR 023 satellite) ---------------------------------------
+    # auto = uvloop when installed, else asyncio; uvloop warns + falls
+    # back cleanly when the package is missing
+    broker_event_loop: str = "auto"     # auto | asyncio | uvloop
+
+    # -- persistence --------------------------------------------------------
+    storage_backend: str = ""           # "" | memory | sqlite
+    storage_path: str = "maxmq.db"
+
+    # -- crash-consistent storage pipeline (ADR 014) --------------------------
+    # durability policy: always = QoS acks release through a fsync
+    # barrier (group-committed); batched = one fsync per batch window
+    # (acks immediate, crash can lose the window); off = no fsync
+    storage_sync: str = "batched"
+    storage_batch_ms: int = 20          # group-commit window (batched/off)
+    storage_batch_ops: int = 512        # max ops per backend transaction
+    storage_queue_bytes: int = 4 << 20  # journal watermark; sheds above
+    storage_breaker_threshold: int = 5  # consecutive commit failures
+    storage_breaker_backoff_s: float = 1.0       # first reprobe delay
+    storage_breaker_backoff_max_s: float = 30.0  # backoff doubles to here
+
+    # -- auth ---------------------------------------------------------------
+    auth_ledger: str = ""               # path to rules (.json/.yaml); empty
+                                        # = allow-all
+
+    # -- device matcher runtime (no reference equivalent: the north-star path)
+    matcher: str = "sig"                # trie | nfa | dense | sig | service
+    matcher_batch_window_us: int = 200
+    matcher_max_batch: int = 256
+    # native decode emits fan-out-ready DeliveryIntents (ADR 007)
+    # instead of merged SubscriberSet dicts on the publish hot path
+    matcher_intents: bool = True
+    matcher_max_levels: int = 16
+    matcher_mesh: str = ""              # e.g. "2x4" to shard over a mesh
+    matcher_socket: str = "/tmp/maxmq-matcher.sock"  # matcher = "service"
+
+    # -- matcher degradation ladder (ADR 011) --------------------------------
+    # wrap the device/service matcher in the supervisor: per-batch
+    # deadline, trie hedge on error, circuit breaker, half-open reprobe
+    matcher_supervised: bool = True
+    matcher_deadline_ms: int = 250      # per-batch deadline; 0 disables
+    matcher_breaker_threshold: int = 5  # failures in the window that trip
+    matcher_breaker_window_s: float = 10.0
+    matcher_breaker_backoff_s: float = 1.0      # first open interval
+    matcher_breaker_backoff_max_s: float = 30.0  # backoff doubles to here
+
+    # -- worker pool observability -------------------------------------------
+    # optional metrics endpoint served by the POOL PARENT (worker 0 owns
+    # conf.metrics_address): exposes maxmq_pool_* supervision counters
+    pool_metrics_address: str = ""
+
+    # -- in-box worker mesh (ADR 021) -----------------------------------------
+    # workers > 1 federates the SO_REUSEPORT workers as cluster nodes
+    # over unix-domain bridge links (the `local` link flavor); these
+    # knobs tune ONLY the loopback links — the box's external cluster_*
+    # knobs are untouched and compose (worker 0 carries cluster_peers)
+    worker_link_keepalive: float = 1.0  # loopback ping interval, seconds
+    worker_link_byte_budget: int = 0    # per-link queued bytes; 0 =
+                                        # budget-exempt (loopback default;
+                                        # LINK_QUEUE_MAX still bounds)
+    # session replication policy on the worker mesh: always = QoS acks
+    # ride the loopback replication barrier, so a SIGKILLed worker's
+    # sibling redelivers every PUBACKed message (cheap on one box)
+    worker_session_sync: str = "always"
+    worker_link_dir: str = ""           # socket dir; "" = /tmp/maxmq-
+                                        # pool-<pid>
+    worker_journal_owner: int = 0       # which worker owns the ONE
+                                        # ADR-014 journal writer
+
+    # -- profiling ----------------------------------------------------------
+    profile: bool = False
+    profile_path: str = "."
+
+
+DEFAULT_CONFIG_NAME = "maxmq.conf"
+CONFIG_SEARCH_PATHS = (".", "/etc/maxmq", "/etc")
+
+
+def default_config() -> Config:
+    return Config()
+
+
+def read_config_file(path: str | None = None) -> dict:
+    """Read the TOML config file. With no explicit path, search the standard
+    locations; a missing file is not an error (returns {})."""
+    if path is not None:
+        with open(path, "rb") as f:
+            return tomllib.load(f)
+    for d in CONFIG_SEARCH_PATHS:
+        candidate = os.path.join(d, DEFAULT_CONFIG_NAME)
+        if os.path.isfile(candidate):
+            with open(candidate, "rb") as f:
+                return tomllib.load(f)
+    return {}
+
+
+def _coerce(value, typ):
+    if typ is bool:
+        if isinstance(value, bool):
+            return value
+        return str(value).strip().lower() in ("1", "true", "yes", "on")
+    if typ is int:
+        return int(value)
+    if typ is float:
+        return float(value)
+    return str(value)
+
+
+# the reference spells a few keys differently (internal/config/
+# config.go:27-94); accept its names verbatim so a maxmq.conf written
+# for the reference drops in unchanged
+_REFERENCE_ALIASES = {
+    "mqtt_max_session_expiry_interval": "mqtt_session_expiry_interval",
+    "mqtt_max_outbound_messages": "mqtt_max_outbound_queue",
+    "mqtt_subscription_identifier_available":
+        "mqtt_subscription_id_available",
+    "mqtt_sys_topic_update_interval": "mqtt_sys_topic_interval",
+}
+
+
+def load_config(path: str | None = None,
+                env: dict[str, str] | None = None) -> Config:
+    """defaults ← TOML file ← MAXMQ_* env, in increasing precedence."""
+    env = os.environ if env is None else env
+    data = read_config_file(path)
+    for ref_key, our_key in _REFERENCE_ALIASES.items():
+        if ref_key in data and our_key not in data:
+            data[our_key] = data[ref_key]
+    conf = Config()
+    defaults = Config()
+    for f in fields(Config):
+        typ = type(getattr(defaults, f.name))
+        if f.name in data:
+            setattr(conf, f.name, _coerce(data[f.name], typ))
+        env_key = "MAXMQ_" + f.name.upper()
+        if env_key in env:
+            setattr(conf, f.name, _coerce(env[env_key], typ))
+    for ref_key, our_key in _REFERENCE_ALIASES.items():
+        env_key = "MAXMQ_" + ref_key.upper()
+        if env_key in env and "MAXMQ_" + our_key.upper() not in env:
+            typ = type(getattr(defaults, our_key))
+            setattr(conf, our_key, _coerce(env[env_key], typ))
+    if conf.filter_backend == "jnp":
+        conf.filter_backend = "torch"
+    return conf
+
+
+def config_as_dict(conf: Config) -> dict:
+    """The full effective config, for the DEBUG boot log (start.go:119-123)."""
+    return dataclasses.asdict(conf)

@@ -302,3 +302,27 @@ def test_sharded_engines_across_cards(cuda_card):
         for t, g in zip(topics, card.subscribers_batch(topics)):
             assert chip_smoke.normalize(g) == chip_smoke.normalize(
                 idx.subscribers(t)), t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preds,msgs", [(64, 4096), (10_000, 256)],
+                         ids=["bench_64x4096", "bounds_10000x256"])
+def test_content_evaluator_on_the_card(cuda_card, preds, msgs):
+    """The content evaluator's torch backend on the card equals NumPy at
+    the reference benchmark's shape and at the configured bounds, with no
+    breaker fallback, its matrix computed on the card."""
+    from maxmq_tpu_torch.filtering.columnar import (
+        ColumnarEvaluator, build_columns, device_matrix, eval_batch_numpy)
+    from maxmq_tpu_torch.filtering.expr import compile_expr
+
+    exprs, objs = chip_smoke.mqttplus_inputs(preds, msgs)
+    compiled = [compile_expr(e) for e in exprs]
+    fields = tuple(dict.fromkeys(f for p in compiled for f in p.fields))
+    programs = [p.program for p in compiled]
+    cols = build_columns(objs, fields)
+    ev = ColumnarEvaluator(backend="torch", device=cuda_card)
+    got = ev.eval_batch(programs, cols, msgs)
+    want = eval_batch_numpy(programs, cols, msgs)
+    assert ev.device_fallbacks == 0
+    assert got.shape == (preds, msgs) and (got == want).all()
+    assert device_matrix(programs, cols, msgs, cuda_card).is_cuda

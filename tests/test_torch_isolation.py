@@ -167,3 +167,60 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                               timeout=120)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+LEAF_MODULES = (
+    "utils.logger", "utils.snowflake", "utils.build", "utils.config",
+    "filtering.expr", "filtering.columnar", "filtering.window", "metrics",
+    "trace", "hooks.base", "hooks.auth", "hooks.logging", "broker.inflight",
+    "broker.overload", "broker.sys_info")
+
+
+def test_leaf_modules_stand_alone():
+    """The broker engine's leaf modules exist in the port, are in the AST
+    scan's reach, and run in a fresh interpreter (the torch content
+    evaluator on the CPU, a tracer, a metrics server, hooks, the config
+    loader) without JAX or the JAX package being imported."""
+    for m in LEAF_MODULES:
+        assert (PACKAGE / (m.replace(".", "/") + ".py")).is_file(), m
+    script = textwrap.dedent(f"""
+        import importlib, sys, urllib.request
+        for m in {LEAF_MODULES!r}:
+            importlib.import_module("maxmq_tpu_torch." + m)
+        from maxmq_tpu_torch.filtering import ColumnarEvaluator, compile_expr
+        from maxmq_tpu_torch.filtering.columnar import build_columns
+        from maxmq_tpu_torch.hooks import AllowHook, Hooks
+        from maxmq_tpu_torch.metrics import (MetricsServer, Registry,
+                                             _register_trace_metrics)
+        from maxmq_tpu_torch.trace import PipelineTracer
+        from maxmq_tpu_torch.utils.config import load_config
+
+        p = compile_expr("payload.t>1")
+        ev = ColumnarEvaluator(backend="torch", device="cpu")
+        cols = build_columns([{{"t": 2}}, {{"t": 0}}], p.fields)
+        assert ev.eval_batch([p.program], cols, 2).tolist() == [[True, False]]
+        assert ev.device_fallbacks == 0
+        tracer = PipelineTracer(sample_n=1)
+        tr = tracer.sample("a", 0, "c")
+        tracer.finish(tr)
+        reg = Registry()
+        _register_trace_metrics(reg, type("O", (), {{"tracer": tracer}}))
+        srv = MetricsServer("127.0.0.1:0", reg, tracer=tracer)
+        srv.start()
+        url = f"http://127.0.0.1:{{srv.bound_port}}/traces"
+        assert b'"sampled": 1' in urllib.request.urlopen(url).read()
+        srv.stop()
+        hs = Hooks()
+        hs.add(AllowHook())
+        assert hs.any_allow("on_acl_check", None, "t", True)
+        assert load_config(env={{}}).filter_backend == "numpy"
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib")
+                     or m == "maxmq_tpu" or m.startswith("maxmq_tpu."))
+        print("FORBIDDEN", bad)
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout

@@ -170,6 +170,7 @@ SMOKE_CPU_SIZES = {"subs": {"mixed_100k": 2_000, "hash_plus_100k": 2_000,
                    "nfa_sample": 128,
                    "cluster_batch": 256,
                    "cluster_batches": 2,
+                   "decode_batch": 256,
                    "decode_sample": 128,
                    "frames": 200,
                    "pipeline": {"burst": 64,
@@ -177,7 +178,9 @@ SMOKE_CPU_SIZES = {"subs": {"mixed_100k": 2_000, "hash_plus_100k": 2_000,
                                 "mixed_100k": {"burst": 256, "trickle": 16,
                                                "compare": 256},
                                 "iot_1m_share": {"burst": 128, "trickle": 0,
-                                                 "compare": 64}}}
+                                                 "compare": 64}},
+                   "content": {"shapes": ((64, 256), (300, 64)), "reps": 2},
+                   "tracing": {"bursts": 2, "service_topics": 128}}
 
 
 def test_chip_smoke_phases_rehearse_on_cpu():
