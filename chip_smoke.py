@@ -122,7 +122,25 @@ Phases, each of which raises on failure:
    (its adaptive bypass, then the bypass off) with a tracer on its
    client, each request split into service time and socket time by the
    service's stamps;
-14. each kernel's SASS opcode counts (``cuobjdump -sass``, where the
+14. the rest of the signature engine's device surface (run right after
+   phase 12, on phase 4's engines, ``iot_1m_share`` and ``mixed_100k``):
+   on the check batch, the word path (``match_raw`` bit-equal on
+   (word_idx, word_val, overflow) to the same snapshot's word body on
+   the CPU, ``subscribers_batch`` equal to the CPU trie), the compact
+   path (``match_compact`` equal to the CPU on counts, total and the
+   stream up to total, ``subscribers_compact_batch`` equal to the trie)
+   and the fixed path's row-matrix surface (``match_fixed`` counts and
+   rows bit-equal to the kernel's plain version on the CPU twin of the
+   snapshot, on the same padded batch; ``counts_fixed``;
+   ``decode_fixed`` equal to ``collect_fixed`` and the trie;
+   ``sig_match_fixed`` once a dispatch); on ``mixed_100k``
+   ``DEVICE_MATCH`` armed: ``subscribers_batch`` raises
+   ``DeviceMatchError`` with no trie answer, ``match_compact`` leaves the
+   fault armed; then the word program and the compact program timed on
+   65,536 topics (CUDA events; launches and busy ms by the profiler;
+   peak memory) and ``subscribers_batch`` (the Python word-form decode)
+   on 4,096 topics;
+15. each kernel's SASS opcode counts (``cuobjdump -sass``, where the
    toolkit has it), the kernels line (JSON), the card line, and the
    result line.
 
@@ -135,8 +153,9 @@ Phases 8-11 run no hand-written kernel (the reference computes them in
 XLA, outside Pallas); each reads both kernels' launch counts, set to 0
 before it. Phase 12 sets them to 0 before each of its runs and reads
 them after; its launches ride the kernels line under
-``publish_pipeline_launches``, and phase 13's tracing runs' under
-``tracing_launches``. The dense and NFA decodes are Python, as the
+``publish_pipeline_launches``, phase 13's tracing runs' under
+``tracing_launches`` and phase 14's (counts set to 0 before it) under
+``surfaces_launches``. The dense and NFA decodes are Python, as the
 reference's.
 The corpora are made here from seed 42 (a copy of the benchmark's corpus
 generator, and the ``dense_2k`` generator); the script imports nothing
@@ -2039,6 +2058,205 @@ class Smoke:
         log(f"[pipeline] heads: {json.dumps(dict(port_kit().wire.heads))}")
         return out
 
+    # -- phase 14: the rest of the signature engine's device surface -----
+
+    def surfaces_cpu(self, engine):
+        """The CPU twin of an engine's live snapshot: the same compiled
+        tables' device state on the CPU, for the torch bodies' checks."""
+        from maxmq_tpu_torch.matching.sig import device_tables, table_arrays
+
+        return device_tables(table_arrays(engine.tables), "cpu")
+
+    def check_answers(self, what: str, index, topics, answers) -> None:
+        bad = [t for t, a in zip(topics, answers)
+               if normalize(a) != normalize(index.subscribers(t))]
+        if bad:
+            raise AssertionError(f"{what}: {len(bad)} answers differ from "
+                                 f"the CPU trie (first {bad[0]!r})")
+
+    def surfaces_check(self, name: str) -> dict:
+        """On the check batch: the word path (``match_raw``,
+        ``subscribers_batch``), the compact path (``match_compact``,
+        ``subscribers_compact_batch``) and the fixed path's row-matrix
+        surface (``match_fixed``, ``counts_fixed``, ``decode_fixed``) on
+        the card, each device output bit-equal to the same snapshot's
+        program on the CPU (the torch bodies; for the fixed path the
+        kernel's plain version), every answer equal to the CPU trie's."""
+        from maxmq_tpu_torch.matching import sig as sigmod
+        from maxmq_tpu_torch.matching.sig_tables import prepare_batch
+
+        sk = self.sig_kernel
+        engine = self.engine(name)
+        _f, _g, index = self.corpus(name)
+        tables = engine.tables
+        cpu = self.surfaces_cpu(engine)
+        topics = self.check_batch(name)
+        out = {"batch": len(topics), "words": int(tables.group_words.sum())}
+
+        got = engine.match_raw(topics)
+        toks, lengths, dollar = tables.tokenize(topics, engine.max_levels)
+        want = [t.numpy() for t in sigmod.word_program(
+            cpu, toks, lengths, dollar)]
+        want[1] = want[1].view(np.uint32)
+        if not all(np.array_equal(g, w) for g, w in zip(got[:3], want)):
+            raise AssertionError(f"{name}: match_raw on the card differs "
+                                 "from the word body on the CPU")
+        out["word_overflow_topics"] = int(got[2].sum())
+        out["nonzero_words_max"] = int((got[0] >= 0).sum(axis=1).max())
+        self.check_answers(f"{name} subscribers_batch", index, topics,
+                           engine.subscribers_batch(topics))
+
+        counts, stream, total, _hr, _t = engine.match_compact(topics)
+        toks8, lens_enc, _hr = prepare_batch(tables, topics)
+        cap = sigmod.COMPACT_CAP_PER_TOPIC * len(topics)
+        w_counts, w_stream, w_total = (
+            t.numpy() for t in sigmod.compact_program(cpu, toks8, lens_enc))
+        n = min(total, cap)
+        if not (np.array_equal(counts, w_counts) and total == int(w_total)
+                and np.array_equal(stream[:n], w_stream[:n].view(np.uint32))):
+            raise AssertionError(f"{name}: match_compact on the card differs "
+                                 "from the compact body on the CPU")
+        out.update(compact_total=total, compact_cap=cap,
+                   compact_overflow_topics=int((counts == 255).sum()),
+                   compact_stream_overflow=total > cap)
+        self.check_answers(f"{name} subscribers_compact_batch", index,
+                           topics, engine.subscribers_compact_batch(topics))
+
+        launches0 = sk.sig_match_fixed.launches
+        ctx = engine.dispatch_fixed(topics)
+        cnt, rows, hostrows, tb = engine.match_fixed([], out=ctx)
+        # the kernel's plain version on the CPU twin, same padded batch,
+        # its stream scattered back to one row per topic here
+        kr = engine.fixed_max_rows
+        c_counts, c_stream = (t.numpy() for t in sk.build_fixed_fn(
+            cpu, engine.kernel_plan, kr)(ctx.toks8, ctx.lens_enc))
+        real = np.where(c_counts == 255, 0, c_counts).astype(np.int64)
+        w_cnt = np.where(c_counts == 255, 15, c_counts).astype(np.int32)
+        w_rows = np.full((len(w_cnt), kr), 0xFFFFFFFF, dtype=np.uint32)
+        w_rows[np.arange(kr)[None, :] < real[:, None]] = \
+            c_stream[:int(real.sum())].view(np.uint32)
+        if not (np.array_equal(cnt, w_cnt) and np.array_equal(rows, w_rows)):
+            raise AssertionError(f"{name}: match_fixed on the card differs "
+                                 "from the kernel's plain version on the "
+                                 "CPU")
+        if not np.array_equal(engine.counts_fixed(
+                engine.dispatch_fixed(topics))[0], cnt):
+            raise AssertionError(f"{name}: counts_fixed differs")
+        ctx = engine.dispatch_fixed(topics)
+        decoded = engine.decode_fixed(topics, *engine.match_fixed(
+            [], out=ctx), ctx[4], ctx[5])
+        collected = engine.collect_fixed(topics, engine.dispatch_fixed(topics))
+        if any(normalize(a) != normalize(b)
+               for a, b in zip(decoded, collected)):
+            raise AssertionError(f"{name}: decode_fixed differs from "
+                                 "collect_fixed")
+        self.check_answers(f"{name} decode_fixed", index, topics, decoded)
+        out["fixed_dispatches"] = 4
+        out["fixed_launches"] = sk.sig_match_fixed.launches - launches0
+        out["fixed_overflow_topics"] = int((cnt[:len(topics)] == 15).sum())
+        out["fixed_rows"] = int(real.sum())
+        if self.device.type == "cuda" and out["fixed_launches"] != 4:
+            raise AssertionError(f"{name}: {out['fixed_launches']} kernel "
+                                 "launches for 4 dispatches")
+        return out
+
+    def surfaces_faults(self, name: str) -> dict:
+        """An armed ``DEVICE_MATCH`` fails ``subscribers_batch`` with
+        ``DeviceMatchError`` and no trie answer; ``match_compact`` passes
+        it by unconsumed."""
+        from maxmq_tpu_torch import faults
+
+        engine = self.engine(name)
+        topics = self.check_batch(name)[:64]
+        fallbacks = engine.fallbacks
+        faults.clear()
+        try:
+            faults.arm(faults.DEVICE_MATCH, "raise", 1)
+            engine.match_compact(topics)
+            if faults.fired.get(faults.DEVICE_MATCH, 0) or \
+                    not faults.armed(faults.DEVICE_MATCH):
+                raise AssertionError("match_compact consumed DEVICE_MATCH")
+            try:
+                engine.subscribers_batch(topics)
+            except faults.DeviceMatchError as exc:
+                raised = type(exc).__name__
+            else:
+                raise AssertionError("subscribers_batch served an armed "
+                                     "DEVICE_MATCH")
+            if engine.fallbacks != fallbacks:
+                raise AssertionError("subscribers_batch answered from the "
+                                     "trie under a device fault")
+            return {"raised": raised,
+                    "fired": faults.fired[faults.DEVICE_MATCH]}
+        finally:
+            faults.clear()
+
+    def surfaces_timing(self, name: str) -> dict:
+        """The word program and the compact program on one
+        ``decode_batch``-topic batch (CUDA events; launches and busy ms by
+        the profiler; the peak memory of each), and the topics/s of
+        ``subscribers_batch`` (the Python word-form decode) on a
+        sample."""
+        from maxmq_tpu_torch.matching import sig as sigmod
+        from maxmq_tpu_torch.matching.sig_tables import prepare_batch
+
+        torch = self.torch
+        engine = self.engine(name)
+        _f, gen, index = self.corpus(name)
+        tables = engine.tables
+        dev = engine.device_state
+        batch = self.sizes["decode_batch"]
+        topics = gen(batch, seed2=14_000)
+        toks, lengths, dollar = tables.tokenize(topics, engine.max_levels)
+        toks8, lens_enc, _hr = prepare_batch(tables, topics)
+        programs = {
+            "word": lambda: sigmod.word_program(dev, toks, lengths, dollar),
+            "compact": lambda: sigmod.compact_program(dev, toks8, lens_enc)}
+        out = {"batch": batch, "words": int(tables.group_words.sum()),
+               "word_matrix_bytes": batch * max(
+                   int(tables.group_words.sum()), 1) * 8}
+        for label, fn in programs.items():
+            if self.device.type == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            ms = self.time_ms(fn, 2)
+            rec = {"ms": ms, "topics_per_s": batch / (ms / 1e3)}
+            if self.device.type == "cuda":
+                rec["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+            rec["profile"] = self.profile(fn)
+            out[label] = rec
+        sample = topics[:self.sizes["nfa_sample"]]
+        engine.subscribers_batch(sample[:16])
+        t0 = time.perf_counter()
+        answers = engine.subscribers_batch(sample)
+        dt = time.perf_counter() - t0
+        self.check_answers(f"{name} timed subscribers_batch", index, sample,
+                           answers)
+        out["subscribers_batch"] = {"topics": len(sample), "s": dt,
+                                    "topics_per_s": len(sample) / dt}
+        return out
+
+    def sig_surfaces(self) -> dict:
+        """Phase 14 on phase 4's engines: the checks on each corpus, the
+        fault sites on ``mixed_100k`` and the timings."""
+        out = {}
+        self.zero_kernel_counts()
+        for name in ("iot_1m_share", "mixed_100k"):
+            rec = {"check": self.surfaces_check(name)}
+            if name == "mixed_100k":
+                rec["faults"] = self.surfaces_faults(name)
+            rec["timing"] = self.surfaces_timing(name)
+            log(f"[surfaces] {name}: {json.dumps(rec)}")
+            out[name] = rec
+        counts = self.kernel_counts()
+        log(f"[surfaces] kernel launches: {json.dumps(counts)}")
+        if self.device.type == "cuda" and (not counts["sig_match_fixed"]
+                                           or counts["dense_walk_words"]):
+            raise AssertionError(f"sig surfaces: launches {counts}")
+        out["launches"] = counts["sig_match_fixed"]
+        return out
+
     # -- dense phases (5-7) ---------------------------------------------
 
     def dense_corpus(self):
@@ -3353,6 +3571,7 @@ class Smoke:
                  for name in ("iot_1m_share", "mixed_100k")}
         pipeline = self.phase("publish pipeline", lambda: asyncio.run(
             self.publish_pipelines()))
+        surfaces = self.phase("sig surfaces", self.sig_surfaces)
         for engine in self.engines.values():
             engine.close()
         self.engines.clear()
@@ -3385,6 +3604,7 @@ class Smoke:
                    ms_256=h["kernel_ms_256"],
                    publish_pipeline_launches=pipeline["launches"],
                    tracing_launches=tracing["launches"],
+                   surfaces_launches=surfaces["launches"],
                    headline={k: {f: v[f] for f in
                                  ("kernel_ms", "kernel_ms_256", "plain_ms",
                                   "bound_ms", "bound_by", "launches")}
@@ -3400,7 +3620,7 @@ class Smoke:
                      walk_ms=dh["walk_ms"], ms_256=dh["kernel_ms_256"],
                      headline_launches=dh["launches"])
         return {"kernels": [sig, dense], "content": content,
-                "tracing": tracing}
+                "tracing": tracing, "surfaces": surfaces}
 
 
 def main() -> int:

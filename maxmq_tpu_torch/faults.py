@@ -1,10 +1,12 @@
 """Deterministic fault injection for the matcher degradation ladder.
 
 The registry core of the JAX package's ``faults.py``, for the sites the
-matcher service and the publish pipeline run: a device call that raises
-or hangs, a table recompile that fails, a service socket that drops, a
-native frame-head encode that fails. Sites cost one dict
-lookup on an (almost always) empty dict when nothing is armed.
+matcher service, the publish pipeline and the broker's leaf modules run:
+a device call that raises or hangs, a table recompile that fails, a
+service socket that drops, a native frame-head encode that fails, a
+client writer that stalls, a stored record that fails to restore, and
+the named crash points. Sites cost one dict lookup on an (almost always)
+empty dict when nothing is armed.
 
 ``arm(site, mode, count)`` fires the fault for exactly the next
 ``count`` hits of that site (``count=-1`` = until disarmed), then
@@ -14,7 +16,9 @@ self-disarms. Modes:
   :class:`DeviceMatchError`);
 * ``hang``  — the site blocks for ``delay_s`` seconds;
 * anything else (``drop``, ...) — ``fire`` returns True and the SITE
-  acts (the matcher service closes the client connection).
+  acts (the matcher service closes the client connection);
+  ``fire_detail`` hands (mode, delay_s) to loop-thread sites, which
+  await the delay themselves.
 
 Env arming (``MAXMQ_FAULTS``) reaches processes a test cannot touch by
 reference::
@@ -28,6 +32,7 @@ applied in order; ``skip`` lets a fault pass its first N hits.
 from __future__ import annotations
 
 import os
+import signal
 import threading
 import time
 
@@ -49,6 +54,25 @@ SERVICE_SOCKET = "service.socket"      # matcher-service client connection
 NATIVE_ENCODE = "native.encode"        # C publish-frame head assembly
                                        # (trips fall back to the
                                        # pure-Python encoder)
+CLIENT_WRITE = "client.write"          # broker client writer loop
+STORAGE_RESTORE = "storage.restore"    # per-record boot restore parse
+CRASH_AT = "crash.at"                  # named kill points; keyed per
+                                       # point: crash.at#<p>. Mode "kill"
+                                       # SIGKILLs the PROCESS
+
+# every named point a broker can be told to SIGKILL itself at: the
+# commit-pipeline instants whose before/after durability semantics differ
+CRASH_POINTS = (
+    "pre_fsync",            # journal writer: batch taken, backend not
+                            # yet committed
+    "post_fsync_pre_ack",   # journal writer: backend committed, ack
+                            # barriers not yet released
+    "mid_wal_write",        # SQLite apply_batch: half the batch's ops
+                            # executed, transaction open
+    "restore_parse",        # boot restore: mid-bucket parse
+    "replica_flush",        # cluster session replication: drain
+                            # scheduled but not yet on the wire
+)
 
 
 class _Spec:
@@ -60,6 +84,10 @@ class _Spec:
         self.remaining = remaining
         self.delay_s = delay_s
         self.skip = skip
+
+
+def _sigkill_self() -> None:
+    os.kill(os.getpid(), signal.SIGKILL)
 
 
 class FaultRegistry:
@@ -74,6 +102,10 @@ class FaultRegistry:
         # swappable monotonic-ns clock: the service's trace stamps read
         # through this indirection so a test can script time
         self.clock_ns = time.monotonic_ns
+        # swappable kill action: crash_point() delivers the SIGKILL
+        # through this indirection so an in-process test can observe the
+        # trip without dying
+        self.kill_fn = _sigkill_self
 
     def reset_clock(self) -> None:
         self.clock_ns = time.monotonic_ns
@@ -96,6 +128,9 @@ class FaultRegistry:
         with self._lock:
             self._specs.clear()
             self.fired.clear()
+
+    def armed(self, site: str) -> bool:
+        return site in self._specs
 
     def any_armed(self) -> bool:
         """True when ANY site is armed: the cheap hot-path guard before
@@ -156,14 +191,48 @@ class FaultRegistry:
             time.sleep(spec.delay_s)
         return True
 
+    def fire_detail(self, site: str,
+                    key: str | None = None) -> tuple[str, float] | None:
+        """Keyed, async-friendly firing for loop-thread sites: tries the
+        instance-scoped arming ``site#key`` first (``client.write#<id>``
+        stalls one client's writer), then the plain site. ``raise`` mode
+        raises as :meth:`fire` does; every other mode returns (mode,
+        delay_s) and the call site acts (an asyncio site awaits the delay
+        rather than block the event loop)."""
+        spec = self._take(f"{site}#{key}") if key else None
+        if spec is None:
+            spec = self._take(site)
+        if spec is None:
+            return None
+        if spec.mode == "raise":
+            raise InjectedFault(f"injected fault at {site}")
+        return spec.mode, spec.delay_s
+
 
 REGISTRY = FaultRegistry()
+
+
+def crash_point(point: str) -> None:
+    """Die here if the named crash point (``CRASH_POINTS``) is armed:
+    ``crash.at#<point>`` fires the registry's ``kill_fn`` (SIGKILL to
+    self, no atexit, no flush) whatever its mode. Arming rides
+    MAXMQ_FAULTS, e.g. ``crash.at#pre_fsync:kill:1:0:6`` dies at the 7th
+    hit; tests swap ``REGISTRY.kill_fn`` first."""
+    site = f"{CRASH_AT}#{point}"
+    if site not in REGISTRY._specs:     # racy-but-safe fast path
+        return
+    spec = REGISTRY._take(site)
+    if spec is not None:
+        REGISTRY.kill_fn()
+
 
 # module-level conveniences bound to the process registry
 arm = REGISTRY.arm
 disarm = REGISTRY.disarm
 clear = REGISTRY.clear
+armed = REGISTRY.armed
 fire = REGISTRY.fire
+fire_detail = REGISTRY.fire_detail
 arm_from_spec = REGISTRY.arm_from_spec
 fired = REGISTRY.fired
 

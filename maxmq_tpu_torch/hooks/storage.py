@@ -1,0 +1,629 @@
+"""Persistence: serializable session/message records plus two store-backed
+hooks (in-memory and SQLite). The broker restores from ``stored_*`` getters at
+serve time and writes through on every relevant event.
+
+Parity surface: vendor/github.com/mochi-co/mqtt/v2/hooks/storage/storage.go
+(record types) and the Stored* hook plumbing in hooks.go:511-606. The
+reference vendors no backend; here SQLite (stdlib) is a first-class one.
+
+Crash consistency (ADR 014): record ``from_json`` is forward-compatible
+(unknown keys from a newer schema are dropped, not a TypeError), restore
+is per-record tolerant (a torn/undecodable record is QUARANTINED to a
+side bucket and counted, never fatal to boot), SQLite verifies itself
+with ``quick_check`` at open (a corrupt file is moved aside and
+recreated instead of crashing serve()), and every boot persists a
+monotonic ``boot_epoch`` the cluster layer uses instead of wall-clock
+epochs. Writes normally ride the write-behind journal
+(hooks/journal.py), which this hook sheds QoS0-irrelevant rewrites
+into when the broker is load-shedding past the journal watermark.
+
+Copy of the JAX package's ``hooks/storage.py``.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import sqlite3
+import threading
+import time
+from dataclasses import asdict, dataclass, fields
+
+from .. import faults
+from ..protocol.codec import FixedHeader, PacketType as PT
+from ..protocol.packets import Packet
+from ..protocol.properties import Properties
+from .base import Hook
+
+_log = logging.getLogger("maxmq.storage")
+
+
+def _known_fields(cls, d: dict) -> dict:
+    """Forward-compat record decode: a record written by a NEWER build
+    may carry keys this build doesn't know; restoring after a downgrade
+    must drop them instead of dying in ``cls(**d)`` (ADR 014)."""
+    known = {f.name for f in fields(cls)}
+    return {k: v for k, v in d.items() if k in known}
+
+
+@dataclass
+class ClientRecord:
+    client_id: str
+    listener: str = ""
+    username: bytes = b""
+    clean: bool = False
+    protocol_version: int = 4
+    session_expiry: int = 0
+    session_expiry_set: bool = False
+    disconnected_at: float = 0.0
+
+    def to_json(self) -> str:
+        d = asdict(self)
+        d["username"] = self.username.decode("utf-8", "replace")
+        return json.dumps(d)
+
+    @classmethod
+    def from_json(cls, s: str) -> "ClientRecord":
+        d = _known_fields(cls, json.loads(s))
+        d["username"] = d.get("username", "").encode()
+        return cls(**d)
+
+
+@dataclass
+class SubscriptionRecord:
+    client_id: str
+    filter: str
+    qos: int = 0
+    no_local: bool = False
+    retain_as_published: bool = False
+    retain_handling: int = 0
+    identifier: int = 0
+    # ADR 023/024: the raw content-filter option string ("$expr=...&
+    # $agg=..."), empty for plain subscriptions — persisted so restore
+    # can re-register the spec with the content plane instead of
+    # silently downgrading a survivor to an unfiltered subscription
+    options: str = ""
+
+    def to_json(self) -> str:
+        return json.dumps(asdict(self))
+
+    @classmethod
+    def from_json(cls, s: str) -> "SubscriptionRecord":
+        return cls(**_known_fields(cls, json.loads(s)))
+
+
+@dataclass
+class MessageRecord:
+    """A retained or inflight message, wire-reconstructable."""
+
+    client_id: str = ""       # inflight owner; '' for retained
+    origin: str = ""
+    topic: str = ""
+    payload: bytes = b""
+    qos: int = 0
+    retain: bool = False
+    packet_id: int = 0
+    packet_type: int = PT.PUBLISH
+    created: float = 0.0
+    expiry: int | None = None
+    properties_json: str = "{}"
+    # ADR 018: inflight record parked in held_pids (allocated into the
+    # window but never sent — send quota was exhausted); restore/
+    # takeover re-parks it instead of resending past receive maximum
+    held: bool = False
+
+    @classmethod
+    def from_packet(cls, packet: Packet, client_id: str = "") -> "MessageRecord":
+        props = {}
+        pr = packet.properties
+        for k in ("payload_format", "message_expiry", "content_type",
+                  "response_topic", "user_properties", "subscription_ids"):
+            v = getattr(pr, k)
+            if v:
+                props[k] = v if not isinstance(v, bytes) else v.hex()
+        if pr.correlation_data:
+            props["correlation_data"] = pr.correlation_data.hex()
+        return cls(client_id=client_id, origin=packet.origin,
+                   topic=packet.topic, payload=packet.payload,
+                   qos=packet.fixed.qos, retain=packet.fixed.retain,
+                   packet_id=packet.packet_id, packet_type=packet.fixed.type,
+                   created=packet.created,
+                   properties_json=json.dumps(props))
+
+    def to_packet(self) -> Packet:
+        props = Properties()
+        for k, v in json.loads(self.properties_json).items():
+            if k == "correlation_data":
+                props.correlation_data = bytes.fromhex(v)
+            elif k == "user_properties":
+                props.user_properties = [tuple(p) for p in v]
+            else:
+                setattr(props, k, v)
+        return Packet(
+            fixed=FixedHeader(type=self.packet_type, qos=self.qos,
+                              retain=self.retain),
+            topic=self.topic, payload=self.payload, packet_id=self.packet_id,
+            origin=self.origin, created=self.created, properties=props)
+
+    def to_json(self) -> str:
+        d = asdict(self)
+        d["payload"] = self.payload.hex()
+        return json.dumps(d)
+
+    @classmethod
+    def from_json(cls, s: str) -> "MessageRecord":
+        d = _known_fields(cls, json.loads(s))
+        d["payload"] = bytes.fromhex(d.get("payload", ""))
+        return cls(**d)
+
+
+QUARANTINE_BUCKET = "quarantine"
+
+
+class StorageHook(Hook):
+    """Write-through persistence against an abstract key/value store with
+    namespaced buckets: clients, subscriptions, retained, inflight,
+    sysinfo, meta (boot_epoch), quarantine (torn records, ADR 014).
+
+    When ``store`` is a write-behind journal (hooks/journal.py) the
+    hook's writes never touch the backend on the event loop; ``journal``
+    then exposes it to the broker for durability barriers, $SYS, and
+    /metrics."""
+
+    id = "storage"
+
+    def __init__(self, store: "Store") -> None:
+        self.store = store
+        # duck-typed: anything with a durability barrier is "a journal"
+        self.journal = store if hasattr(store, "barrier") else None
+        self.boot_epoch = 0         # set by bump_boot_epoch at restore
+        self.quarantined = 0        # torn/unknown records set aside
+        self.journal_sheds = 0      # QoS0-irrelevant rewrites shed
+        self.rewrites_skipped = 0   # redundant inflight resend rewrites
+
+    def stop(self) -> None:
+        self.store.close()
+
+    # -- restore getters (per-record tolerant, ADR 014) ---------------------
+
+    def _quarantine(self, bucket: str, key: str, raw: str, exc) -> None:
+        """A record that won't parse is moved to the side bucket and
+        counted — a torn write or a newer-schema leftover must cost ONE
+        record, never the boot."""
+        self.quarantined += 1
+        try:
+            self.store.put(QUARANTINE_BUCKET, f"{bucket}|{key}", raw)
+            self.store.delete(bucket, key)
+        except Exception:
+            pass    # quarantining is best-effort; the count still tells
+        _log.error("storage restore: quarantined %s/%s: %r",
+                   bucket, key, exc)
+
+    def _restore_bucket(self, bucket: str, parse) -> list:
+        out = []
+        for key, raw in self.store.all(bucket).items():
+            # ADR 024: a crash DURING recovery must leave a store the
+            # NEXT boot restores from — the kill-point drill dies here
+            # mid-bucket and reboots onto the same file
+            faults.crash_point("restore_parse")
+            try:
+                faults.fire(faults.STORAGE_RESTORE)
+                out.append(parse(raw))
+            except Exception as exc:
+                self._quarantine(bucket, key, raw, exc)
+        return out
+
+    def stored_clients(self) -> list:
+        return self._restore_bucket("clients", ClientRecord.from_json)
+
+    def stored_subscriptions(self) -> list:
+        return self._restore_bucket("subscriptions",
+                                    SubscriptionRecord.from_json)
+
+    def stored_retained_messages(self) -> list:
+        return self._restore_bucket("retained", MessageRecord.from_json)
+
+    def stored_inflight_messages(self) -> list:
+        return self._restore_bucket("inflight", MessageRecord.from_json)
+
+    def stored_sys_info(self):
+        from ..broker.sys_info import SysInfo
+        raw = self.store.get("sysinfo", "sysinfo")
+        if not raw:
+            return None
+        try:
+            faults.fire(faults.STORAGE_RESTORE)
+            data = json.loads(raw)
+            data.pop("extra", None)
+            known = {f for f in SysInfo.__dataclass_fields__ if f != "extra"}
+            return SysInfo(**{k: v for k, v in data.items() if k in known})
+        except Exception as exc:
+            self._quarantine("sysinfo", "sysinfo", raw, exc)
+            return None
+
+    # -- boot epoch (ADR 014; closes the ADR-013 wall-clock limitation) -----
+
+    def bump_boot_epoch(self) -> int:
+        """Read-increment-persist the monotonic boot counter. A fresh
+        store seeds from wall-clock ms so nodes upgrading from ADR-013
+        wall-clock epochs stay monotonic for their peers; every boot
+        after that is +1 regardless of clock behavior. Flushed through
+        the journal synchronously — boot runs before any traffic, and a
+        boot epoch that could be lost would be no epoch at all."""
+        prev = 0
+        try:
+            raw = self.store.get("meta", "boot_epoch")
+            prev = int(raw) if raw else 0
+        except Exception:
+            prev = 0
+        self.boot_epoch = prev + 1 if prev > 0 else int(time.time() * 1000)
+        self.store.put("meta", "boot_epoch", str(self.boot_epoch))
+        flush = getattr(self.store, "flush", None)
+        if flush is not None:
+            flush(timeout=5.0)
+        return self.boot_epoch
+
+    # -- shed policy (ADR 014, rides the ADR-012 watermark) -----------------
+
+    def _shed_rewrite(self, client) -> bool:
+        """True when a QoS0-irrelevant rewrite should be dropped: the
+        broker is load-shedding (ADR 012) AND the journal sits past its
+        byte watermark — storms must not grow the journal unbounded.
+        A full disk (ADR 024 ENOSPC rung) sheds unconditionally: every
+        parked byte already has nowhere to go, so QoS0-irrelevant
+        rewrites are the first thing off the ladder."""
+        j = self.journal
+        if j is None:
+            return False
+        if getattr(j, "disk_full", False):
+            over = getattr(getattr(client, "server", None),
+                           "overload", None)
+            if over is not None:
+                over.disk_full_sheds += 1
+            return True
+        if not j.over_watermark:
+            return False
+        over = getattr(getattr(client, "server", None), "overload", None)
+        return bool(over is not None and over.shedding)
+
+    # -- write-through events -----------------------------------------------
+
+    def _save_client(self, client) -> None:
+        rec = ClientRecord(
+            client_id=client.id, listener=client.listener,
+            username=client.properties.username,
+            clean=client.properties.clean_start,
+            protocol_version=client.properties.protocol_version,
+            session_expiry=client.properties.session_expiry,
+            session_expiry_set=client.properties.session_expiry_set,
+            disconnected_at=client.disconnected_at)
+        self.store.put("clients", client.id, rec.to_json())
+
+    def on_session_established(self, client, packet) -> None:
+        self._save_client(client)
+
+    def on_disconnect(self, client, err, expire: bool) -> None:
+        if expire:
+            self.store.delete("clients", client.id)
+            self.store.delete_prefix("subscriptions", client.id + "|")
+            self.store.delete_prefix("inflight", client.id + "|")
+        else:
+            self._save_client(client)
+
+    def on_client_expired(self, client) -> None:
+        self.store.delete("clients", client.id)
+        self.store.delete_prefix("subscriptions", client.id + "|")
+        self.store.delete_prefix("inflight", client.id + "|")
+
+    def on_subscribed(self, client, packet, reason_codes, counts) -> None:
+        for sub, code in zip(packet.filters, reason_codes):
+            if code >= 0x80:
+                continue
+            rec = SubscriptionRecord(
+                client_id=client.id, filter=sub.filter, qos=sub.qos,
+                no_local=sub.no_local,
+                retain_as_published=sub.retain_as_published,
+                retain_handling=sub.retain_handling, identifier=sub.identifier,
+                # ADR 023/024: the subscribe path stashes the parsed-OK
+                # content options on the Subscription; a plain
+                # (re-)subscribe stores "" and so clears any earlier
+                # persisted spec (resubscribe-replaces semantics)
+                options=getattr(sub, "content_options", "") or "")
+            self.store.put("subscriptions", f"{client.id}|{sub.filter}",
+                           rec.to_json())
+
+    def on_unsubscribed(self, client, packet) -> None:
+        for sub in packet.filters:
+            self.store.delete("subscriptions", f"{client.id}|{sub.filter}")
+
+    def on_retain_message(self, client, packet, stored: int) -> None:
+        if stored == -1 or not packet.payload:
+            self.store.delete("retained", packet.topic)
+            return
+        if packet.fixed.qos == 0 and self._shed_rewrite(client):
+            # a QoS0 retained storm while shedding: losing the latest
+            # rewrite leaves the prior retained value — QoS0 delivery
+            # is already being shed above it (ADR 012), so the journal
+            # doesn't owe the storm durability either
+            self.journal_sheds += 1
+            return
+        self.store.put("retained", packet.topic,
+                       MessageRecord.from_packet(packet).to_json())
+
+    def on_retained_expired(self, topic: str) -> None:
+        self.store.delete("retained", topic)
+
+    def on_qos_publish(self, client, packet, sent: float, resends: int) -> None:
+        inflight = getattr(client, "inflight", None)
+        if resends and inflight is not None \
+                and inflight.stored(packet.packet_id):
+            # resend of a record already in the pipeline/store: the
+            # serialized form is identical (dup/sent aren't persisted),
+            # so the rewrite buys nothing — skip it (ADR 014)
+            self.rewrites_skipped += 1
+            return
+        rec = MessageRecord.from_packet(packet, client.id)
+        if packet.packet_id in getattr(client, "held_pids", ()):
+            # ADR 018: quota-parked — persist the held-ness so restore
+            # re-parks instead of resending past receive maximum (the
+            # release rewrites the record with held cleared)
+            rec.held = True
+        self.store.put("inflight", f"{client.id}|{packet.packet_id}",
+                       rec.to_json())
+        if inflight is not None:
+            inflight.note_stored(packet.packet_id)
+
+    def on_qos_complete(self, client, packet) -> None:
+        self.store.delete("inflight", f"{client.id}|{packet.packet_id}")
+
+    def on_qos_dropped(self, client, packet) -> None:
+        self.store.delete("inflight", f"{client.id}|{packet.packet_id}")
+
+    def on_sys_info_tick(self, info) -> None:
+        self.store.put("sysinfo", "sysinfo", json.dumps(
+            {k: v for k, v in asdict(info).items() if k != "extra"}))
+
+
+class Store:
+    """Abstract bucketed KV store."""
+
+    def put(self, bucket: str, key: str, value: str) -> None:
+        raise NotImplementedError
+
+    def get(self, bucket: str, key: str) -> str | None:
+        raise NotImplementedError
+
+    def delete(self, bucket: str, key: str) -> None:
+        raise NotImplementedError
+
+    def delete_prefix(self, bucket: str, prefix: str) -> None:
+        raise NotImplementedError
+
+    def all(self, bucket: str) -> dict[str, str]:
+        raise NotImplementedError
+
+    def apply_batch(self, ops) -> None:
+        """Apply ``(kind, bucket, key, value)`` ops — kind one of
+        ``put``/``delete``/``delete_prefix`` — as one transaction where
+        the backend supports it (the journal's group commit, ADR 014).
+        The default replays them individually."""
+        for kind, bucket, key, value in ops:
+            if kind == "put":
+                self.put(bucket, key, value)
+            elif kind == "delete":
+                self.delete(bucket, key)
+            else:
+                self.delete_prefix(bucket, key)
+
+    def close(self) -> None:
+        pass
+
+
+class MemoryStore(Store):
+    def __init__(self) -> None:
+        self._data: dict[str, dict[str, str]] = {}
+
+    def put(self, bucket, key, value):
+        self._data.setdefault(bucket, {})[key] = value
+
+    def get(self, bucket, key):
+        return self._data.get(bucket, {}).get(key)
+
+    def delete(self, bucket, key):
+        self._data.get(bucket, {}).pop(key, None)
+
+    def delete_prefix(self, bucket, prefix):
+        b = self._data.get(bucket, {})
+        for k in [k for k in b if k.startswith(prefix)]:
+            del b[k]
+
+    def all(self, bucket):
+        return dict(self._data.get(bucket, {}))
+
+
+class CorruptStoreError(Exception):
+    """The storage file failed its integrity check (ADR 014): the
+    open path moves it aside and recreates. Distinct from transient
+    sqlite3.OperationalError (locks, permissions), which must NOT
+    trigger the move-aside."""
+
+
+class SQLiteStore(Store):
+    """Durable store on stdlib sqlite3 (WAL mode).
+
+    ADR 014 hardening: ``synchronous`` follows the ``storage_sync``
+    policy (journal.SQLITE_SYNC_BY_POLICY), ``busy_timeout`` bounds
+    lock waits, and ``PRAGMA quick_check`` runs at open — a corrupt
+    file is moved aside to ``<path>.corrupt-<n>`` and recreated
+    (counted in ``corruptions``) instead of refusing to boot."""
+
+    def __init__(self, path: str, synchronous: str = "FULL",
+                 busy_timeout_ms: int = 5000, logger=None) -> None:
+        self.path = path
+        self.corruptions = 0
+        self.aside_failures = 0         # forensic move-asides that failed
+        self._synchronous = synchronous
+        self._busy_timeout_ms = busy_timeout_ms
+        self.log = logger or _log
+        self._lock = threading.Lock()
+        try:
+            self._conn = self._open_verified(path)
+        except CorruptStoreError as exc:
+            self._conn = self._recreate_aside(path, exc)
+
+    def _open_verified(self, path: str):
+        """Open + integrity-check. Only CORRUPTION becomes
+        :class:`CorruptStoreError` (→ move-aside); transient
+        OperationalErrors — locked by another process, permissions,
+        I/O — propagate as the real errors they are: moving a healthy
+        database aside over a lock would BE the data loss."""
+        conn = sqlite3.connect(path, check_same_thread=False)
+        try:
+            # busy_timeout FIRST: a concurrent WAL checkpoint must make
+            # quick_check wait, not fail
+            conn.execute(f"PRAGMA busy_timeout={int(self._busy_timeout_ms)}")
+            try:
+                row = conn.execute("PRAGMA quick_check").fetchone()
+            except sqlite3.OperationalError:
+                raise                   # locked/permission/io: NOT corruption
+            except sqlite3.DatabaseError as exc:
+                raise CorruptStoreError(str(exc)) from exc
+            if not row or row[0] != "ok":
+                raise CorruptStoreError(
+                    f"quick_check: {row[0] if row else 'no result'}")
+            conn.execute("PRAGMA journal_mode=WAL")
+            conn.execute(f"PRAGMA synchronous={self._synchronous}")
+            conn.execute(
+                "CREATE TABLE IF NOT EXISTS kv ("
+                "bucket TEXT NOT NULL, key TEXT NOT NULL, value TEXT NOT NULL,"
+                "PRIMARY KEY (bucket, key))")
+            conn.commit()
+        except BaseException:
+            conn.close()
+            raise
+        return conn
+
+    def _recreate_aside(self, path: str, exc: Exception):
+        """Corruption policy: the broker must boot. Move the damaged
+        file (and WAL/SHM siblings) aside for forensics, recreate
+        fresh, count + log LOUDLY — state is lost, service is not."""
+        self.corruptions += 1
+        n = 1
+        while os.path.exists(f"{path}.corrupt-{n}"):
+            n += 1
+        aside = f"{path}.corrupt-{n}"
+        for suffix in ("", "-wal", "-shm"):
+            src = path + suffix
+            try:
+                if os.path.exists(src):
+                    os.replace(src, aside + suffix)
+            except OSError as move_exc:
+                # a failed move-aside loses the forensic copy, never
+                # the boot: count + log it, then REMOVE the damaged
+                # file in place so the recreate below starts fresh
+                # instead of re-opening the same corruption
+                self.aside_failures += 1
+                self.log.error(
+                    "storage move-aside of %s to %s failed (%r); "
+                    "removing the damaged file in place — forensic "
+                    "copy lost", src, aside + suffix, move_exc)
+                try:
+                    os.remove(src)
+                except OSError as rm_exc:
+                    self.log.error(
+                        "storage could not remove damaged file %s "
+                        "either: %r", src, rm_exc)
+        self.log.error(
+            "storage file %s failed integrity check (%r); moved aside "
+            "to %s and recreated EMPTY — persisted sessions/retained/"
+            "inflight from it are gone", path, exc, aside)
+        return self._open_verified(path)
+
+    def reopen(self) -> None:
+        """Drop the current connection and open a verified fresh one
+        (ADR 024): the journal calls this when a failed fsync poisoned
+        the handle — dirty-page state is unknown, so the only honest
+        move is a new connection plus a full replay of the parked
+        journal. A file the reopen finds corrupt takes the move-aside
+        path like any boot would."""
+        with self._lock:
+            try:
+                self._conn.close()
+            except sqlite3.Error:
+                pass            # a poisoned handle may refuse to close
+            try:
+                self._conn = self._open_verified(self.path)
+            except CorruptStoreError as exc:
+                self._conn = self._recreate_aside(self.path, exc)
+
+    def put(self, bucket, key, value):
+        with self._lock:
+            self._conn.execute(
+                "INSERT INTO kv (bucket, key, value) VALUES (?, ?, ?) "
+                "ON CONFLICT(bucket, key) DO UPDATE SET value=excluded.value",
+                (bucket, key, value))
+            self._conn.commit()
+
+    def get(self, bucket, key):
+        with self._lock:
+            row = self._conn.execute(
+                "SELECT value FROM kv WHERE bucket=? AND key=?",
+                (bucket, key)).fetchone()
+        return row[0] if row else None
+
+    def delete(self, bucket, key):
+        with self._lock:
+            self._conn.execute("DELETE FROM kv WHERE bucket=? AND key=?",
+                               (bucket, key))
+            self._conn.commit()
+
+    def delete_prefix(self, bucket, prefix):
+        with self._lock:
+            self._conn.execute(
+                "DELETE FROM kv WHERE bucket=? AND key GLOB ?",
+                (bucket, prefix.replace("[", "[[]") + "*"))
+            self._conn.commit()
+
+    def all(self, bucket):
+        with self._lock:
+            rows = self._conn.execute(
+                "SELECT key, value FROM kv WHERE bucket=?", (bucket,)).fetchall()
+        return dict(rows)
+
+    def apply_batch(self, ops):
+        """Group commit (ADR 014): the whole batch is ONE transaction —
+        one fsync per batch under synchronous=FULL, and a crash leaves
+        either all of it or none of it."""
+        mid = len(ops) // 2
+        with self._lock:
+            try:
+                for i, (kind, bucket, key, value) in enumerate(ops):
+                    if i == mid:
+                        # ADR 024: die INSIDE the open transaction —
+                        # statements executed, nothing committed; the
+                        # restart must see all-or-nothing
+                        faults.crash_point("mid_wal_write")
+                    if kind == "put":
+                        self._conn.execute(
+                            "INSERT INTO kv (bucket, key, value) "
+                            "VALUES (?, ?, ?) ON CONFLICT(bucket, key) "
+                            "DO UPDATE SET value=excluded.value",
+                            (bucket, key, value))
+                    elif kind == "delete":
+                        self._conn.execute(
+                            "DELETE FROM kv WHERE bucket=? AND key=?",
+                            (bucket, key))
+                    else:
+                        self._conn.execute(
+                            "DELETE FROM kv WHERE bucket=? AND key GLOB ?",
+                            (bucket, key.replace("[", "[[]") + "*"))
+                self._conn.commit()
+            except BaseException:
+                self._conn.rollback()
+                raise
+
+    def close(self):
+        with self._lock:
+            self._conn.commit()
+            self._conn.close()

@@ -1,10 +1,10 @@
 """Signature matcher engine: device-resident grouped hash-equality matching
 bound to a TopicIndex, with the CPU trie as its exact fallback.
 
-Counterpart of ``SigEngine`` in the JAX package's ``matching/sig.py``,
-fixed-slot "stream" path only (the production path the MicroBatcher and
-the matcher service drive). Per batch: host tokenize + exact/'+' probes
-(``sig_tables.prepare_batch``), one device program (prologue, the
+Counterpart of ``SigEngine`` in the JAX package's ``matching/sig.py``.
+The production path, which the MicroBatcher and the matcher service drive,
+is the fixed-slot "stream" path. Per batch: host tokenize + exact/'+'
+probes (``sig_tables.prepare_batch``), one device program (prologue, the
 ``sig_match_fixed`` CUDA kernel, stream compaction; ``sig_kernel``),
 asynchronous fetch of the counts and the used front of the row stream,
 then the host batch verify + entry union: one C pass of the port's
@@ -12,6 +12,14 @@ native decode (merged ``SubscriberSet``s, or ``DeliveryIntents`` with
 ``emit_intents``), or the memoized Python union where the extension is
 absent. Overflow topics, declined corpora and journal gaps are served
 exactly by the CPU trie.
+
+The rest of the reference's device surface runs in plain torch on the
+engine's device (``sig_torch``; the reference computes it in XLA): the
+word path (``match_raw``, ``subscribers_batch``, the word-form
+``decode``) and the compact path (``match_compact``,
+``subscribers_compact_batch``). The fixed path's row-matrix surface
+(``match_fixed``, ``counts_fixed``, ``decode_fixed``) unpacks the
+kernel's stream.
 
 ``device_tables`` turns a compiled table set's numpy arrays into the
 device state — the "weights" of this system. It accepts the arrays of
@@ -30,15 +38,27 @@ import torch
 from .. import faults
 from . import sig_kernel
 from .sig_tables import (MAX_GROUPS, OverlayedEngine, Overlay,
-                         SigTables, _compact_dtype, _native_decode,
-                         _native_hash_probe, _pairs_with_host, _union_pairs,
-                         compile_sig, host_hash_rows, prepare_batch,
-                         prewarm_tables, verify_pairs)
+                         SigTables, _candidate_pairs, _compact_dtype,
+                         _native_decode, _native_hash_probe,
+                         _pairs_with_host, _union_pairs, compile_sig,
+                         host_exact_rows, host_hash_rows, host_plus_rows,
+                         prepare_batch, prewarm_tables, verify_pairs)
+from .sig_torch import (MASK32, sig_match_body, sig_match_compact_body,
+                        token_tensor)
 from .topics import batch_bucket as _batch_bucket
 from .topics import filter_matches_topic, split_levels
 from .trie import SubscriberSet, TopicIndex, merge_subscription
 
 _STREAM_CHUNK = 1 << 19    # rows per stream-slice fetch (2 MB of uint32)
+
+# the word and compact paths' bounds: the JAX package's constructor
+# defaults (no caller sets them). Nonzero words per topic on the word
+# path; words expanded, rows kept (<= 254: 255 is the overflow count) and
+# stream entries per topic on the compact path.
+MAX_WORDS = 32
+COMPACT_WORD_SLOTS = 8
+COMPACT_MAX_ROWS = 16
+COMPACT_CAP_PER_TOPIC = 3
 
 TABLE_ARRAYS = ("topo_coef", "depth_coef", "min_depth", "is_hash",
                 "wild_first", "row_sig", "row_sig16", "group_words",
@@ -86,9 +106,11 @@ def device_tables(arrays: dict[str, np.ndarray], device) -> dict:
     constants (uint32 values as int64), ``grp_of_word`` int32[n_words],
     the 32-bit plane table ``planes32`` int32[32, n_words] (plane j,
     column w = signature of row 32w+j; every word, so one table serves
-    both kernel widths), and the packed 16-bit table ``planes16``
-    int32[16, n_words16] of the trailing 16-bit region (plane j, column w
-    = row 32w+j in the low half, row 32w+16+j in the high half)."""
+    both kernel widths), the same table as uint32 values in int64,
+    ``planes`` (the torch bodies' operand), and the packed 16-bit table
+    ``planes16`` int32[16, n_words16] of the trailing 16-bit region
+    (plane j, column w = row 32w+j in the low half, row 32w+16+j in the
+    high half)."""
     dev = torch.device(device)
 
     def u32(name):
@@ -113,6 +135,7 @@ def device_tables(arrays: dict[str, np.ndarray], device) -> dict:
         32 * n_words32:32 * n_words].reshape(n_words16, 32)
     planes16 = (s16[:, :16] | (s16[:, 16:] << np.uint32(16))).T
     grp_of_word = np.repeat(np.arange(len(gw), dtype=np.int32), gw)
+    planes32_t = bits32(planes32)
     return {
         "device": dev,
         "topo_coef": u32("topo_coef"),
@@ -124,7 +147,8 @@ def device_tables(arrays: dict[str, np.ndarray], device) -> dict:
         "fold_mult": u32("fold_mult"),
         "w16": torch.from_numpy(w16).to(dev),
         "grp_of_word": torch.from_numpy(grp_of_word).to(dev),
-        "planes32": bits32(planes32),
+        "planes32": planes32_t,
+        "planes": planes32_t.to(torch.int64) & MASK32,
         "planes16": bits32(planes16),
         "group_words": tuple(int(w) for w in gw),
     }
@@ -196,10 +220,49 @@ def _union_rowsets(batch: int, ti: np.ndarray, rw: np.ndarray, tables,
     return out
 
 
+def _window_tensor(toks: np.ndarray, device) -> torch.Tensor:
+    """The word path's int32 tokens (-1 pads) -> uint32 values in int64
+    on ``device``, as the reference's ``astype(uint32)``."""
+    t = torch.from_numpy(np.ascontiguousarray(toks, dtype=np.int32))
+    return t.to(device).to(torch.int64) & MASK32
+
+
+def word_program(dev: dict, toks: np.ndarray, lengths: np.ndarray,
+                 dollar: np.ndarray):
+    """The word path's device program on one batch tokenized at the
+    engine's window (``SigTables.tokenize``), on the tables' device:
+    (word_idx, word_val int32 bits, overflow) tensors."""
+    device = dev["device"]
+    return sig_match_body(
+        dev, dev["planes"], _window_tensor(toks, device),
+        torch.from_numpy(np.ascontiguousarray(lengths)).to(device)
+        .to(torch.int64),
+        torch.from_numpy(np.ascontiguousarray(dollar)).to(device),
+        MAX_WORDS)
+
+
+def compact_program(dev: dict, toks8: np.ndarray, lens_enc: np.ndarray):
+    """The compact path's device program on one prepared batch
+    (``prepare_batch``): (counts, stream, total) tensors, with a stream
+    of ``COMPACT_CAP_PER_TOPIC`` entries a topic."""
+    device = dev["device"]
+    return sig_match_compact_body(
+        dev, dev["planes"], token_tensor(toks8, device),
+        torch.from_numpy(np.ascontiguousarray(lens_enc, dtype=np.int8))
+        .to(device), max_word_slots=COMPACT_WORD_SLOTS,
+        max_rows=COMPACT_MAX_ROWS,
+        cap=COMPACT_CAP_PER_TOPIC * len(lens_enc))
+
+
+def _host_arrays(tensors) -> list[np.ndarray]:
+    """Device outputs -> numpy arrays (one synchronising copy each)."""
+    return [_to_host(t).numpy() for t in tensors]
+
+
 class _State(NamedTuple):
-    """One compiled snapshot. ``program`` is None when the corpus was
-    declined (> MAX_GROUPS groups): the CPU trie serves it.
-    ``fragments`` memoizes each row's entries unioned into a
+    """One compiled snapshot. ``program`` (the fixed-slot program) is
+    None when the corpus was declined (> MAX_GROUPS groups): the CPU trie
+    serves it. ``fragments`` memoizes each row's entries unioned into a
     SubscriberSet (row -> set), filled at first use by the decode and
     dropped with the snapshot."""
 
@@ -224,7 +287,8 @@ class _Dispatch(NamedTuple):
     """A dispatched batch, as ``collect_fixed`` needs it: the pending
     fetch, the host-probe rows, the snapshot it ran on (its tables and
     row-fragment memo), and the padded token matrix and length encoding
-    (for the host verify)."""
+    (for the host verify). Indices 0-2 and 4-5 mean what the JAX
+    package's dispatch tuple's do (its index 3 is the wire format)."""
 
     fetch: _Fetch
     hostrows: list
@@ -235,9 +299,16 @@ class _Dispatch(NamedTuple):
 
 
 class DeviceMatchingDeclined(RuntimeError):
-    """``dispatch_fixed`` on a snapshot whose corpus was declined (more
-    than MAX_GROUPS signature groups): the CPU trie serves it. The one
+    """A device entry point (``dispatch_fixed``, ``match_raw``,
+    ``match_compact``) on a snapshot whose corpus was declined (more than
+    MAX_GROUPS signature groups): the CPU trie serves it. The one
     condition the ``subscribers_*`` surface answers from the trie."""
+
+    def __init__(self, msg: str | None = None) -> None:
+        super().__init__(msg or (
+            "device matching disabled for this corpus "
+            f"(> {MAX_GROUPS} signature groups); use the subscribers_* "
+            "APIs, which fall back to the CPU trie"))
 
 
 @contextlib.contextmanager
@@ -258,17 +329,23 @@ def _device_errors(what: str):
 class SigEngine(OverlayedEngine):
     """Device-resident signature matcher bound to a TopicIndex.
 
-    ``device`` is where the tables live and the kernel runs: the card by
-    default; ``"cpu"`` runs the kernel's plain version (and must be asked
-    for). ``fixed_max_rows`` (1..14) bounds the device rows per topic;
-    topics with more overflow to the CPU trie. ``kernel_width`` "auto"
-    compares 16-bit-eligible groups against packed planes, "32" forces
-    uniform 32-bit planes."""
+    ``device`` is where the tables live and the programs run: the card
+    by default; ``"cpu"`` runs the kernel's plain version (and must be
+    asked for). ``max_levels`` is the word path's tokenizer window and
+    the compile's literal-depth limit. ``fixed_max_rows`` (1..14) bounds
+    the device rows per topic of the fixed path; the word and compact
+    paths' bounds are the module's ``MAX_WORDS`` and ``COMPACT_*``.
+    Topics past any bound overflow to the CPU trie. The fixed path runs
+    the ``sig_match_fixed`` kernel. ``kernel_width`` "auto" compares
+    16-bit-eligible groups against packed planes, "32" forces uniform
+    32-bit planes."""
 
-    def __init__(self, index: TopicIndex, device=None,
-                 auto_refresh: bool = True, fixed_max_rows: int = 7,
+    def __init__(self, index: TopicIndex, max_levels: int = 16,
+                 device=None, auto_refresh: bool = True,
+                 fixed_max_rows: int = 7,
                  kernel_width: str = "auto") -> None:
         self.index = index
+        self.max_levels = max_levels
         self.device = resolve_device(device)
         self.auto_refresh = auto_refresh
         if not 1 <= fixed_max_rows <= 14:
@@ -316,7 +393,7 @@ class SigEngine(OverlayedEngine):
                     and state.tables.version == self.index.sub_version):
                 return False
             faults.fire(faults.DEVICE_RECOMPILE)
-            tables = compile_sig(self.index)
+            tables = compile_sig(self.index, max_levels=self.max_levels)
             if len(tables.groups) > MAX_GROUPS:
                 # pathological corpus (thousands of distinct wildcard
                 # shapes): keep serving EXACTLY via the CPU trie rather
@@ -369,6 +446,89 @@ class SigEngine(OverlayedEngine):
         with ``kernel_plan`` these are the kernel's operands."""
         return self._state.dev
 
+    @property
+    def fixed_program(self):
+        """(fixed-path program, wire-format descriptor) of the live
+        snapshot: ``program(toks8, lens_enc)`` -> (counts_u8, stream) on
+        a bucket-padded prepared batch, for harnesses that dispatch the
+        device half directly. The format is always the kernel's stream."""
+        return self._state.program, {"kind": "stream",
+                                     "max_rows": self.fixed_max_rows}
+
+    # -- the word and compact paths ---------------------------------------
+
+    def _device_state(self) -> _State:
+        """The live snapshot for a device entry point (refreshed first
+        under ``auto_refresh``); raises DeviceMatchingDeclined for a
+        declined corpus."""
+        if self.auto_refresh:
+            self.refresh_soon()
+        state = self._state
+        if state.program is None:
+            raise DeviceMatchingDeclined()
+        return state
+
+    @staticmethod
+    def _host_rows(tables, toks, lengths, dollar) -> list:
+        """The word path's host probes: full-exact and '+'-shape rows."""
+        hostrows = host_exact_rows(tables, toks, lengths)
+        return host_plus_rows(tables, toks, lengths, np.asarray(dollar),
+                              into=hostrows)
+
+    def match_raw(self, topics: list[str]):
+        """Device match of the wildcard rows + host probe of the exact
+        rows. Returns (word_idx int32[B, K], word_val uint32[B, K],
+        overflow bool[B], hostrows list[np.ndarray], tables)."""
+        state = self._device_state()
+        faults.fire(faults.DEVICE_MATCH)
+        tables = state.tables
+        toks, lengths, dollar = tables.tokenize(topics, self.max_levels)
+        with _device_errors("word match"):
+            out = _host_arrays(word_program(state.dev, toks, lengths,
+                                            dollar))
+        hostrows = self._host_rows(tables, toks, lengths, dollar)
+        return (out[0], out[1].view(np.uint32), out[2], hostrows, tables)
+
+    def match_compact(self, topics: list[str]):
+        """Transfer-minimal device match of one batch. Returns
+        (counts uint8[B], stream uint32[cap], total int, hostrows,
+        tables); only ``stream[:min(total, cap)]`` is defined."""
+        state = self._device_state()
+        tables = state.tables
+        toks8, lens_enc, hostrows = prepare_batch(tables, topics)
+        with _device_errors("compact match"):
+            counts, stream, total = _host_arrays(
+                compact_program(state.dev, toks8, lens_enc))
+        return counts, stream.view(np.uint32), int(total), hostrows, tables
+
+    # -- the fixed path's row-matrix surface --------------------------------
+
+    def match_fixed(self, topics: list[str], out=None):
+        """Fixed-slot device match. Returns (counts int32[B], rows
+        uint32[B, max_rows] (0xFFFFFFFF filled), hostrows, tables); count
+        15 = overflow; arrays are bucket-long. The rows are the kernel's
+        stream scattered back to one row per topic.
+
+        ``out=ctx`` skips the dispatch and unpacks a previous
+        ``dispatch_fixed``'s result, on the snapshot it was dispatched
+        with."""
+        if out is None:
+            out = self.dispatch_fixed(topics)
+        cnt, real, flat = self._fetch_stream(out.fetch)
+        kr = self.fixed_max_rows
+        rows = np.full((len(cnt), kr), 0xFFFFFFFF, dtype=np.uint32)
+        if flat is not None:
+            rows[np.arange(kr, dtype=np.int64)[None, :] < real[:, None]] = \
+                flat
+        return cnt, rows, out.hostrows, out.tables
+
+    def counts_fixed(self, out):
+        """Counts + host rows of a dispatched fixed batch without the
+        [B, max_rows] row matrix: (cnt int32[B], hostrows, tables). The
+        fetch still copies the used front of the row stream."""
+        cnt, _real, _flat = self._fetch_stream(out.fetch)
+        return cnt, out.hostrows, out.tables
+
     # ------------------------------------------------------------------
 
     def dispatch_fixed(self, topics: list[str]):
@@ -377,14 +537,7 @@ class SigEngine(OverlayedEngine):
         start copying to the host now, and ``collect_fixed`` finishes the
         batch (pipelines overlap this batch's device work with the
         previous batch's decode)."""
-        if self.auto_refresh:
-            self.refresh_soon()
-        state = self._state
-        if state.program is None:
-            raise DeviceMatchingDeclined(
-                "device matching disabled for this corpus "
-                f"(> {MAX_GROUPS} signature groups); use the subscribers_* "
-                "APIs, which fall back to the CPU trie")
+        state = self._device_state()
         faults.fire(faults.DEVICE_MATCH)
         tables = state.tables
         toks8, lens_enc, hostrows = prepare_batch(tables, topics)
@@ -485,10 +638,73 @@ class SigEngine(OverlayedEngine):
         # a supervisor counts it and answers the caller from its trie
         return self.collect_fixed(topics, ctx)
 
-    # The device program is the fixed-slot path; the batch surface is the
-    # same call (the JAX package's separate word-form program is not
-    # ported: its answers are the same).
-    subscribers_batch = subscribers_fixed_batch
+    def subscribers_batch(self, topics: list[str]) -> list[SubscriberSet]:
+        """Batch match over the word path: ``match_raw``, then the
+        word-form ``decode`` per topic. Deep filters (> max_levels literal
+        levels) only match topics deeper than max_levels, which the
+        tokenizer flags as overflow, so the trie fallback covers them."""
+        cpu = self._trie_batch(topics)
+        if cpu is not None:
+            return cpu
+        try:
+            word_idx, word_val, overflow, hostrows, tables = \
+                self.match_raw(topics)
+        except DeviceMatchingDeclined:   # swapped to trie-only mid-call
+            return self._resync_batch(topics)
+        overlay = self.overlay_for(tables.version)
+        if overlay == "resync":
+            return self._resync_batch(topics)
+        removed = overlay.removed if overlay else None
+        out = []
+        for i, topic in enumerate(topics):
+            self.matches += 1
+            if overflow[i]:
+                self.fallbacks += 1
+                out.append(self.index.subscribers(topic))
+            else:
+                result = self.decode(topic, word_idx[i], word_val[i],
+                                     tables, removed=removed)
+                self.decode_rows(topic, hostrows[i], tables, into=result,
+                                 removed=removed)
+                out.append(self.merge_delta(topic, result, overlay))
+        return out
+
+    def subscribers_compact_batch(self, topics: list[str]
+                                  ) -> list[SubscriberSet]:
+        """Batch match over the compact path: ``match_compact``, then the
+        row decode per topic. A stream overflow (total > cap) sends the
+        whole batch to the trie."""
+        cpu = self._trie_batch(topics)
+        if cpu is not None:
+            return cpu
+        try:
+            counts, stream, total, hostrows, tables = \
+                self.match_compact(topics)
+        except DeviceMatchingDeclined:   # swapped to trie-only mid-call
+            return self._resync_batch(topics)
+        overlay = self.overlay_for(tables.version)
+        if overlay == "resync":
+            return self._resync_batch(topics)
+        removed = overlay.removed if overlay else None
+        if total > stream.shape[0]:      # stream overflow: whole batch back
+            self.matches += len(topics)
+            self.fallbacks += len(topics)
+            return [self.index.subscribers(t) for t in topics]
+        out = []
+        off = 0
+        for i, (topic, c) in enumerate(zip(topics, counts.tolist())):
+            self.matches += 1
+            if c == 255:
+                self.fallbacks += 1
+                out.append(self.index.subscribers(topic))
+                continue
+            result = self.decode_rows(topic, stream[off:off + c], tables,
+                                      removed=removed)
+            self.decode_rows(topic, hostrows[i], tables, into=result,
+                             removed=removed)
+            out.append(self.merge_delta(topic, result, overlay))
+            off += c
+        return out
 
     def subscribers_host_batch(self, topics: list[str]
                                ) -> list[SubscriberSet]:
@@ -532,6 +748,23 @@ class SigEngine(OverlayedEngine):
             return self._resync_batch(topics)   # skip the flatten
         fetched = self._fetch_stream(ctx.fetch)
         return self._decode_stream(topics, ctx, *fetched)
+
+    def decode_fixed(self, topics: list[str], cnt, rows, hostrows, tables,
+                     toks8, lens_enc) -> list[SubscriberSet]:
+        """Host decode of fetched results in the row-matrix form
+        (``match_fixed``'s): batch verify + entry union. Results of the
+        live snapshot use its row memo; an older snapshot's a fresh one."""
+        state = self._state
+        fragments = state.fragments if state.tables is tables else {}
+        if self.overlay_for(tables.version) == "resync":
+            return self._resync_batch(topics)       # skip the flatten
+        if len(cnt) > len(topics):      # bucket-padded dispatch
+            cnt, rows = cnt[:len(topics)], rows[:len(topics)]
+        fall = cnt == 15
+        ti, rw = _candidate_pairs(len(topics), cnt, rows, hostrows, fall,
+                                  tables)
+        return self.decode_pairs(topics, fall, ti, rw, tables, fragments,
+                                 toks8, lens_enc)
 
     def stream_pairs(self, batch: int, ctx, cnt, real, flat):
         """(fall, ti, rw) of a fetched stream: the overflow flags and the
@@ -737,11 +970,31 @@ class SigEngine(OverlayedEngine):
                 result.add(entry.client_id, sub, sub.filter)
 
     @staticmethod
+    def decode(topic: str, word_idx: np.ndarray, word_val: np.ndarray,
+               tables: SigTables, into: SubscriberSet | None = None,
+               removed=None) -> SubscriberSet:
+        """Union matched words' rows into a SubscriberSet, re-verifying
+        each row's filter against the topic (collision guard)."""
+        result = SubscriberSet() if into is None else into
+        tlevels = split_levels(topic)
+        dollar = topic.startswith("$")
+        for w, bits in zip(word_idx.tolist(), word_val.tolist()):
+            if w < 0:
+                break
+            base = w << 5
+            while bits:
+                low = bits & -bits
+                SigEngine._add_row(result, base + low.bit_length() - 1,
+                                   tables, tlevels, dollar, removed)
+                bits ^= low
+        return result
+
+    @staticmethod
     def decode_rows(topic: str, rows: np.ndarray, tables: SigTables,
                     into: SubscriberSet | None = None,
                     removed=None) -> SubscriberSet:
         """Union a compact row-id slice into a SubscriberSet (verified);
-        the sharded engine's per-shard decode."""
+        the compact path's and the sharded engine's per-topic decode."""
         result = SubscriberSet() if into is None else into
         tlevels = split_levels(topic)
         dollar = topic.startswith("$")
@@ -764,5 +1017,7 @@ class SigEngine(OverlayedEngine):
         return result
 
 
-__all__ = ["SigEngine", "DeviceMatchingDeclined", "device_tables", "table_arrays", "resolve_device",
-           "pad_to_bucket", "MAX_GROUPS"]
+__all__ = ["SigEngine", "DeviceMatchingDeclined", "device_tables",
+           "table_arrays", "resolve_device", "pad_to_bucket", "word_program",
+           "compact_program", "MAX_GROUPS", "MAX_WORDS",
+           "COMPACT_WORD_SLOTS", "COMPACT_MAX_ROWS", "COMPACT_CAP_PER_TOPIC"]

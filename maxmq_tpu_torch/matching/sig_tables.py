@@ -27,7 +27,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from .nfa import Entry, EntryBuilder
-from .topics import intern_level, split_levels, tokenize_topics
+from .topics import (intern_level, split_levels, tokenize_cached,
+                     tokenize_topics)
 from .trie import SubscriberSet, TopicIndex, merge_subscription
 
 MAX_GROUPS = 4096   # compile guard: pathological corpora fall back (engine)
@@ -164,6 +165,11 @@ class SigTables:
     # use (``_verify_arrays``, ``_decode_cache``)
     verify_arrays: tuple = None
     decode_arrays: tuple = None
+
+    def tokenize(self, topics: list[str], max_levels: int):
+        """The word path's tokens: int32[B, max_levels] with -1 pads,
+        lengths (-1 = deeper than ``max_levels``) and '$'-flags."""
+        return tokenize_cached(self, topics, max_levels)
 
 
 def compile_sig(index, version: int | None = None,
@@ -418,6 +424,15 @@ def exact_sigs(host_exact: dict, toks32: np.ndarray,
         if sel.size:
             sigs[sel] = g.spec.signature(toks32[sel])
     return sigs
+
+
+def host_exact_rows(tables: SigTables, toks32: np.ndarray,
+                    lengths: np.ndarray) -> list[np.ndarray]:
+    """For each topic, the candidate rows among full-exact filters, from
+    the word path's tokens (one searchsorted per exact-depth group;
+    collisions are verified in the decode like every other candidate)."""
+    sigs = exact_sigs(tables.host_exact, toks32, lengths)
+    return host_exact_rows_from_sig(tables, sigs, lengths)
 
 
 def _scatter_hits(out: list, ti_parts: list, row_parts: list) -> list:
@@ -881,6 +896,18 @@ def _pairs_with_host(batch: int, ti_dev, rw_dev, hostrows, fall, tables):
     rw = np.concatenate([rw_dev, rw_h])
     keep = ~fall[ti] & (rw < len(tables.row_levels))
     return ti[keep], rw[keep]
+
+
+def _candidate_pairs(batch: int, cnt, rows, hostrows, fall, tables):
+    """Flatten the row-matrix form's device slots + the host-probe hits
+    into (topic_idx, row_id) pair arrays, dropping fallback topics and
+    out-of-table row ids."""
+    kr = rows.shape[1]
+    real = np.where(fall, 0, cnt).astype(np.int64)
+    dmask = np.arange(kr, dtype=np.int64)[None, :] < real[:, None]
+    ti_dev = np.repeat(np.arange(batch), real)
+    rw_dev = rows[dmask].astype(np.int64)
+    return _pairs_with_host(batch, ti_dev, rw_dev, hostrows, fall, tables)
 
 
 def verify_pairs(tables, toks32, lengths, dollar, ti, rw) -> np.ndarray:

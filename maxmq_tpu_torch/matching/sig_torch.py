@@ -1,10 +1,12 @@
-"""Device prologue of the signature matcher in plain PyTorch: per-topic,
-per-group signatures (``topic_signatures``), validity poisoning
-(``adjusted_signatures``) and the 16-bit fold with lane replication that
-feeds the packed plane compare.
+"""The signature matcher's device code in plain PyTorch: the prologue —
+per-topic, per-group signatures (``topic_signatures``), validity
+poisoning (``adjusted_signatures``) and the 16-bit fold with lane
+replication that feeds the packed plane compare — the sharded engine's
+word matrix and slots tail, and the torch bodies of ``SigEngine``'s word
+and compact paths.
 
-Counterparts: ``topic_signatures`` / ``adjusted_signatures`` in the JAX
-package's ``matching/sig.py`` and the fold in ``sig_pallas.build_fixed_fn``.
+Counterparts: the same names in the JAX package's ``matching/sig.py``,
+and the fold in ``sig_pallas.build_fixed_fn``.
 
 uint32 arithmetic: torch's ``uint32`` lacks ``>>`` and reductions on the
 CPU, so every value here is an ``int64`` tensor holding the uint32 bits
@@ -96,8 +98,8 @@ def fold16_replicated(sig_adj: torch.Tensor, fold_mult: torch.Tensor,
 #
 # Counterparts of ``sig_match_words_gather``, ``fixed_slots_from_words``,
 # ``_ctz32`` and ``_popc32`` in the JAX package's ``matching/sig.py``: the
-# program its sharded signature engine runs (the single-device engines run
-# the fixed kernel instead). Values are uint32 held in int64, as above.
+# program its sharded signature engine runs, and the word matrix of the
+# single-device bodies below. Values are uint32 held in int64, as above.
 
 
 def _popc32(v: torch.Tensor) -> torch.Tensor:
@@ -197,3 +199,108 @@ def fixed_slots_from_words(words: torch.Tensor, too_deep: torch.Tensor,
             out.append(((hi << 16) | row16[i]) & MASK32)
         return torch.stack(out, dim=1) & MASK32
     return torch.stack([cnt] + rows, dim=1)
+
+
+# -- the engine's device bodies: word and compact forms -------------------
+#
+# Counterparts of ``sig_match_body`` and ``sig_match_compact_body`` in the
+# JAX package's ``matching/sig.py``, which computes them in XLA, outside
+# its Pallas kernels; here they are plain torch on the tables' device.
+# ``consts`` is ``sig.device_tables``' output; ``planes`` its ``planes``
+# entry (uint32[32, W] as int64). Tokens are the int64 uint32 values of
+# ``token_tensor``; ``lens_enc`` the int8 length encoding (sign =
+# '$'-flag, |value| = depth, 127 = too deep).
+
+
+def sig_words(consts: dict, planes: torch.Tensor, toks: torch.Tensor,
+              lengths: torch.Tensor, dollar: torch.Tensor) -> torch.Tensor:
+    """[B, W] match words (uint32 as int64). The reference's
+    concat-of-broadcasts expansion (``match_words``) is the same function
+    as the gather form; a table with no device words gives one zero word
+    per topic, as the reference's does."""
+    if planes.shape[1] == 0:
+        return torch.zeros((toks.shape[0], 1), dtype=torch.int64,
+                           device=toks.device)
+    return sig_match_words_gather(consts, planes, consts["grp_of_word"],
+                                  toks, lengths, dollar)
+
+
+def sig_match_body(consts: dict, planes: torch.Tensor, toks: torch.Tensor,
+                   lengths: torch.Tensor, dollar: torch.Tensor,
+                   max_words: int):
+    """Word-form match of one batch tokenized at the engine's window
+    (-1 pads, length -1 = too deep): (word_idx int32[B, K], word_val
+    int32[B, K] carrying uint32 bits, overflow bool[B])."""
+    from .dense import extract_nonzero_words
+
+    words = sig_words(consts, planes, toks, lengths, dollar)
+    return extract_nonzero_words(to_int32_bits(words), lengths, max_words)
+
+
+def _split_lens(lens_enc: torch.Tensor):
+    """(lengths int64, dollar, too_deep) of an int8 length encoding."""
+    le = lens_enc.to(torch.int64)
+    lengths = le.abs()
+    return lengths, le < 0, lengths >= 127
+
+
+def sig_match_compact_body(consts: dict, planes: torch.Tensor,
+                           toks: torch.Tensor, lens_enc: torch.Tensor,
+                           max_word_slots: int, max_rows: int, cap: int):
+    """Transfer-minimal match: (counts uint8[B] with 255 = overflow,
+    stream int32[cap] of row ids, total int32 scalar).
+
+    Per topic the ``max_word_slots`` lowest nonzero words are expanded to
+    candidate rows and the ``max_rows`` lowest kept; a topic too deep,
+    with more nonzero words or with more rows overflows. The kept rows of
+    the non-overflow topics are compacted, in (topic, slot) order, to the
+    front of the stream; ``total`` counts them (> cap: the batch
+    overflowed the stream). The compaction is an exclusive cumsum and a
+    scatter, with no host synchronisation.
+
+    Only ``stream[:min(total, cap)]`` is defined. The reference fills the
+    tail with the rows of invalid slots, which depend on how ``top_k``
+    orders its tied -1 keys (``torch.topk`` on CUDA promises no order
+    among equal keys either); here the tail is 0. No consumer reads past
+    ``total``."""
+    lengths, dollar, too_deep = _split_lens(lens_enc)
+    words = sig_words(consts, planes, toks, lengths, dollar)
+    batch, n_words = words.shape
+    dev = words.device
+
+    nz = words != 0
+    n_nz = nz.sum(dim=1)
+    key = torch.where(nz, (1 << 30) - torch.arange(
+        n_words, dtype=torch.int32, device=dev)[None, :], -1).to(torch.int32)
+    slots = min(max_word_slots, n_words)
+    # valid keys are distinct, so the picked nonzero words come out in
+    # ascending word order; the -1 picks are zeroed
+    topv, topi = torch.topk(key, slots, dim=1)
+    wvals = torch.where(topv > 0, torch.gather(words, 1, topi), 0)
+
+    bit = torch.arange(32, dtype=torch.int64, device=dev)[None, None, :]
+    valid = ((wvals[:, :, None] >> bit) & 1) == 1            # [B, S, 32]
+    rowid = (topi[:, :, None].to(torch.int64) << 5) | bit
+    valid = valid.reshape(batch, -1)
+    rowid = rowid.reshape(batch, -1)
+
+    counts = valid.sum(dim=1)
+    overflow = too_deep | (n_nz > slots) | (counts > max_rows)
+
+    key2 = torch.where(valid, (1 << 30) - torch.arange(
+        rowid.shape[1], dtype=torch.int32, device=dev)[None, :],
+        -1).to(torch.int32)
+    v2, i2 = torch.topk(key2, max_rows, dim=1)               # [B, R]
+    rows_k = torch.gather(rowid, 1, i2)
+    valid_k = ((v2 > 0) & ~overflow[:, None]).reshape(-1)
+
+    pos = torch.cumsum(valid_k.to(torch.int64), 0) - 1
+    pos = torch.where(valid_k & (pos < cap), pos, cap)
+    stream = torch.zeros(cap + 1, dtype=torch.int32, device=dev)
+    stream.scatter_(0, pos, rows_k.reshape(-1).to(torch.int32))
+
+    counts_u8 = torch.where(overflow, 255,
+                            counts.clamp(max=254)).to(torch.uint8)
+    total = torch.where(overflow, 0, counts).sum().to(torch.int32)
+    return counts_u8, stream[:cap], total
+

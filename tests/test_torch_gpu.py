@@ -326,3 +326,35 @@ def test_content_evaluator_on_the_card(cuda_card, preds, msgs):
     assert ev.device_fallbacks == 0
     assert got.shape == (preds, msgs) and (got == want).all()
     assert device_matrix(programs, cols, msgs, cuda_card).is_cuda
+
+
+@pytest.mark.gpu
+def test_sig_surfaces_on_card_match_cpu(cuda_card):
+    """The word and compact programs of SigEngine and the fixed path's
+    row-matrix unpack on the card equal the same calls on the CPU, and
+    their answers the trie's."""
+    idx, topics = corpus(8, False)
+    card = SigEngine(idx, device=cuda_card, auto_refresh=False)
+    cpu = SigEngine(idx, device="cpu", auto_refresh=False)
+    got, want = card.match_raw(topics), cpu.match_raw(topics)
+    for g, w in zip(got[:3], want[:3]):
+        assert g.dtype == w.dtype and (g == w).all()
+    assert want[2].any() and want[1].any()
+    got, want = card.match_compact(topics), cpu.match_compact(topics)
+    n = min(want[2], len(want[1]))
+    assert (got[0] == want[0]).all() and got[2] == want[2]
+    assert (got[1][:n] == want[1][:n]).all()
+    before = sig_kernel.sig_match_fixed.launches
+    got, want = card.match_fixed(topics), cpu.match_fixed(topics)
+    assert sig_kernel.sig_match_fixed.launches == before + 1
+    for g, w in zip(got[:2], want[:2]):
+        assert g.dtype == w.dtype and (g == w).all()
+    ctx = card.dispatch_fixed(topics)
+    answers = {"decode_fixed": card.decode_fixed(
+        topics, *card.match_fixed([], out=ctx), ctx[4], ctx[5])}
+    for fn in ("subscribers_batch", "subscribers_compact_batch"):
+        answers[fn] = getattr(card, fn)(topics)
+    for fn, got in answers.items():
+        for t, g in zip(topics, got):
+            assert chip_smoke.normalize(g) == chip_smoke.normalize(
+                idx.subscribers(t)), (fn, t)

@@ -224,3 +224,71 @@ def test_leaf_modules_stand_alone():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+BROKER_LEAVES = ("mqtt_client", "broker.listeners", "broker.client",
+                 "hooks.storage", "faults")
+
+
+def test_broker_leaves_and_sig_surfaces_stand_alone(tmp_path):
+    """The broker's last leaves and the signature engine's word and
+    compact surfaces run in a fresh interpreter (a MockListener session
+    through an MQTTClient, a SQLite storage hook, a crash point with its
+    kill action swapped, the word and compact batches on the CPU) without
+    JAX or the JAX package being imported."""
+    for m in BROKER_LEAVES:
+        assert (PACKAGE / (m.replace(".", "/") + ".py")).is_file(), m
+    db = str(tmp_path / "s.db")
+    script = textwrap.dedent(f"""
+        import asyncio, importlib, sys
+        for m in {BROKER_LEAVES!r}:
+            importlib.import_module("maxmq_tpu_torch." + m)
+        from maxmq_tpu_torch import faults
+        from maxmq_tpu_torch.broker import MockListener
+        from maxmq_tpu_torch.hooks import SQLiteStore, StorageHook
+        from maxmq_tpu_torch.hooks.storage import SubscriptionRecord
+        from maxmq_tpu_torch.matching.sig import SigEngine
+        from maxmq_tpu_torch.matching.trie import TopicIndex
+        from maxmq_tpu_torch.mqtt_client import MQTTClient
+        from maxmq_tpu_torch.protocol import Subscription
+
+        async def session():
+            lst = MockListener()
+
+            async def establish(lid, reader, writer):
+                await reader.read(100)
+                writer.write(b"\\x20\\x02\\x00\\x00")
+            await lst.serve(establish)
+            r, w = await lst.connect()
+            c = MQTTClient("x")
+            ack = await c.connect(reader=r, writer=w)
+            await c.close()
+            return ack.reason_code
+        assert asyncio.run(session()) == 0
+        hook = StorageHook(SQLiteStore({db!r}))
+        hook.store.put("subscriptions", "c|a",
+                       SubscriptionRecord("c", "a").to_json())
+        assert [s.filter for s in hook.stored_subscriptions()] == ["a"]
+        hook.stop()
+        killed = []
+        faults.REGISTRY.kill_fn = lambda: killed.append(1)
+        faults.arm(faults.CRASH_AT + "#pre_fsync", "kill", 1)
+        faults.crash_point("pre_fsync")
+        assert killed == [1]
+        idx = TopicIndex()
+        idx.subscribe("c1", Subscription(filter="a/#"))
+        engine = SigEngine(idx, device="cpu")
+        engine.route_small = False
+        for fn in (engine.subscribers_batch,
+                   engine.subscribers_compact_batch):
+            assert list(fn(["a/b"])[0].subscriptions) == ["c1"]
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib")
+                     or m == "maxmq_tpu" or m.startswith("maxmq_tpu."))
+        print("FORBIDDEN", bad)
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
