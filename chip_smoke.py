@@ -27,8 +27,8 @@ Phases, each of which raises on failure:
    16-bit words and one without 32-bit words;
 3. the signature service path: the port's MatcherService on a unix
    socket, driven through its ServiceMatcher client with the 100K
-   ``mixed_100k`` subscriptions (one OP_SUB frame each) and five OP_MATCH
-   requests of 4 x 4,096 + 1 x 8,192 topics, twice: with the batcher's
+   ``mixed_100k`` subscriptions (one OP_SUB frame each) and two OP_MATCH
+   requests of 4,096 and 8,192 topics, twice: with the batcher's
    adaptive host bypass (the default), then with the bypass off, where the
    kernel must serve most topics; every answer is held against the CPU
    trie, and the decode that served is printed (the native set decode
@@ -54,7 +54,7 @@ Phases, each of which raises on failure:
 6. the dense service path: the MatcherService with the dense engine
    factory (``DenseEngine`` behind the MicroBatcher, host bypass off; the
    tables fit the kernel, so it serves), the 100,000 ``dense_2k``
-   subscriptions as OP_SUB frames and the five OP_MATCH requests; every
+   subscriptions as OP_SUB frames and the two OP_MATCH requests; every
    answer is held against the CPU trie;
 7. dense headline: ``DenseEngine`` at batch 262,144 on ``dense_2k``,
    pipelined, with the kernel (and on 256 topics), its plain version
@@ -66,7 +66,7 @@ Phases, each of which raises on failure:
    device-served answer against the CPU trie;
 9. NFA service: the MatcherService with ``MicroBatcher(NFAEngine)`` (host
    bypass off), the ``mixed_100k`` subscriptions as OP_SUB frames and the
-   five OP_MATCH requests, every answer against the CPU trie;
+   two OP_MATCH requests, every answer against the CPU trie;
 10. NFA headline: ``NFAEngine`` at ``iot_1m_share``, one 262,144-topic
    batch: host tokenize, the device program (CUDA events; launches and
    busy time by ``torch.profiler``), the overflow share, the peak memory,
@@ -81,30 +81,46 @@ Phases, each of which raises on failure:
    decode a shard, chained per topic) on the same batches, its
    ``ChainedIntents`` held against the set path and the trie, and both
    decodes timed on the same device output;
-12. the publish pipeline below the broker engine (run right after phase
-   4, on its engines): PUBLISH frames (60 % v5, 40 % v3.1.1, QoS 0/1/2
-   at 50/35/15 %, inbound topic aliases, 1 % retained; from seed 42)
-   framed and decoded by the port's codec, aliases resolved, matched by
-   ``SupervisedMatcher(MicroBatcher(SigEngine))`` at the reference's
-   production settings (window 200 us, batch 256, depth 3; deadline 250
-   ms, breaker 5 in 10 s, backoff 1 s to 30 s; intents on, buckets
-   warmed, decode bases prewarmed), fanned out with ``select_shared``
-   and each delivery built through the wire templates
-   (``Deliveries``), on ``mixed_100k`` (its own index: the clients' v5
-   identifiers and retain-as-published; bursts of 1,024 and a 512-publish
-   trickle) and ``iot_1m_share`` (the earlier phases' index and engine;
-   4,096 publishes). With the bypass off, then on: the match latency,
-   batch sizes, loop lag, full collections, decode routes, the bursts'
-   deliveries/s (the trickle's deliveries apart), the frame heads by
-   encoder and the bypass share are printed; every
-   answer is held against the CPU trie, every delivery frame (the first
-   256 publishes' at ``iot_1m_share``) against the same pipeline over
-   the trie, and the first 2,000 patched frames of a run against the
-   codec's ``encode()``; an answer from a supervisor hedge or a breaker
-   trip fails the run, and with the bypass off ``sig_match_fixed`` must
-   launch once per batch. On ``mixed_100k`` the faulted rungs follow
-   (``pipeline_faults``: error hedges tripping the breaker, a probe
-   closing it, a hang past the deadline, the Python frame heads);
+12. the broker engine (run last, after phase 13): on each corpus two of
+   the port's ``Broker``s in this process, each with a ``TCPListener``
+   on a free local port, ``AllowHook``, capabilities from
+   ``capabilities_from_config`` over the default ``Config`` and $SYS
+   off: the card broker, whose matcher ``build_matcher`` stacks as
+   production does (``SupervisedMatcher(MicroBatcher(SigEngine))`` on
+   the card: window 200 us, batch 256, depth 3; deadline 250 ms,
+   breaker 5 in 10 s, backoff 1 s to 30 s; intents on, buckets warmed,
+   decode bases prewarmed), and the trie broker (no matcher: the
+   broker's own CPU trie). Both hold the corpus (``mixed_100k`` with
+   the clients' v5 identifiers and retain-as-published;
+   ``iot_1m_share``) before they serve, so the boot compile and prewarm
+   run on it inside ``serve()``, before the listener accepts; the card
+   broker must boot compiled and prewarmed with no warning. The
+   compared subscribers are raw TCP clients (``subscriber_plan``:
+   v3.1.1 and v5, outbound alias maxima, identifiers,
+   retain-as-published, ``$share`` members, persistent sessions that
+   leave before the traffic and resume after it, and a '#' probe)
+   connected to both brokers with the same ids and subscriptions; they
+   acknowledge QoS 1/2 as a client does. The card engine's background
+   refresh over their subscriptions is awaited, then PUBLISH frames
+   (60 % v5, 40 % v3.1.1, QoS 0/1/2 at 50/35/15 %, inbound topic
+   aliases, 1 % retained; from a seed) go out as raw bytes, each
+   publisher's frames as one burst through its own connection, ended
+   by a fence publish that every subscriber awaits before the next
+   burst: first through the trie broker, then through the card broker,
+   measured. With the bypass off, then on (fresh topics each): the
+   match latency, loop lag, full collections, batch sizes, bypass
+   share, deliveries/s at the subscribers over the bursts' wall, hedges
+   by reason, breaker trips, ``matcher_degrades``, decode routes, frame
+   heads by encoder and K1 launches are printed. Every subscriber's
+   PUBLISH frames from the card broker must equal its frames from the
+   trie broker, in order, packet ids included; an answer from a
+   supervisor hedge, a breaker trip or a pipeline degrade fails the
+   run, and with the bypass off ``sig_match_fixed`` must launch once
+   per batch. On ``mixed_100k`` the faulted rungs follow, one publish
+   at a time on the card broker (error hedges tripping the breaker, the
+   open breaker, a probe closing it, a hang past the deadline, the
+   Python frame heads), their streams again equal to the trie broker's;
+   then the persistent sessions resume on both brokers, equal again;
 13. what the broker engine imports, on the card: (a) the content
    evaluator (``filtering.columnar``; the reference benchmark's predicates
    and payloads, ``mqttplus_inputs``) at 64 x 4,096 and 10,000 x 256, the
@@ -123,7 +139,7 @@ Phases, each of which raises on failure:
    client, each request split into service time and socket time by the
    service's stamps;
 14. the rest of the signature engine's device surface (run right after
-   phase 12, on phase 4's engines, ``iot_1m_share`` and ``mixed_100k``):
+   phase 4, on its engines, ``iot_1m_share`` and ``mixed_100k``):
    on the check batch, the word path (``match_raw`` bit-equal on
    (word_idx, word_val, overflow) to the same snapshot's word body on
    the CPU, ``subscribers_batch`` equal to the CPU trie), the compact
@@ -151,9 +167,9 @@ or Python route fails the phase.
 
 Phases 8-11 run no hand-written kernel (the reference computes them in
 XLA, outside Pallas); each reads both kernels' launch counts, set to 0
-before it. Phase 12 sets them to 0 before each of its runs and reads
-them after; its launches ride the kernels line under
-``publish_pipeline_launches``, phase 13's tracing runs' under
+before it. Phase 12 sets them to 0 before each run of its card broker
+and reads them after; its launches ride the kernels line under
+``broker_launches``, phase 13's tracing runs' under
 ``tracing_launches`` and phase 14's (counts set to 0 before it) under
 ``surfaces_launches``. The dense and NFA decodes are Python, as the
 reference's.
@@ -176,8 +192,8 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
-from array import array
 
 import numpy as np
 
@@ -202,10 +218,12 @@ WATCHDOG_S = 1_100
 # NFA headline's decode sample, the cluster phase's batch and batch
 # count (bench config 5: batches of 8,192 on a 2 x 4 mesh), the signature
 # headline's batch decoded three ways and its Python decode sample, the
-# frames of the scanner check, and the
-# publish pipeline's burst and, per corpus, its burst and trickle
-# publishes and how many burst publishes have every delivery frame
-# compared with the CPU-trie pipeline's, the content evaluator's shapes
+# frames of the scanner check, the tracing phase's burst (and a
+# supervisor override for the CPU rehearsal), the broker phase's compared
+# subscribers, its publishes a run per corpus and its faulted publishes,
+# the fleet rung's publishes per corpus (none here: at ``iot_1m_share`` its
+# two runs took 12.3 min on an H100 host, so ``scripts/torch_broker_fleet.py``
+# runs it alone), the content evaluator's shapes
 # (predicates x payloads: the reference benchmark's 64 x 4,096, and its
 # configured bounds, ``filter_max_subscriptions`` x ``filter_batch_max``)
 # and timed flushes, and the tracing phase's bursts (of the pipeline's
@@ -216,7 +234,7 @@ WATCHDOG_S = 1_100
 SIZES = {"subs": {"mixed_100k": 100_000, "hash_plus_100k": 100_000,
                   "iot_1m_share": 1_000_000, "cluster_100k": 100_000},
          "check_batch": 4_096 + 100,
-         "service_rounds": (4_096,) * 4 + (8_192,),
+         "service_rounds": (4_096, 8_192),
          "service_warm": 1_024,
          "headline_batch": 262_144,
          "headline_batches": 2,
@@ -230,11 +248,10 @@ SIZES = {"subs": {"mixed_100k": 100_000, "hash_plus_100k": 100_000,
          "decode_batch": 65_536,
          "decode_sample": 16_384,
          "frames": 4_000,
-         "pipeline": {"burst": 1_024,
-                      "mixed_100k": {"burst": 16_384, "trickle": 512,
-                                     "compare": 16_384},
-                      "iot_1m_share": {"burst": 4_096, "trickle": 0,
-                                       "compare": 256}},
+         "pipeline": {"burst": 1_024},
+         "broker": {"clients": 64, "mixed_100k": 16_384,
+                    "iot_1m_share": 4_096, "faults": 279,
+                    "fleet": {}},
          "content": {"shapes": ((64, 4_096), (10_000, 256)), "reps": 3},
          "tracing": {"bursts": 4, "service_topics": 4_096}}
 # engine counters of topics NOT served by the device path, per engine
@@ -509,7 +526,7 @@ def mqtt_frames(n: int, seed: int) -> bytes:
     return bytes(out)
 
 
-# -- phase 12: the publish pipeline below the broker engine -------------
+# -- phase 12: the broker engine -----------------------------------------
 
 # The reference's production matcher settings (the JAX package's
 # utils/config.py:201-219): the batcher's window, batch and pipeline
@@ -526,23 +543,24 @@ PIPELINE_SUPERVISOR = {"deadline_ms": 250.0, "breaker_threshold": 5,
 # choices with no fleet measurement behind them.
 PUB_MIX = {"v5": 0.6, "qos": (0.5, 0.35, 0.15), "alias": 0.1,
            "retain": 0.01, "publishers": 32}
-# the subscribing clients ``cl-<i>``: the v5 share, the share of v5 clients
-# with an outbound topic-alias maximum (and its value), the share of v5
-# subscriptions with an identifier or retain-as-published (phase 12's own
-# ``mixed_100k`` index only), and the clients offline. Coverage choices, so
-# that every per-subscriber wire path carries traffic, not a fleet's mix:
-# the deliveries a second that phase 12 prints read this mix only.
+# the card broker's tracer samples every TRACE_STRIDE-th publish in phase
+# 12 (a production knob, ``trace_sample_n``): the sampled spans split the
+# match from the in-order wait and the fan-out at a small cost
+TRACE_STRIDE = 32
+# the subscribing clients (the compared TCP subscribers, and the preloaded
+# ``mixed_100k`` corpus's ``cl-<i>``): the v5 share, the share of v5
+# clients with an outbound topic-alias maximum (and its value), the share
+# of v5 subscriptions with an identifier or retain-as-published, and the
+# clients offline. Coverage choices, so that every per-subscriber wire
+# path carries traffic, not a fleet's mix: the deliveries a second that
+# phase 12 prints read this mix only.
 CLIENT_MIX = {"v5": 0.6, "alias": 0.3, "alias_max": 16, "identifier": 0.5,
               "rap": 0.2, "offline": 0.05}
-# deliveries of a run also built by the codec's slow path (the outbound
-# Packet's ``encode()``) and held against the template frame
-SLOW_PATH_CHECKS = 2_000
 
 
 def port_kit():
-    """The protocol and trie classes the publish pipeline runs on, from
-    the port (``tests/test_torch_supervisor.py`` builds the same kit from
-    the JAX package and runs the same pipeline)."""
+    """The protocol and trie classes of the port that phases 12 and 13
+    build and read frames with."""
     from types import SimpleNamespace
 
     from maxmq_tpu_torch.matching import trie
@@ -677,181 +695,666 @@ class PubDecoder:
         return out
 
 
-class Deliveries:
-    """The broker's fan-out below its engine, for one pipeline: the
-    intents fast path or the set path with ``$share`` picks through
-    ``select_shared`` (the JAX package's broker/server.py:1381-1449), and
-    each delivery's frame as the broker's writers build it (:1465-1655):
-    the shared QoS-0 wire, or the publish template patched with the
-    effective QoS (the minimum of the publish's and the subscription's),
-    retain only with retain-as-published, the v5 identifiers and outbound
-    alias through ``sid_alias_seg``, and the packet id from a per-client
-    counter. Offline clients get no frame (QoS > 0 takes a packet id, as
-    the broker's inflight queue does). Results are read, never mutated
-    (F7). While ``keep`` is set each frame is kept with its client
-    (``frames`` groups them per client, in order); the first
-    ``SLOW_PATH_CHECKS`` patched frames are held against the outbound
-    Packet's ``encode()``. The bookkeeping adds few objects the garbage
-    collector tracks (immutable tuples, one flat list, an array of packet
-    ids), so a full collection during a run walks the pipeline's own
-    objects, not the measurement's."""
+# -- phase 12 over TCP: raw MQTT connections to the brokers -------------
 
-    MAX_QOS = 2
+# every compared subscriber also subscribes to this topic; a publisher
+# ends each burst with a QoS-0 publish to it whose payload ends with
+# ``FENCE_MARK`` and the burst's number: per-client order then says that
+# a client holding the fence holds every delivery of the burst
+FENCE_TOPIC = "smoke/fence"
+FENCE_MARK = b"~fence~"
 
-    def __init__(self, kit, clients: ClientTable) -> None:
-        self.kit = kit
-        self.clients = clients
-        self.selector = kit.TopicIndex()    # its own round-robin cursors
-        self.conn: dict = {}      # cid -> (version, aliases, online, index)
-        self.pids = array("l", [0]) * len(clients.v5)
-        self.sent: list = []      # (cid, frame) while ``keep``
-        self.keep = True
-        self.delivered = self.nbytes = self.queued = self.slow_checked = 0
+
+def split_frames(buf: bytearray) -> list[bytes]:
+    """The complete MQTT frames at the head of ``buf`` (fixed header,
+    remaining length, body), each as its bytes; they leave ``buf``."""
+    out, pos, n = [], 0, len(buf)
+    while pos < n:
+        rem, shift, i = 0, 0, pos + 1
+        while i < n:
+            b = buf[i]
+            rem |= (b & 0x7F) << shift
+            shift += 7
+            i += 1
+            if not b & 0x80:
+                break
+        else:
+            break                       # the length is not all here yet
+        if i + rem > n:
+            break
+        out.append(bytes(buf[pos:i + rem]))
+        pos = i + rem
+    del buf[:pos]
+    return out
+
+
+def publish_pid(frame: bytes) -> int:
+    """The packet id of a QoS 1/2 PUBLISH frame (after its topic)."""
+    i = 1
+    while frame[i] & 0x80:
+        i += 1
+    j = i + 3 + (frame[i + 1] << 8 | frame[i + 2])
+    return frame[j] << 8 | frame[j + 1]
+
+
+class WireClient:
+    """One raw MQTT connection to one broker, a subscriber or a publisher
+    (phase 12's, and the port's broker tests'): CONNECT, SUBSCRIBE,
+    UNSUBSCRIBE and PUBLISH frames built by the port's codec (``kit``),
+    or PUBLISH frames taken as bytes (``send``). Every frame received is
+    kept in order in one of three lanes: ``frames`` (PUBLISH), ``rel``
+    (the broker's PUBREL of a QoS 2 delivery: it comes at the speed of
+    the client's own PUBREC, so it interleaves with the other lanes by
+    timing) and ``ctl`` (the replies to the client's own packets).
+    Deliveries are acknowledged as a client does (PUBACK, or PUBREC and
+    then PUBCOMP on the broker's PUBREL) unless ``mute`` is set;
+    ``awaiting_rel`` holds the QoS 2 deliveries PUBREC'd and not yet
+    released. ``publish`` sends one publish and settles it; the QoS 1/2
+    publishes of ``send`` the client settles as their acknowledgements
+    come (PUBREL on PUBREC; ``outstanding`` holds the unsettled packet
+    ids). A delivery whose payload ends with the fence mark advances
+    ``fence`` to its number; ``closed`` is set when the connection ends."""
+
+    def __init__(self, kit, cid: str, version: int, alias_max: int = 0,
+                 clean: bool = True, will=None, expiry: int | None = None,
+                 timeout: float = 120.0) -> None:
+        self.kit, self.cid, self.version = kit, cid, version
+        self.alias_max, self.clean = alias_max, clean
+        self.will, self.expiry, self.timeout = will, expiry, timeout
+        self.frames: list[bytes] = []
+        self.rel: list[bytes] = []
+        self.ctl: list[bytes] = []
+        self.awaiting_rel: set = set()
+        self.outstanding: set = set()
+        self.mute = False
+        self.fence = -1
+        self.connack = b""
+        self.closed = asyncio.Event()
+        self._pid = 0
+        self._aliases: dict = {}
+        self._waiters: dict = {}        # (packet type, packet id) -> future
+        self._changed = asyncio.Event()
+        self.reader = self.writer = self._task = None
+
+    def packet(self, ptype, **kw):
+        kit = self.kit
+        return kit.Packet(fixed=kit.FixedHeader(type=ptype),
+                          protocol_version=self.version, **kw)
+
+    def _next_pid(self) -> int:
+        self._pid = self._pid % 65535 + 1
+        return self._pid
+
+    async def _request(self, key, frame: bytes) -> bytes:
+        fut = asyncio.get_running_loop().create_future()
+        self._waiters[key] = fut
+        self.writer.write(frame)
+        return await asyncio.wait_for(fut, self.timeout)
+
+    async def open(self, port: int) -> bytes:
+        """Connect and CONNECT (a v5 session expiry and outbound alias
+        maximum where given); returns the CONNACK frame."""
+        self.reader, self.writer = await asyncio.open_connection(
+            "127.0.0.1", port)
+        self.closed.clear()
+        self._task = asyncio.get_running_loop().create_task(self._read())
+        pk = self.packet(self.kit.PT.CONNECT, clean_start=self.clean,
+                         keepalive=0, client_id=self.cid, will=self.will)
+        if self.version >= 5:
+            if self.expiry is not None:
+                pk.properties.session_expiry = self.expiry
+            if self.alias_max:
+                pk.properties.topic_alias_max = self.alias_max
+        self.connack = await self._request((2, 0), pk.encode())
+        return self.connack
+
+    async def subscribe(self, sub) -> bytes:
+        """One SUBSCRIBE of ``sub`` (its v5 identifier as the packet's
+        subscription identifier); returns the SUBACK frame."""
+        pid = self._next_pid()
+        pk = self.packet(self.kit.PT.SUBSCRIBE, packet_id=pid,
+                         filters=[sub])
+        if self.version >= 5 and sub.identifier:
+            pk.properties.subscription_ids = [sub.identifier]
+        return await self._request((9, pid), pk.encode())
+
+    async def unsubscribe(self, filter_: str) -> bytes:
+        pid = self._next_pid()
+        pk = self.packet(self.kit.PT.UNSUBSCRIBE, packet_id=pid,
+                         filters=[self.kit.Subscription(filter=filter_)])
+        return await self._request((11, pid), pk.encode())
+
+    async def ping(self) -> None:
+        await self._request((13, 0), b"\xc0\x00")
+
+    async def publish(self, topic: str, payload: bytes, qos: int = 0,
+                      retain: bool = False, alias: bool = False,
+                      dup_resend: bool = False) -> None:
+        """One publish (the v5 ``alias`` form: topic and alias the first
+        time, the alias alone after), settled; a QoS 0 one is followed by
+        a ping, so the broker has read it on return. ``dup_resend`` sends
+        it again with DUP set before settling (QoS 2: between PUBREC and
+        PUBREL)."""
+        pk = self.packet(self.kit.PT.PUBLISH, topic=topic, payload=payload)
+        pk.fixed.qos, pk.fixed.retain = qos, retain
+        if alias and self.version >= 5:
+            a = self._aliases.get(topic)
+            if a is None:
+                a = self._aliases[topic] = len(self._aliases) + 1
+            else:
+                pk.topic = ""
+            pk.properties.topic_alias = a
+        if qos == 0:
+            self.writer.write(pk.encode())
+            await self.ping()
+            return
+        pk.packet_id = pid = self._next_pid()
+        ack = 4 if qos == 1 else 5
+        await self._request((ack, pid), pk.encode())
+        if dup_resend:
+            pk.fixed.dup = True
+            await self._request((ack, pid), pk.encode())
+        if qos == 2:
+            await self._request((7, pid), bytes((0x62, 2, pid >> 8,
+                                                 pid & 0xFF)))
+
+    def send(self, frames: list[bytes]) -> None:
+        for f in frames:
+            if f[0] & 0x06:
+                self.outstanding.add(publish_pid(f))
+        self.writer.write(b"".join(frames))
+
+    def fence_frame(self, tag: int) -> bytes:
+        return self.packet(self.kit.PT.PUBLISH, topic=FENCE_TOPIC,
+                           payload=FENCE_MARK + str(tag).encode()).encode()
+
+    async def until(self, pred) -> None:
+        deadline = time.monotonic() + self.timeout
+        while not pred():
+            self._changed.clear()
+            await asyncio.wait_for(self._changed.wait(),
+                                   deadline - time.monotonic())
+
+    async def _read(self) -> None:
+        buf = bytearray()
+        try:
+            while True:
+                chunk = await self.reader.read(1 << 16)
+                if not chunk:
+                    break
+                buf += chunk
+                for f in split_frames(buf):
+                    self._frame(f)
+                self._changed.set()
+        finally:
+            self.closed.set()
+            self._changed.set()
+            for fut in self._waiters.values():
+                if not fut.done():
+                    fut.set_exception(ConnectionError(f"{self.cid}: closed"))
+
+    def _frame(self, f: bytes) -> None:
+        t = f[0] >> 4
+        if t == 3:                                  # PUBLISH
+            self.frames.append(f)
+            qos = (f[0] >> 1) & 3
+            if qos and not self.mute:
+                pid = publish_pid(f)
+                self.writer.write(bytes((0x40 if qos == 1 else 0x50, 2,
+                                         pid >> 8, pid & 0xFF)))
+                if qos == 2:
+                    self.awaiting_rel.add(pid)
+            k = f.rfind(FENCE_MARK, -24)
+            if k > 0:
+                self.fence = int(f[k + len(FENCE_MARK):])
+            return
+        if t == 6:                                  # PUBREL -> PUBCOMP
+            self.rel.append(f)
+            self.awaiting_rel.discard(f[2] << 8 | f[3])
+            if not self.mute:
+                self.writer.write(bytes((0x70, 2, f[2], f[3])))
+            return
+        self.ctl.append(f)
+        pid = f[2] << 8 | f[3] if t in (4, 5, 7, 9, 11) else 0
+        if pid in self.outstanding and t in (4, 5, 7):   # of ``send``
+            if t == 5:                              # PUBREC -> PUBREL
+                self.writer.write(bytes((0x62, 2, f[2], f[3])))
+            else:                                   # PUBACK, PUBCOMP
+                self.outstanding.discard(pid)
+            return
+        fut = self._waiters.pop((t, pid), None)
+        if fut is not None and not fut.done():
+            fut.set_result(f)
+
+    async def close(self, disconnect: bool = False) -> None:
+        """End the connection (with a DISCONNECT first where
+        ``disconnect``) and wait until its reader has seen the end."""
+        if self.writer is None:
+            return
+        if disconnect:
+            self.writer.write(b"\xe0\x00")
+            with contextlib.suppress(ConnectionError, OSError):
+                await self.writer.drain()
+        self.writer.close()
+        with contextlib.suppress(Exception):
+            await self.writer.wait_closed()
+        try:
+            await asyncio.wait_for(asyncio.shield(self._task), self.timeout)
+        except (asyncio.TimeoutError, ConnectionError, OSError):
+            self._task.cancel()
+            with contextlib.suppress(BaseException):
+                await self._task
+        self.writer = None
+
+
+def broker_kit():
+    """The port's broker engine and boot helpers, as phase 12 uses them
+    (``tests/test_torch_supervisor.py`` builds the same kit from the JAX
+    package and runs the same phase over its broker)."""
+    from types import SimpleNamespace
+
+    from maxmq_tpu_torch import bootstrap
+    from maxmq_tpu_torch.broker import (Broker, BrokerOptions, Client,
+                                        TCPListener)
+    from maxmq_tpu_torch.hooks import AllowHook
+    from maxmq_tpu_torch.utils.config import Config
+
+    return SimpleNamespace(
+        Broker=Broker, BrokerOptions=BrokerOptions, TCPListener=TCPListener,
+        Client=Client, AllowHook=AllowHook, Config=Config,
+        capabilities_from_config=bootstrap.capabilities_from_config,
+        build_matcher=bootstrap.build_matcher)
+
+
+def broker_config(bk, matcher: str):
+    """The package's default config with ``matcher`` and $SYS off: the
+    production matcher settings (window 200 us, batch 256, depth 3;
+    deadline 250 ms, breaker 5 in 10 s, backoff 1 s to 30 s; intents
+    on)."""
+    conf = bk.Config()
+    conf.matcher = matcher
+    conf.mqtt_sys_topic_interval = 0
+    return conf
+
+
+class BrokerSide:
+    """One broker of phase 12 in this process with its connections:
+    ``subs`` (the compared subscribers, by client id), ``pubs`` (one
+    connection per publisher of the traffic), ``fleet`` (corpus clients
+    served in process, by client id: (session, SinkWriter)) and the
+    fences sent."""
+
+    def __init__(self, broker, port: int) -> None:
+        self.broker, self.port = broker, port
+        self.subs: dict = {}
+        self.pubs: dict = {}
+        self.fleet: dict = {}
+        self.readers: list = []
+        self.ack_s = 0.0
+        self.tag = 0
+
+    def fleet_marks(self) -> dict:
+        return {cid: len(w.data) for cid, (_c, w) in self.fleet.items()}
+
+    def fleet_streams(self, start: dict) -> dict:
+        """Each fleet session's bytes written since ``start``'s marks."""
+        return {cid: bytes(w.data[start.get(cid, 0):])
+                for cid, (_c, w) in self.fleet.items()}
 
     @property
-    def frames(self) -> dict:
-        out: dict = {}
-        for cid, frame in self.sent:
-            out.setdefault(cid, []).append(frame)
-        return out
+    def online(self) -> list:
+        return [c for c in self.subs.values() if c.writer is not None]
 
-    def _conn(self, cid: str):
-        c = self.conn.get(cid)
-        if c is None:
-            ct, i = self.clients, int(cid[3:])
-            am = int(ct.alias_max[i])
-            c = self.conn[cid] = (5 if ct.v5[i] else 4,
-                                  self.kit.TopicAliases(am) if am else None,
-                                  not ct.offline[i], i)
-        return c
+    async def publisher(self, kit, owner: str):
+        pub = self.pubs.get(owner)
+        if pub is None:
+            pub = self.pubs[owner] = WireClient(
+                kit, owner, 5 if owner.startswith("pub5") else 4)
+            await pub.open(self.port)
+        return pub
 
-    def alive(self, cid: str) -> bool:
-        return self._conn(cid)[2]
+    async def fence(self, pub) -> None:
+        """End a burst: the fence through ``pub``, then every online
+        subscriber holding it and ``pub``'s publishes settled."""
+        self.tag += 1
+        tag = self.tag
+        pub.send([pub.fence_frame(tag)])
+        await asyncio.gather(*(c.until(lambda c=c: c.fence >= tag)
+                               for c in self.online))
+        await pub.until(lambda: not pub.outstanding)
+        # the fence's fan-out came after every delivery of the burst:
+        # the fleet's writers hold them all once their queues are empty
+        while any(c.outbound.qsize() for c, _w in self.fleet.values()):
+            await asyncio.sleep(0.001)
+        if self.fleet:
+            await self.settle_fleet()
 
-    def _next_pid(self, i: int) -> int:
-        pid = self.pids[i] % 65535 + 1
-        self.pids[i] = pid
-        return pid
+    async def settle_fleet(self, timeout: float = 120.0) -> None:
+        """The fleet's clients acknowledge what they hold (``SinkWriter.
+        acks`` fed to each session's read loop, the broker's own receive
+        path), PUBREL rounds included, until no fleet session has a
+        message in flight; the seconds add to ``ack_s``."""
+        t0 = time.perf_counter()
+        while True:
+            fed = False
+            for c, w in self.fleet.values():
+                acks = w.acks()
+                if acks:
+                    c.reader.feed_data(acks)
+                    fed = True
+            if not fed and not any(len(c.inflight)
+                                   for c, _w in self.fleet.values()):
+                break
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError("the fleet's deliveries stayed in "
+                                     f"flight past {timeout} s")
+            await asyncio.sleep(0.001)
+        self.ack_s += time.perf_counter() - t0
 
-    def fan_out(self, result, packet) -> None:
-        if getattr(result, "to_set", None) is None:
-            shared = result.shared
-            if shared:
-                self._shared(shared, result.subscriptions.__contains__,
-                             packet)
-            for cid, sub in result.subscriptions.items():
-                self.publish(cid, sub, packet)
-            return
-        if len(result) != result.n:         # any shared candidates?
-            self._shared(result.shared, result.has_client, packet)
-        for cid, sub in result:
-            self.publish(cid, sub, packet)
+    async def bursts(self, kit, traffic, between=None) -> float:
+        """Each publisher's frames of ``traffic`` as one burst through its
+        connection, ended by a fence, publishers in order of first
+        appearance; ``between()`` runs after each fence. Returns the
+        seconds ``between`` took."""
+        frames, owners = traffic
+        by_owner: dict = {}
+        for f, o in zip(frames, owners):
+            by_owner.setdefault(o, []).append(f)
+        spent = 0.0
+        for owner, fs in by_owner.items():
+            pub = await self.publisher(kit, owner)
+            pub.send(fs)
+            await self.fence(pub)
+            if between is not None:
+                t0 = time.perf_counter()
+                between()
+                spent += time.perf_counter() - t0
+        return spent
 
-    def _shared(self, shared, has_plain, packet) -> None:
-        selected = {}
-        for (group, filt), candidates in shared.items():
-            pick = self.selector.select_shared(group, filt, candidates,
-                                               alive=self.alive)
-            if pick is not None:
-                cid, sub = pick
-                prev = selected.get(cid)
-                if prev is None or sub.qos > prev.qos:
-                    selected[cid] = sub
-        for cid, sub in selected.items():
-            if not has_plain(cid):
-                self.publish(cid, sub, packet)
+    def streams(self, start: dict | None = None) -> dict:
+        """Each subscriber's PUBLISH frames (from ``start``'s counts)."""
+        start = start or {}
+        return {cid: c.frames[start.get(cid, 0):]
+                for cid, c in self.subs.items()}
 
-    def publish(self, cid: str, sub, packet) -> None:
-        if sub.no_local and packet.origin == cid:
-            return
-        version, aliases, online, i = self._conn(cid)
-        qos = min(packet.fixed.qos, sub.qos, self.MAX_QOS)
-        if not online:
-            if qos:
-                self._next_pid(i)
-                self.queued += 1
-            return
-        retain = bool(sub.retain_as_published and packet.fixed.retain)
-        v5 = version >= 5
-        if qos == 0 and not retain and not (
-                v5 and (sub.identifiers or sub.identifier or aliases)):
-            frame = self._wire0(packet, version)
-        else:
-            wire = self.kit.wire
-            ids, alias, alias_topic, pid = [], None, False, 0
-            if v5:
-                ids = sorted(set(sub.identifiers.values())
-                             or ({sub.identifier} if sub.identifier
-                                 else set()))
-                if aliases is not None:
-                    a, first = aliases.assign_outbound(packet.topic)
-                    if a:
-                        alias, alias_topic = a, not first
-            if qos:
-                pid = self._next_pid(i)
-            bufs, size = wire.publish_template(packet, version).patch(
-                qos, retain, pid, wire.sid_alias_seg(ids, alias) if v5
-                else b"", alias_topic)
-            frame = b"".join(bufs)
-            if len(frame) != size:
-                raise AssertionError("template size disagrees with frame")
-            if self.slow_checked < SLOW_PATH_CHECKS:
-                self._slow_check(frame, packet, version, qos, retain, pid,
-                                 ids, alias, alias_topic)
-        self.delivered += 1
-        self.nbytes += len(frame)
-        if self.keep:
-            self.sent.append((cid, frame))
+    async def close(self) -> None:
+        """The connections, the broker, then its matcher and engine (as
+        the reference's start path stops them, bootstrap.py:384-389)."""
+        for c in (*self.subs.values(), *self.pubs.values()):
+            await c.close()
+        for c, _w in self.fleet.values():
+            c.reader.feed_eof()
+        await asyncio.gather(*self.readers)
+        await self.broker.close()
+        matcher = self.broker.matcher
+        if matcher is not None:
+            await matcher.close()
+            matcher.engine.close()
 
-    def _wire0(self, packet, version: int) -> bytes:
-        """The QoS-0 frame shared by every subscriber of one version
-        that needs no per-subscriber field, built once per publish."""
-        cache = packet.__dict__.setdefault("_wire0", {})
-        wire = cache.get(version)
-        if wire is None:
-            if version < 5 or packet.properties.is_empty():
-                tb = packet.topic.encode()
-                body = bytearray(len(tb).to_bytes(2, "big"))
-                body += tb
-                if version >= 5:
-                    body.append(0)
-                body += packet.payload
-                head = bytearray([0x30])
-                self.kit.write_varint(head, len(body))
-                wire = bytes(head + body)
+
+async def start_broker(bk, conf, preload, matcher: bool, device=None,
+                       logger=None, before_serve=None) -> BrokerSide:
+    """A broker of the package ``bk`` as a user boots one in process: the
+    capabilities from ``conf``, ``AllowHook``, the (client id,
+    Subscription) pairs of ``preload`` in its index before ``serve()``
+    (as benchmarks/e2e_broker.py:268-276 does: the boot compile runs on
+    them), ``build_matcher`` when ``matcher`` (``device`` passed where
+    given), a TCP listener on a free local port; ``logger`` the broker's,
+    ``before_serve(broker)`` called right before ``serve()``."""
+    b = bk.Broker(bk.BrokerOptions(
+        capabilities=bk.capabilities_from_config(conf), logger=logger))
+    b.add_hook(bk.AllowHook())
+    with collector_paused():
+        for cid, sub in preload:
+            b.topics.subscribe(cid, sub)
+        if matcher:
+            if device is None:
+                bk.build_matcher(conf, b)
             else:
-                wire = self._outbound(packet, version, 0, False, 0, [],
-                                      None, False).encode()
-            if self.slow_checked < SLOW_PATH_CHECKS:
-                self._slow_check(wire, packet, version, 0, False, 0, [],
-                                 None, False)
-            cache[version] = wire
-        return wire
+                bk.build_matcher(conf, b, device=device)
+        lst = b.add_listener(bk.TCPListener("smoke", "127.0.0.1:0"))
+        if before_serve is not None:
+            before_serve(b)
+        await b.serve()
+    return BrokerSide(b, lst._server.sockets[0].getsockname()[1])
 
-    @staticmethod
-    def _outbound(packet, version, qos, retain, pid, ids, alias,
-                  alias_topic):
-        """The delivery as the broker's slow path shapes it
-        (``_build_outbound``), a real Packet."""
-        out = packet.copy()
-        out.protocol_version = version
-        out.fixed.qos, out.fixed.dup, out.fixed.retain = qos, False, retain
-        out.packet_id = pid
-        if version < 5:
-            out.properties = type(out.properties)()
-        else:
-            out.properties.subscription_ids = list(ids)
-            out.properties.topic_alias = alias
-            if alias_topic:
-                out.topic = ""
-        return out
 
-    def _slow_check(self, frame, *args) -> None:
-        self.slow_checked += 1
-        want = self._outbound(*args).encode()
-        if frame != want:
-            raise AssertionError(f"delivery frame {frame.hex()} differs "
-                                 f"from the codec's encode {want.hex()}")
+class SinkWriter:
+    """The transport of a session served in process: every byte the
+    broker writes to it, kept in order (``data``); ``acks`` answers what
+    came since its last call as the session's client would."""
+
+    __slots__ = ("data", "mark")
+
+    def __init__(self) -> None:
+        self.data = bytearray()
+        self.mark = 0
+
+    def acks(self) -> bytes:
+        """The client's acknowledgements of the frames written since the
+        last call: PUBACK for a QoS 1 delivery, PUBREC for a QoS 2 one,
+        PUBCOMP for a PUBREL."""
+        buf = self.data[self.mark:]
+        n = len(buf)
+        out = []
+        for f in split_frames(buf):
+            t = f[0] >> 4
+            if t == 3 and f[0] & 0x06:
+                pid = publish_pid(f)
+                out.append(bytes((0x40 if f[0] & 0x06 == 2 else 0x50, 2,
+                                  pid >> 8, pid & 0xFF)))
+            elif t == 6:
+                out.append(bytes((0x70, 2, f[2], f[3])))
+        self.mark += n - len(buf)
+        return b"".join(out)
+
+    def write(self, b) -> None:
+        self.data += b
+
+    def writelines(self, bufs) -> None:
+        for b in bufs:
+            self.data += b
+
+    async def drain(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+    async def wait_closed(self) -> None:
+        pass
+
+    def is_closing(self) -> bool:
+        return False
+
+    def get_extra_info(self, name, default=None):
+        return default
+
+
+def fleet_sessions(topics: list[str], answer, pairs) -> list:
+    """The corpus clients that publishes to ``topics`` reach (each
+    client in ``answer(topic)``'s plain subscriptions, and every member
+    of each ``$share`` group it names), as [(cid, [Subscription])] from
+    the corpus's (client id, Subscription) ``pairs``: served live, they
+    take every delivery of those publishes, as a connected fleet would."""
+    reached = set()
+    for t in topics:
+        got = answer(t)
+        if hasattr(got, "to_set"):
+            got = got.to_set()
+        reached.update(got.subscriptions)
+        for members in got.shared.values():
+            reached.update(members)
+    out: dict = {}
+    for cid, sub in pairs:
+        if cid in reached:
+            out.setdefault(cid, []).append(sub)
+    return list(out.items())
+
+
+def connect_fleet(bk, kit, side: BrokerSide, sessions, versions=None):
+    """The clients of ``sessions`` [(cid, [Subscription])] made live
+    sessions of ``side``'s broker without a socket, each writing to a
+    SinkWriter and reading what ``BrokerSide.settle_fleet`` feeds it: a
+    CONNECT (v3.1.1, or ``versions[cid]`` = (version, outbound alias
+    maximum)) parsed as the broker parses one, the subscriptions the
+    broker already holds recorded on the session, the session registered
+    as connected, its writer started and its read loop on the broker's
+    receive path."""
+    b = side.broker
+    loop = asyncio.get_running_loop()
+    for cid, subs in sessions:
+        version, alias_max = (versions or {}).get(cid, (4, 0))
+        sink = SinkWriter()
+        c = bk.Client(b, asyncio.StreamReader(), sink)
+        pk = kit.Packet(fixed=kit.FixedHeader(type=kit.PT.CONNECT),
+                        protocol_version=version, clean_start=True,
+                        keepalive=0, client_id=cid)
+        if alias_max:
+            pk.properties.topic_alias_max = alias_max
+        c.parse_connect(pk)
+        for sub in subs:
+            c.subscriptions[sub.filter] = sub
+        b.clients.add(c)
+        c.connected_at = time.time()
+        b.info.clients_connected += 1
+        c.start()
+        side.readers.append(loop.create_task(c.read_loop(
+            b._receive_packet)))
+        side.fleet[cid] = (c, sink)
+
+
+def fleet_equal(what: str, got: dict, want: dict) -> int:
+    """Each fleet session's bytes equal between the brokers; returns the
+    bytes compared."""
+    if got != want:
+        bad = sorted(c for c in set(got) | set(want)
+                     if got.get(c) != want.get(c))
+        c = bad[0]
+        streams_equal(f"{what}: fleet ({len(bad)} sessions differ)",
+                      {c: split_frames(bytearray(got.get(c, b"")))},
+                      {c: split_frames(bytearray(want.get(c, b"")))})
+        raise AssertionError(f"{what}: the bytes of {len(bad)} fleet "
+                             f"sessions differ, first {c}")
+    return sum(len(v) for v in got.values())
+
+
+def check_matches(what: str, answers, answer) -> int:
+    """Every match result ``answers`` [(topic, future)] holds equal to the
+    trie's ``answer(topic)``; returns how many were held."""
+    bad = [t for t, f in answers
+           if not f.done() or f.cancelled() or f.exception() is not None
+           or not same_answer(f.result(), answer(t))]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} of {len(answers)} match "
+                             f"answers differ from the trie's, first "
+                             f"{bad[0]!r}")
+    return len(answers)
+
+
+def catch_up(engine, attempts: int = 4) -> None:
+    """The engine's own background refresh (with its bucket re-warm and
+    decode prewarm) run until its tables hold every subscription of its
+    index: a refresh already under way when a client subscribed compiles
+    an older version, so one join is not always enough. Fails after
+    ``attempts`` refreshes that left the tables behind the index."""
+    for _ in range(attempts):
+        if engine.tables.version == engine.index.sub_version:
+            return
+        engine.refresh_soon()
+        engine.close(timeout=600)
+    if engine.tables.version != engine.index.sub_version:
+        raise AssertionError(
+            f"the engine's tables stayed at version {engine.tables.version} "
+            f"after {attempts} refreshes; its index is at "
+            f"{engine.index.sub_version}")
+
+
+def subscriber_plan(kit, n: int, topics: list[str], answer, seed: int = 7):
+    """The compared subscribers ``tcp-<k>`` of a corpus: ``ClientTable``'s
+    mix (v3.1.1 and v5 connections, v5 outbound alias maxima, identifiers
+    and retain-as-published, 5 % offline: persistent sessions that
+    subscribe, leave, and resume after the traffic), each subscribing to
+    three corpus filters that match publish topics (one from ``answer``
+    of each of three topics drawn from ``topics``, at QoS k % 3), every
+    third one also a member of one of four ``$share`` groups over a
+    corpus filter, and ``tcp-probe``: a v3.1.1 client on '#' (every
+    publish reaches it; the faulted rungs pace on it). Returns
+    [(cid, version, alias_max, offline, [Subscription, ...])]."""
+    rng = np.random.default_rng(seed)
+    ct = ClientTable(n)
+
+    def corpus_filter() -> str:
+        t = topics[int(rng.integers(len(topics)))]
+        got = answer(t)
+        if hasattr(got, "to_set"):
+            got = got.to_set()
+        filters = sorted({s.filter for s in got.subscriptions.values()})
+        return filters[int(rng.integers(len(filters)))] if filters else t
+
+    shares = [corpus_filter() for _ in range(4)]
+    plan = []
+    for k in range(n):
+        v5 = bool(ct.v5[k])
+        opts = dict(qos=k % 3, identifier=int(ct.identifier[k]),
+                    retain_as_published=bool(ct.rap[k]))
+        subs = [kit.Subscription(filter=corpus_filter(), **opts)
+                for _ in range(3)]
+        if k % 3 == 0:
+            g = (k // 3) % 4
+            subs.append(kit.Subscription(
+                filter=f"$share/sg{g}/{shares[g]}", **opts))
+        plan.append((f"tcp-{k}", 5 if v5 else 4,
+                     int(ct.alias_max[k]), bool(ct.offline[k]), subs))
+    plan.append(("tcp-probe", 4, 0, False, [kit.Subscription(filter="#")]))
+    return plan
+
+
+async def connect_subscribers(kit, side: BrokerSide, plan) -> None:
+    """The plan's clients connected and subscribed (plus the fence topic);
+    the offline ones leave with their sessions kept."""
+    for cid, version, alias_max, offline, subs in plan:
+        c = side.subs[cid] = WireClient(
+            kit, cid, version, alias_max, clean=not offline,
+            expiry=3600 if offline else None)
+        await c.open(side.port)
+        for sub in (*subs, kit.Subscription(filter=FENCE_TOPIC)):
+            await c.subscribe(sub)
+        if offline:
+            await c.close(disconnect=True)
+
+
+async def resume_offline(side: BrokerSide, plan) -> dict:
+    """The offline clients back on their sessions: each reconnects (the
+    broker resends its queued QoS 1/2 deliveries) and pings; returns each
+    one's CONNACK and resent frames."""
+    out = {}
+    for cid, _v, _a, offline, _s in plan:
+        if offline:
+            c = side.subs[cid]
+            n0 = len(c.frames)
+            connack = await c.open(side.port)
+            await c.ping()
+            out[cid] = [connack, *c.frames[n0:]]
+    return out
+
+
+def streams_equal(what: str, got: dict, want: dict) -> int:
+    """Each subscriber's frames, in order, equal between the brokers;
+    returns the frames compared."""
+    if got != want:
+        bad = sorted(c for c in set(got) | set(want)
+                     if got.get(c) != want.get(c))
+        c = bad[0]
+        g, w = got.get(c, []), want.get(c, [])
+        i = next((i for i, (x, y) in enumerate(zip(g, w)) if x != y),
+                 min(len(g), len(w)))
+        raise AssertionError(
+            f"{what}: the streams of {len(bad)} subscribers differ, first "
+            f"{c} at frame {i} of {len(g)} / {len(w)}: "
+            f"{g[i].hex() if i < len(g) else None} vs "
+            f"{w[i].hex() if i < len(w) else None}")
+    return sum(len(v) for v in got.values())
 
 
 class LoopLag:
@@ -923,14 +1426,6 @@ def collector_paused():
     finally:
         if enabled:
             gc.enable()
-
-
-async def timed_match(matcher, topic: str):
-    """One match through ``subscribers_async`` and its latency (s) from
-    enqueue to result."""
-    t0 = time.perf_counter()
-    result = await matcher.subscribers_async(topic)
-    return result, time.perf_counter() - t0
 
 
 def trace_match_spans(tracer, matcher, tr, fut) -> None:
@@ -1058,6 +1553,7 @@ class Smoke:
         self.device = torch.device(device)
         self.sizes = sizes
         self.corpora = {}
+        self.preloads = {}
         self.engines = {}
         self.dense = None          # (subscriptions, generator, TopicIndex)
         self.dense_eng = None
@@ -1099,6 +1595,17 @@ class Smoke:
 
     # -- corpora -------------------------------------------------------
 
+    def corpus_filters(self, name: str):
+        """(filters, topic generator) of one corpus, without an index."""
+        if name in self.corpora:
+            return self.corpora[name][:2]
+        with collector_paused():
+            return build_corpus(
+                self.sizes["subs"][name], seed=42,
+                share_frac=0.1 if name in ("iot_1m_share", "cluster_100k")
+                else 0.0,
+                hash_plus=name == "hash_plus_100k")
+
     def corpus(self, name: str):
         """(filters, topic generator, port TopicIndex) of one corpus."""
         if name in self.corpora:
@@ -1107,12 +1614,8 @@ class Smoke:
         from maxmq_tpu_torch.protocol import Subscription
 
         t0 = time.perf_counter()
+        filters, gen = self.corpus_filters(name)
         with collector_paused():
-            filters, gen = build_corpus(
-                self.sizes["subs"][name], seed=42,
-                share_frac=0.1 if name in ("iot_1m_share", "cluster_100k")
-                else 0.0,
-                hash_plus=name == "hash_plus_100k")
             index = TopicIndex()
             for i, f in enumerate(filters):
                 index.subscribe(f"cl-{i}", Subscription(filter=f,
@@ -1649,7 +2152,7 @@ class Smoke:
         log(f"[decode] {name}: {json.dumps(rec)}")
         return rec
 
-    # -- phase 12: the publish pipeline -------------------------------
+    # -- phase 12: the broker engine ----------------------------------
 
     def pipeline_supervisor(self) -> dict:
         """The supervisor's settings: the production ones, unless the size
@@ -1658,305 +2161,357 @@ class Smoke:
         return {**PIPELINE_SUPERVISOR,
                 **self.sizes["pipeline"].get("supervisor", {})}
 
+    def corpus_preload(self, name: str) -> list:
+        """The (client id, Subscription) pairs of corpus ``name`` that the
+        brokers hold before they serve: ``mixed_100k`` with ``ClientTable``'s
+        v5 options (identifiers, retain-as-published) on each filter,
+        ``iot_1m_share`` as the benchmark holds it (QoS i % 3). Built once
+        and shared: records are immutable (F7)."""
+        from maxmq_tpu_torch.protocol import Subscription
+
+        if name not in self.preloads:
+            filters, _gen = self.corpus_filters(name)
+            with collector_paused():
+                if name == "mixed_100k":
+                    kit, ct = port_kit(), ClientTable(len(filters))
+                    pairs = [(f"cl-{i}", ct.subscription(kit, i, f))
+                             for i, f in enumerate(filters)]
+                else:
+                    pairs = [(f"cl-{i}", Subscription(filter=f, qos=i % 3))
+                             for i, f in enumerate(filters)]
+            self.preloads[name] = pairs
+        return self.preloads[name]
+
     def pipeline_corpus(self, name: str):
-        """(index, engine, clients) of the publish pipeline on corpus
-        ``name``. ``iot_1m_share`` reuses the index and SigEngine of the
-        earlier phases (the benchmark corpus: QoS, no identifiers), so no
-        1M compile is repeated. ``mixed_100k`` gets an index of its own:
-        the same filters, clients and QoS with the clients' v5 options
-        (identifiers, retain-as-published), which the earlier phases'
-        corpus lacks, and a SigEngine with the production defaults."""
-        filters, _gen, index = self.corpus(name)
-        clients = ClientTable(len(filters))
-        if name != "mixed_100k":
-            return index, self.engine(name), clients
+        """(index, SigEngine) over the preloaded subscriptions of ``name``
+        (phase 13's tracing runs on phase 12's ``mixed_100k`` corpus)."""
         from maxmq_tpu_torch.matching.sig import SigEngine
         from maxmq_tpu_torch.matching.trie import TopicIndex
 
-        kit = port_kit()
         t0 = time.perf_counter()
         idx = TopicIndex()
-        for i, f in enumerate(filters):
-            idx.subscribe(f"cl-{i}", clients.subscription(kit, i, f))
-        engine = SigEngine(idx, device=self.device)
-        log(f"[pipeline] {name}: {len(filters)} subscriptions with the "
-            f"clients' v5 options indexed and compiled in "
-            f"{time.perf_counter() - t0:.1f} s")
-        return idx, engine, clients
+        with collector_paused():
+            for cid, sub in self.corpus_preload(name):
+                idx.subscribe(cid, sub)
+            engine = SigEngine(idx, device=self.device)
+        log(f"[tracing] {name}: {idx.subscription_count} subscriptions "
+            f"indexed and compiled in {time.perf_counter() - t0:.1f} s")
+        return idx, engine
 
     @staticmethod
-    def trie_frames(kit, clients, answer, traffic: dict, burst: int,
-                    limit: int):
-        """The CPU-trie pipeline: the same decode and delivery helper over
-        ``TopicIndex.subscribers`` (``answer``), for the first ``limit``
-        burst publishes and every trickle publish."""
-        dlv = Deliveries(kit, clients)
-        dec = PubDecoder(kit)
-        frames, owners = traffic["burst"]
-        for a in range(0, limit, burst):
-            b = min(a + burst, limit)
-            for p in dec.decode(frames[a:b], owners[a:b]):
-                dlv.fan_out(answer(p.topic), p)
-        for p in dec.decode(*traffic["trickle"]):
-            dlv.fan_out(answer(p.topic), p)
-        return dlv
+    def count_boot_prewarms(broker) -> list:
+        """Count the engine's ``prewarm_decode_bases`` calls from now on
+        (``serve()``'s boot compile makes one, off the loop)."""
+        engine = broker.matcher.engine
+        calls, prewarm = [], engine.prewarm_decode_bases
 
-    async def pipeline_run(self, kit, engine, index, clients, traffic: dict,
-                           bypass: bool, answer, limit: int) -> dict:
-        """One unfaulted run of the pipeline: bursts of ``burst`` frames
-        decoded and enqueued at once through ``subscribers_async`` of a
-        ``SupervisedMatcher(MicroBatcher(engine))`` at the production
-        settings (the next burst starts when the last settles, and its
-        deliveries are built after that), then the trickle publishes one
-        at a time. Any answer not from the engine (the supervisor's error,
-        deadline or breaker_open hedge, a breaker trip), an answer unequal
-        to the trie's, or a topic on the Python decode fails it."""
+        def counted(*a, **k):
+            calls.append(prewarm(*a, **k))
+            return calls[-1]
+
+        engine.prewarm_decode_bases = counted
+        broker.__dict__["_boot_prewarms"] = calls
+        return calls
+
+    def boot_state(self, side, log_buf) -> dict:
+        """What the card broker's boot left, read right after ``serve()``
+        returned and before any client connected: the engine's tables at
+        the index's version (compiled at boot, not at the first batch),
+        the decode bases prewarmed inside ``serve()`` (its calls and the
+        chunks they made; the native anchors' slot maps where the corpus
+        has rows fat enough to chain), and no warning from the boot
+        compile or prewarm."""
         from maxmq_tpu_torch import native
-        from maxmq_tpu_torch.matching.batcher import MicroBatcher
-        from maxmq_tpu_torch.matching.supervisor import SupervisedMatcher
 
-        wire = kit.wire
-        batcher = MicroBatcher(engine, cpu_bypass=bypass, **PIPELINE_BATCHER)
-        sup = SupervisedMatcher(batcher, index=index,
-                                **self.pipeline_supervisor())
-        sizes = []
-        note = batcher._note_batch
+        b = side.broker
+        engine = b.matcher.engine
+        del engine.prewarm_decode_bases
+        tables = engine.tables
+        calls = b.__dict__.pop("_boot_prewarms")
+        out = {"compiled": tables.version == b.topics.sub_version,
+               "subscriptions": b.topics.subscription_count,
+               "prewarm_calls": len(calls), "prewarm_chunks": sum(calls)}
+        mod = native.decode_module()
+        if mod is not None and hasattr(mod, "_slot_map_stats"):
+            nd = tables.__dict__.get("_native_decode")
+            out["rows_mapped"], out["anchor_entries"] = (
+                mod._slot_map_stats(nd[1]) if nd else (0, 0))
+        warned = [json.loads(line) for line in
+                  log_buf.getvalue().splitlines() if line.strip()]
+        out["boot_warnings"] = [w for w in warned
+                                if w.get("level") in ("warn", "error")]
+        if (not out["compiled"] or out["boot_warnings"]
+                or not out["prewarm_calls"]):
+            raise AssertionError(f"the card broker did not boot warm: {out}")
+        return out
 
-        def note_batch(batch, note=note):
+    async def broker_run(self, label: str, card, trie, kit, traffic,
+                         bypass: bool) -> dict:
+        """One run of the traffic through both brokers: first the trie
+        broker (the reference streams), then the card broker, measured,
+        with its batcher's bypass ``bypass``. Every compared subscriber's
+        frames (and every fleet session's bytes) from the card broker must
+        equal its frames from the trie broker, and every match answer the
+        card broker dispatched must equal the trie's for its topic (the
+        corpus's rows too, which no TCP subscriber holds); any answer not
+        from the engine (an ``error``, ``deadline``
+        or ``breaker_open`` hedge, a breaker trip, a pipeline degrade)
+        fails the run, and with the bypass off ``sig_match_fixed`` must
+        launch once per batch."""
+        from maxmq_tpu_torch import native
+        from maxmq_tpu_torch.protocol import wire
+
+        b = card.broker
+        sup = b.matcher
+        batcher = sup.inner
+        engine = sup.engine
+        batcher.cpu_bypass = bypass
+        start = {c: len(s.frames) for c, s in trie.subs.items()}
+        trie_fleet0 = trie.fleet_marks()
+        t0 = time.perf_counter()
+        await trie.bursts(kit, traffic)
+        trie_s = time.perf_counter() - t0
+        want = trie.streams(start)
+
+        sizes, lat, bypass_ms, spans, answers = [], [], [], {}, []
+        note, run_bypass = batcher._note_batch, batcher._run_bypass
+        dispatch, finish = b._dispatch_match, b.tracer.finish
+
+        def note_batch(batch):
             sizes.append(len(batch))
             note(batch)
 
-        batcher._note_batch = note_batch
-        bypass_ms = []
-        run_bypass = batcher._run_bypass
-
-        def timed_bypass(batch, topics, ver, run_bypass=run_bypass):
-            t0 = time.perf_counter()
+        def timed_bypass(batch, topics, ver):
+            t = time.perf_counter()
             run_bypass(batch, topics, ver)
-            bypass_ms.append((time.perf_counter() - t0) * 1e3)
+            bypass_ms.append((time.perf_counter() - t) * 1e3)
 
-        batcher._run_bypass = timed_bypass
-        burst = self.sizes["pipeline"]["burst"]
-        dec, dlv = PubDecoder(kit), Deliveries(kit, clients)
+        def timed_dispatch(topic):
+            t = time.perf_counter()
+            fut = dispatch(topic)
+            fut.add_done_callback(lambda _f: lat.append(
+                (time.perf_counter() - t) * 1e3))
+            answers.append((topic, fut))
+            return fut
+
+        checked = 0
+
+        def check_so_far():
+            # each burst's answers held against the trie after its fence,
+            # then let go: kept to the end, the results would stay on the
+            # heap that every full collection of the run walks
+            nonlocal checked
+            checked += check_matches(label, answers,
+                                     trie.broker.topics.subscribers)
+            answers.clear()
+
+        def span_finish(tr, end_ns=0):
+            # a sampled publish's spans, as the broker stamped them
+            for stage, _t0, dur in tr.spans:
+                spans.setdefault(stage, []).append(dur / 1e6)
+            return finish(tr, end_ns)
+
+        batcher._note_batch, batcher._run_bypass = note_batch, timed_bypass
+        b._dispatch_match, b.tracer.finish = timed_dispatch, span_finish
+        start = {c: len(s.frames) for c, s in card.subs.items()}
+        fleet0 = card.fleet_marks()
+        sent0, ack0 = b.info.messages_sent, card.ack_s
+        tag0 = card.tag
+        hedges0 = dict(sup.fallbacks_by_reason)
+        trips0, degrades0 = sup.breaker_trips, b.matcher_degrades
         base = {k: getattr(engine, k) for k in ("matches",) + SIG_COUNTERS}
-        decoded0 = dict(engine.decoded)
-        heads0 = dict(wire.heads)
-        lag = LoopLag()
-        lat, answers = [], []
-        match_s = fan_s = 0.0
-        frames, owners = traffic["burst"]
+        bat0 = {k: getattr(batcher, k)
+                for k in ("bypasses", "cache_hits", "errors")}
+        decoded0, heads0 = dict(engine.decoded), dict(wire.heads)
         # the heap frozen at this quiescent point, as the benchmark does
-        # after its warm-up (bench.py:622-634): what the earlier runs left
-        # joins the permanent generation, so a full collection during the
-        # run walks only what the run allocates (``publish_pipelines``
-        # thaws it all after the phase)
+        # after its warm-up (bench.py:622-646): a full collection during
+        # the run walks only what the run allocates
         gc.collect()
         gc.freeze()
+        lag = LoopLag()
         try:
             self.zero_kernel_counts()
             with full_collections() as gc_ms:
-                t_run = time.perf_counter()
-                for a in range(0, len(frames), burst):
-                    pkts = dec.decode(frames[a:a + burst], owners[a:a + burst])
-                    t0 = time.perf_counter()
-                    lag.start()
-                    res = await asyncio.gather(*(timed_match(sup, p.topic)
-                                                 for p in pkts))
-                    await lag.stop()
-                    t1 = time.perf_counter()
-                    for j, (p, (r, dt)) in enumerate(zip(pkts, res)):
-                        lat.append(dt * 1e3)
-                        answers.append((p.topic, r))
-                        if p.fixed.retain:
-                            index.retain(p)
-                        dlv.keep = a + j < limit
-                        dlv.fan_out(r, p)
-                    match_s += t1 - t0
-                    fan_s += time.perf_counter() - t1
-                wall = time.perf_counter() - t_run
-                burst_delivered = dlv.delivered
-                burst_launches = self.kernel_counts()["sig_match_fixed"]
-                burst_batches = len(sizes)
-                dlv.keep = True
-                trickle = []
-                for p in dec.decode(*traffic["trickle"]):
-                    r, dt = await timed_match(sup, p.topic)
-                    trickle.append(dt * 1e3)
-                    answers.append((p.topic, r))
-                    dlv.fan_out(r, p)
-                launches = self.kernel_counts()["sig_match_fixed"]
+                lag.start()
+                t0 = time.perf_counter()
+                check_s = await card.bursts(kit, traffic, check_so_far)
+                wall = time.perf_counter() - t0 - check_s
+                await lag.stop()
+            launches = self.kernel_counts()["sig_match_fixed"]
         finally:
-            await batcher.close()
-        bad = [t for t, r in answers if not same_answer(r, answer(t))]
-        d = {k: getattr(engine, k) - v for k, v in base.items()}
+            del batcher._note_batch, batcher._run_bypass, b._dispatch_match
+            del b.tracer.finish
+        got = card.streams(start)
+        frames = streams_equal(f"{label}", got, want)
+        fleet_bytes = fleet_equal(label, card.fleet_streams(fleet0),
+                                  trie.fleet_streams(trie_fleet0))
+        check_so_far()
+        fences = sum(1 for s in got.values() for f in s
+                     if f.rfind(FENCE_MARK, -24) > 0)
+        hedges = {k: v - hedges0.get(k, 0)
+                  for k, v in sup.fallbacks_by_reason.items()}
+        bat = {k: getattr(batcher, k) - v for k, v in bat0.items()}
+        publishes = len(traffic[0])
         out = {
-            "bypass": bypass, "publishes": len(frames),
-            "trickle_publishes": len(trickle),
-            "deliveries": dlv.delivered, "delivery_bytes": dlv.nbytes,
-            "burst_deliveries": burst_delivered,
-            "trickle_deliveries": dlv.delivered - burst_delivered,
-            "queued_offline": dlv.queued,
-            "deliveries_per_s": burst_delivered / wall,
-            "burst_wall_s": wall, "match_s": match_s, "fan_out_s": fan_s,
-            "fan_out_deliveries_per_s": burst_delivered / max(fan_s, 1e-9),
+            "publishes": publishes, "bursts": card.tag - tag0,
+            "bypass": bypass,
+            "deliveries": frames - fences, "fences": fences,
+            "deliveries_per_s": (frames - fences) / wall,
+            "answers_checked": checked, "answer_check_s": check_s,
+            "fleet_sessions": len(card.fleet),
+            "fleet_deliveries": b.info.messages_sent - sent0 - frames,
+            "fleet_bytes": fleet_bytes,
+            "fleet_ack_s": card.ack_s - ack0,
+            "all_deliveries_per_s": (b.info.messages_sent - sent0
+                                     - fences) / wall,
+            "publishes_per_s": publishes / wall, "burst_wall_s": wall,
+            "trie_broker_wall_s": trie_s,
             "match_ms_p50_p99_max": spread(lat),
-            "trickle_ms_p50_p99_max": spread(trickle),
+            "sampled_spans_ms_p50_p99_max": {k: spread(v)
+                                             for k, v in spans.items()},
             "loop_lag_ms_p50_p99_max": spread(lag.samples),
             "gc_full_collections": len(gc_ms),
             "gc_full_ms_max": max(gc_ms, default=0.0),
             "batch_sizes": {str(k): sizes.count(k)
                             for k in sorted(set(sizes))},
-            "batches": len(sizes), "burst_batches": burst_batches,
-            "launches": launches, "burst_launches": burst_launches,
-            "bypassed": batcher.bypasses, "cache_hits": batcher.cache_hits,
+            "batches": len(sizes), "launches": launches,
             "bypass_batch_ms_p50_p99_max": spread(bypass_ms),
-            "first_bypass_batch_ms": bypass_ms[0] if bypass_ms else None,
-            "device_rtt_ms": batcher.device_rtt * 1e3,
-            "batch_errors": batcher.errors,
-            "fallbacks_by_reason": sup.fallbacks_by_reason,
-            "breaker_trips": sup.breaker_trips,
+            "device_rtt_ms": (batcher.device_rtt or 0.0) * 1e3,
+            "fallbacks_by_reason": hedges,
+            "breaker_trips": sup.breaker_trips - trips0,
+            "matcher_degrades": b.matcher_degrades - degrades0,
             "decoded": {k: v - decoded0[k]
                         for k, v in engine.decoded.items()},
             "heads": {k: v - heads0[k] for k, v in wire.heads.items()},
-            "slow_path_checked": dlv.slow_checked,
-            "mismatches": len(bad), **d}
-        topics = out["publishes"] + out["trickle_publishes"]
-        out["kernel_share"] = 1 - (out["bypassed"] + out["cache_hits"]) \
-            / topics
-        out["bypass_share"] = out["bypassed"] / topics
-        out["frames"] = dlv
-        hedged = {k: v for k, v in out["fallbacks_by_reason"].items()
-                  if k != "overflow" and v}
-        if hedged or out["breaker_trips"]:
-            raise AssertionError(f"answers not from the engine: {hedged}, "
-                                 f"{out['breaker_trips']} breaker trips")
-        if bad:
-            raise AssertionError(f"{len(bad)} answers differ from the CPU "
-                                 f"trie, first {bad[0]!r}")
+            **bat, **{k: getattr(engine, k) - v for k, v in base.items()}}
+        dispatched = publishes + out["bursts"] - bat["cache_hits"]
+        out["bypass_share"] = bat["bypasses"] / max(dispatched, 1)
+        log(f"[broker] {label}: {json.dumps(out)}")
+        hedged = {k: v for k, v in hedges.items() if k != "overflow" and v}
+        if hedged or out["breaker_trips"] or out["matcher_degrades"]:
+            raise AssertionError(f"{label}: answers not from the engine: "
+                                 f"{hedged}, {out['breaker_trips']} breaker "
+                                 f"trips, {out['matcher_degrades']} pipeline "
+                                 "degrades")
         if native.decode_module() is not None and out["heads"]["python"]:
-            raise AssertionError(f"{out['heads']['python']} frame heads "
-                                 "took the Python encoder unfaulted")
-        if not bypass and (out["bypassed"] or out["batch_errors"]):
-            raise AssertionError("with the bypass off every batch must "
-                                 "reach the engine")
+            raise AssertionError(f"{label}: {out['heads']['python']} frame "
+                                 "heads took the Python encoder unfaulted")
+        if not bypass and (bat["bypasses"] or bat["errors"]):
+            raise AssertionError(f"{label}: with the bypass off every batch "
+                                 "must reach the engine")
         if (not bypass and self.device.type == "cuda"
                 and launches != len(sizes)):
-            raise AssertionError(f"{launches} sig_match_fixed launches for "
-                                 f"{len(sizes)} dispatched batches")
+            raise AssertionError(f"{label}: {launches} sig_match_fixed "
+                                 f"launches for {len(sizes)} batches")
         return out
 
-    @staticmethod
-    def frames_equal(what: str, dev, trie) -> int:
-        """Every client's frames, in order, equal between the two
-        pipelines; returns the frames compared."""
-        got, want = dev.frames, trie.frames
-        if got != want:
-            bad = sorted(c for c in set(got) | set(want)
-                         if got.get(c) != want.get(c))
-            raise AssertionError(f"{what}: the delivery frames of "
-                                 f"{len(bad)} clients differ from the "
-                                 f"CPU-trie pipeline's, first {bad[0]}")
-        return len(dev.sent)
-
-    async def pipeline_faults(self, kit, engine, index, clients,
-                              traffic: dict, answer) -> dict:
-        """The ladder's rungs on the card's pipeline, each answer held
-        against the trie: (1) DEVICE_MATCH raising until disarmed gives
-        five error hedges, one at a time, and the breaker trips; the next
-        publishes are answered ``breaker_open`` with no device call; after
-        the 1 s backoff one probe reaches the card and closes it. (2) One
-        hang of twice the deadline (0.5 s) gives exactly one deadline
-        hedge. (3) With NATIVE_ENCODE
-        armed the Python heads build every delivery frame, byte-equal to
-        the unarmed CPU-trie pipeline's."""
+    async def broker_faults(self, card, trie, kit, traffic) -> dict:
+        """The ladder's rungs on the card broker, one publish at a time
+        (each paced on the probe subscriber, which every publish reaches),
+        the same publishes through the trie broker unfaulted first: (1)
+        DEVICE_MATCH raising until disarmed gives five error hedges and the
+        breaker trips; (2) the next 16 publishes are answered
+        ``breaker_open`` with no device call; (3) after the 1 s backoff one
+        probe reaches the card and closes it; (4) one hang of twice the
+        deadline gives one deadline hedge; (5) with NATIVE_ENCODE armed
+        the Python heads build the rest of the frames. Every compared
+        subscriber's frames equal the trie broker's, and every match
+        answer the card broker dispatched equals the trie's."""
         from maxmq_tpu_torch import faults
-        from maxmq_tpu_torch.matching.batcher import MicroBatcher
-        from maxmq_tpu_torch.matching.supervisor import SupervisedMatcher
+        from maxmq_tpu_torch.protocol import wire
 
-        batcher = MicroBatcher(engine, cpu_bypass=False, **PIPELINE_BATCHER)
+        sup = card.broker.matcher
+        sup.inner.cpu_bypass = False
         kw = self.pipeline_supervisor()
-        sup = SupervisedMatcher(batcher, index=index, **kw)
         hang_s = 2 * kw["deadline_ms"] / 1e3
-        dec = PubDecoder(kit)
-        pkts = dec.decode(*traffic["faults"])
-        bad = 0
+        frames, owners = traffic
 
-        def check(p, r):
-            nonlocal bad
-            bad += not same_answer(r, answer(p.topic))
+        async def one(side, i: int) -> None:
+            pub = await side.publisher(kit, owners[i])
+            probe = side.subs["tcp-probe"]
+            n = len(probe.frames)
+            pub.send([frames[i]])
+            await probe.until(lambda: len(probe.frames) > n)
 
+        async def fence(side) -> None:
+            await side.fence(await side.publisher(kit, owners[-1]))
+
+        start = {c: len(s.frames) for c, s in trie.subs.items()}
+        for i in range(len(frames)):
+            await one(trie, i)
+        await fence(trie)
+        want = trie.streams(start)
+        start = {c: len(s.frames) for c, s in card.subs.items()}
         faults.clear()
-        rec = {}
+        rec, answers = {}, []
+        dispatch = card.broker._dispatch_match
+
+        def recorded(topic):
+            answers.append((topic, dispatch(topic)))
+            return answers[-1][1]
+
+        card.broker._dispatch_match = recorded
         try:
             faults.arm(faults.DEVICE_MATCH, "raise", count=-1)
-            for p in pkts[:5]:
-                check(p, await sup.subscribers_async(p.topic))
+            for i in range(5):
+                await one(card, i)
             rec["tripped"] = {"state": sup.breaker_state_name,
                               "trips": sup.breaker_trips,
                               **sup.fallbacks_by_reason}
             fired = faults.fired.get(faults.DEVICE_MATCH, 0)
-            res = await asyncio.gather(*(sup.subscribers_async(p.topic)
-                                         for p in pkts[5:21]))
-            for p, r in zip(pkts[5:21], res):
-                check(p, r)
+            for i in range(5, 21):
+                await one(card, i)
             rec["open"] = {"fired_while_open": faults.fired.get(
                 faults.DEVICE_MATCH, 0) - fired, **sup.fallbacks_by_reason}
             rec["raises_fired"] = faults.fired.get(faults.DEVICE_MATCH, 0)
             faults.disarm(faults.DEVICE_MATCH)
-            await asyncio.sleep(kw["backoff_initial_s"]
-                                + 0.05)
+            await asyncio.sleep(kw["backoff_initial_s"] + 0.05)
             self.zero_kernel_counts()
-            check(pkts[21], await sup.subscribers_async(pkts[21].topic))
+            await one(card, 21)
             rec["probe"] = {"state": sup.breaker_state_name,
                             "recoveries": sup.breaker_recoveries,
                             "launches": self.kernel_counts()[
                                 "sig_match_fixed"],
                             "degraded_s": sup.degraded_seconds}
-
             faults.arm(faults.DEVICE_MATCH, "hang", count=1, delay_s=hang_s)
-            r, dt = await timed_match(sup, pkts[22].topic)
-            check(pkts[22], r)
+            t0 = time.perf_counter()
+            await one(card, 22)
+            dt = time.perf_counter() - t0
             await asyncio.sleep(hang_s + 0.1)    # the hung call finishes
             rec["hang"] = {"ms": dt * 1e3, "state": sup.breaker_state_name,
                            **sup.fallbacks_by_reason}
-
-            step3 = pkts[23:]
-            want = Deliveries(kit, clients)
-            for p in PubDecoder(kit).decode(*traffic["faults"])[23:]:
-                want.fan_out(answer(p.topic), p)
-            heads0 = dict(kit.wire.heads)
+            heads0 = dict(wire.heads)
             faults.arm(faults.NATIVE_ENCODE, "raise", count=-1)
-            res = await asyncio.gather(*(sup.subscribers_async(p.topic)
-                                         for p in step3))
-            got = Deliveries(kit, clients)
-            for p, r in zip(step3, res):
-                check(p, r)
-                got.fan_out(r, p)
+            for i in range(23, len(frames)):
+                await one(card, i)
             faults.disarm(faults.NATIVE_ENCODE)
-            rec["encode"] = {
-                "heads": {k: v - heads0[k]
-                          for k, v in kit.wire.heads.items()},
-                "frames": self.frames_equal("faulted encode", got, want),
-                "deliveries": got.delivered}
+            rec["encode"] = {"heads": {k: v - heads0[k]
+                                       for k, v in wire.heads.items()}}
+            await fence(card)
         finally:
             faults.clear()
-            await batcher.close()
+            del card.broker._dispatch_match
+        rec["frames"] = streams_equal("faulted rungs", card.streams(start),
+                                      want)
+        rec["answers_checked"] = check_matches(
+            "faulted rungs", answers, trie.broker.topics.subscribers)
         rec.update(fallbacks_by_reason=sup.fallbacks_by_reason,
                    breaker_trips=sup.breaker_trips,
                    breaker_recoveries=sup.breaker_recoveries,
-                   breaker_state=sup.breaker_state_name, mismatches=bad)
-        log(f"[pipeline] faults: {json.dumps(rec)}")
+                   breaker_state=sup.breaker_state_name,
+                   matcher_degrades=card.broker.matcher_degrades)
+        log(f"[broker] faults: {json.dumps(rec)}")
         t, o, pr, h = rec["tripped"], rec["open"], rec["probe"], rec["hang"]
-        ok = (bad == 0
-              and t["error"] == 5 and t["trips"] == 1
-              and t["state"] == "open" and sup.breaker_trips == 1
+        ok = (t["error"] == 5 and t["trips"] == 1 and t["state"] == "open"
+              and sup.breaker_trips == 1
               and o["fired_while_open"] == 0 and o["breaker_open"] == 16
               and pr["state"] == "closed" and pr["recoveries"] == 1
               and h["deadline"] == 1 and h["state"] == "closed"
               and rec["fallbacks_by_reason"]["error"] == 5
               and rec["fallbacks_by_reason"]["breaker_open"] == 16
               and rec["encode"]["heads"]["native"] == 0
-              and rec["encode"]["heads"]["python"] > 0)
+              and rec["encode"]["heads"]["python"] > 0
+              and rec["matcher_degrades"] == 0)
         if self.device.type == "cuda" and pr["launches"] < 1:
             ok = False
         if not ok:
@@ -1964,98 +2519,149 @@ class Smoke:
                                  f"close as specified: {rec}")
         return rec
 
-    async def publish_pipeline(self, name: str) -> dict:
-        """Phase 12 on corpus ``name``: the production boot of the
-        matcher (intents on, the bucket ladder warmed, the decode bases
-        prewarmed), the traffic encoded, the CPU-trie pipeline's frames,
-        then the run with the bypass off and the run with it on (the
-        reference's default), and on ``mixed_100k`` the faulted rungs."""
-        kit = port_kit()
-        sz = self.sizes["pipeline"][name]
-        burst = self.sizes["pipeline"]["burst"]
-        if sz["trickle"] and sz["compare"] != sz["burst"]:
-            raise ValueError("the trickle frames compare only after every "
-                             "burst publish was compared")
-        index, engine, clients = self.pipeline_corpus(name)
-        _f, gen, _i = self.corpus(name)
+    async def broker_fleet(self, name, card, trie, kit, bk, topics,
+                           preload) -> dict:
+        """The fleet rung on corpus ``name``: every corpus client that
+        the rung's publishes reach made a live session of both brokers
+        (served in process, ``connect_fleet``), then the publishes through
+        both, bypass off, as ``broker_run`` runs them: the fan-out builds
+        and writes every matched subscriber's frame on the loop that also
+        settles the later batches, and each session's bytes from the card
+        broker must equal its bytes from the trie broker."""
+        sessions = fleet_sessions(topics, trie.broker.topics.subscribers,
+                                  preload)
         t0 = time.perf_counter()
-        burst_topics = gen(sz["burst"], seed2=4000)
-        traffic = {
-            "burst": publish_frames(kit, burst_topics, 42),
-            "trickle": publish_frames(kit, gen(sz["trickle"], seed2=4100),
-                                      43),
-            "faults": publish_frames(kit, gen(279, seed2=4200), 44)}
-        emit0 = engine.emit_intents
-        engine.emit_intents = True
-        engine.warm_buckets(PIPELINE_BATCHER["max_batch"], background=False)
-        prewarm = engine.prewarm_decode_bases()
-        answers = {}
+        with collector_paused():
+            for side in (card, trie):
+                connect_fleet(bk, kit, side, sessions)
+        gc.freeze()      # as after the boots: the sessions are long-lived
+        log(f"[broker] {name} fleet: {len(sessions)} sessions live on both "
+            f"brokers in {time.perf_counter() - t0:.1f} s")
+        return await self.broker_run(f"{name} fleet", card, trie, kit,
+                                     publish_frames(kit, topics, 45), False)
 
-        def answer(topic):
-            r = answers.get(topic)
-            if r is None:
-                r = answers[topic] = index.subscribers(topic)
-            return r
+    async def broker_phase(self, name: str) -> dict:
+        """Phase 12 on corpus ``name``: the card broker (``build_matcher``,
+        matcher "sig") and the trie broker, both holding the corpus before
+        they serve; the compared subscribers connected to both; the card
+        engine caught up with their subscriptions; the run with the
+        bypass off and the run with it on (fresh topics each: the
+        batcher's result cache would answer repeats); where the size table
+        names the corpus, the fleet rung; on ``mixed_100k`` the faulted
+        rungs; the offline sessions resumed; every stream compared, and
+        every match answer of the card broker held against the trie."""
+        import io
 
-        want = self.trie_frames(kit, clients, answer, traffic, burst,
-                                sz["compare"])
-        for t in burst_topics:      # every burst answer is checked
-            answer(t)
-        setup_s = time.perf_counter() - t0
-        out = {"corpus": name, "subs": index.subscription_count,
-               "burst": burst, "setup_s": setup_s, "prewarm_chunks": prewarm,
-               "compared_publishes": sz["compare"]}
+        from maxmq_tpu_torch.utils.logger import Logger
+
+        kit, bk = port_kit(), broker_kit()
+        sz = self.sizes["broker"]
+        _f, gen = self.corpus_filters(name)
+        n = sz[name]
+        topics = {k: gen(n, seed2=4000 + k) for k in (0, 1)}
+        traffic = {k: publish_frames(kit, t, 42 + k)
+                   for k, t in topics.items()}
+        preload = self.corpus_preload(name)
+        device = None if self.device.type == "cuda" else "cpu"
+        logs = {"card": io.StringIO(), "trie": io.StringIO()}
+        out = {"corpus": name, "subscriptions": len(preload)}
+        conf = broker_config(bk, "sig")
+        # the production deadline, unless the size table widens it (the
+        # CPU rehearsal); the tracer samples every TRACE_STRIDE-th publish
+        # (its spans split the match from the in-order wait and fan-out)
+        conf.matcher_deadline_ms = self.pipeline_supervisor()["deadline_ms"]
+        conf.trace_sample_n = TRACE_STRIDE
+        t0 = time.perf_counter()
+        card = await start_broker(
+            bk, conf, preload, True, device,
+            Logger(out=logs["card"], fmt="json"), self.count_boot_prewarms)
+        out["card_boot_s"] = time.perf_counter() - t0
+        sides = [card]
         try:
-            for label, bypass in (("bypass_off", False), ("bypass_on", True)):
-                run = await self.pipeline_run(kit, engine, index, clients,
-                                              traffic, bypass, answer,
-                                              sz["compare"])
-                run["frames_compared"] = self.frames_equal(
-                    f"{name} {label}", run.pop("frames"), want)
+            out["boot"] = self.boot_state(card, logs["card"])
+            t0 = time.perf_counter()
+            trie = await start_broker(
+                bk, broker_config(bk, "trie"), preload, False, None,
+                Logger(out=logs["trie"], fmt="json"))
+            sides.append(trie)
+            out["trie_boot_s"] = time.perf_counter() - t0
+            # the booted brokers' heap frozen, as a broker process's boot
+            # compile freezes it (SigEngine._freeze_heap_if_large, once
+            # per process growth step: in this process phase 4's engine
+            # took that step): full collections from here on walk what
+            # the clients and the traffic allocate
+            gc.freeze()
+            plan = subscriber_plan(kit, sz["clients"], topics[0],
+                                   trie.broker.topics.subscribers)
+            t0 = time.perf_counter()
+            for side in sides:
+                await connect_subscribers(kit, side, plan)
+            out["subscribe_s"] = time.perf_counter() - t0
+            engine = card.broker.matcher.engine
+            t0 = time.perf_counter()
+            with collector_paused():
+                # the engine's background refresh over the clients'
+                # subscriptions, awaited before the runs
+                await asyncio.get_running_loop().run_in_executor(
+                    None, catch_up, engine)
+            out["catch_up_s"] = time.perf_counter() - t0
+            out["compared_subscribers"] = len(plan)
+            out["offline"] = sum(1 for p in plan if p[3])
+            log(f"[broker] {name}: {json.dumps(out)}")
+            for k, (label, bypass) in enumerate((("bypass_off", False),
+                                                 ("bypass_on", True))):
+                run = await self.broker_run(f"{name} {label}", card, trie,
+                                            kit, traffic[k], bypass)
                 out[label] = run
-                log(f"[pipeline] {name} {label}: {json.dumps(run)}")
-                self.check_decoded(f"pipeline {name} {label}",
-                                   run["decoded"])
+                self.check_decoded(f"broker {name} {label}", run["decoded"])
+            if name in sz["fleet"]:
+                out["fleet"] = await self.broker_fleet(
+                    name, card, trie, kit, bk, gen(sz["fleet"][name],
+                                                   seed2=4300), preload)
             if name == "mixed_100k":
-                out["faults"] = await self.pipeline_faults(
-                    kit, engine, index, clients, traffic, answer)
-            retained = {p.topic: p.payload
-                        for p in PubDecoder(kit).decode(*traffic["burst"])
-                        if p.fixed.retain}
-            if any(index.retained_get(t).payload != v
-                   for t, v in retained.items()):
-                raise AssertionError("a retained publish was not stored")
-            out["retained"] = len(retained)
+                out["faults"] = await self.broker_faults(
+                    card, trie, kit, publish_frames(
+                        kit, gen(sz["faults"], seed2=4200), 44))
+            resumed = {}
+            for side in sides:
+                resumed[side is card] = await resume_offline(side, plan)
+            out["resumed_frames"] = streams_equal(
+                f"{name} resumed sessions", resumed[True], resumed[False])
+            retained = [s.broker.info.retained for s in sides]
+            if retained[0] != retained[1] or not retained[0]:
+                raise AssertionError(f"retained messages held: {retained}")
+            out["retained"] = retained[0]
+        except BaseException:
+            # what the brokers logged at warn and above, and their
+            # overload counters, say why
+            for side, buf in logs.items():
+                for line in buf.getvalue().splitlines():
+                    if '"level": "info"' not in line:
+                        log(f"[broker] {name} {side} broker: {line[:400]}")
+            for side in sides:
+                counts = {k: v for k, v in vars(side.broker.overload).items()
+                          if type(v) in (int, float)}
+                log(f"[broker] {name} overload: {counts}")
+            raise
         finally:
-            engine.emit_intents = emit0
-            if name == "mixed_100k":
-                engine.close()
+            for side in sides:
+                await side.close()
         return out
 
-    async def publish_pipelines(self) -> dict:
-        """Phase 12 on both corpora, with the heap frozen from its start
-        (each run freezes what it finds anew) and thawed and collected at
-        its end, as bench.py:622-646 does around a config's timed passes:
-        the phases after it run on the heap they would have without it."""
-        out = {}
-        t0 = time.perf_counter()
-        gc.collect()
-        gc.freeze()
-        out["freeze_s"] = time.perf_counter() - t0
-        try:
-            for name in ("mixed_100k", "iot_1m_share"):
-                out[name] = await self.publish_pipeline(name)
-        finally:
-            t0 = time.perf_counter()
-            gc.unfreeze()
-            gc.collect()
-            out["thaw_s"] = time.perf_counter() - t0
-            log(f"[pipeline] heap frozen in {out['freeze_s']:.1f} s, thawed "
-                f"and collected in {out['thaw_s']:.1f} s")
+    async def broker_phases(self) -> dict:
+        """Phase 12 on both corpora. It runs last: each corpus freezes the
+        heap after its brokers boot and no thaw follows (a thaw would walk
+        and free both corpora's brokers, 70 s at ``iot_1m_share``, for no
+        phase after it)."""
+        out = {"threads_at_start": sorted(t.name
+                                          for t in threading.enumerate())}
+        log(f"[broker] threads at the start: {out['threads_at_start']}")
+        for name in ("mixed_100k", "iot_1m_share"):
+            out[name] = await self.broker_phase(name)
         out["launches"] = {f"{n} {label}": out[n][label]["launches"]
                            for n in ("mixed_100k", "iot_1m_share")
-                           for label in ("bypass_off", "bypass_on")}
-        log(f"[pipeline] heads: {json.dumps(dict(port_kit().wire.heads))}")
+                           for label in ("bypass_off", "bypass_on", "fleet")
+                           if label in out[n]}
         return out
 
     # -- phase 14: the rest of the signature engine's device surface -----
@@ -2808,7 +3414,7 @@ class Smoke:
     async def nfa_service_path(self) -> dict:
         """The MatcherService with the NFA engine factory
         (``MicroBatcher(NFAEngine)``, host bypass off), the ``mixed_100k``
-        subscriptions as OP_SUB frames and the five OP_MATCH requests;
+        subscriptions as OP_SUB frames and the two OP_MATCH requests;
         every answer is held against the CPU trie."""
         from maxmq_tpu_torch.matching.batcher import MicroBatcher
         from maxmq_tpu_torch.matching.engine import NFAEngine
@@ -3497,7 +4103,7 @@ class Smoke:
         cfg = self.sizes["tracing"]
         burst = self.sizes["pipeline"]["burst"]
         _f, gen, _i = self.corpus("mixed_100k")
-        index, engine, _clients = self.pipeline_corpus("mixed_100k")
+        index, engine = self.pipeline_corpus("mixed_100k")
         n = cfg["bursts"] * burst
         topics = gen(n, seed2=4000)
         traffic = publish_frames(kit, topics, 42)
@@ -3569,8 +4175,6 @@ class Smoke:
         heads = {name: self.phase(f"sig headline {name}", self.headline,
                                   name)
                  for name in ("iot_1m_share", "mixed_100k")}
-        pipeline = self.phase("publish pipeline", lambda: asyncio.run(
-            self.publish_pipelines()))
         surfaces = self.phase("sig surfaces", self.sig_surfaces)
         for engine in self.engines.values():
             engine.close()
@@ -3594,6 +4198,8 @@ class Smoke:
         content = self.phase("content evaluator", self.content_evaluator)
         tracing = self.phase("matcher tracing", lambda: asyncio.run(
             self.matcher_tracing()))
+        broker = self.phase("broker", lambda: asyncio.run(
+            self.broker_phases()))
         h = heads["iot_1m_share"]
         sig = dict(KERNELS["sig_match_fixed"], launches=service["launches"],
                    max_abs_err=self.record["max_abs_err"],
@@ -3602,7 +4208,7 @@ class Smoke:
                    library_ms=None, bit_equal=self.record["bit_equal"],
                    shape=f"iot_1m_share batch {h['bucket']}",
                    ms_256=h["kernel_ms_256"],
-                   publish_pipeline_launches=pipeline["launches"],
+                   broker_launches=broker["launches"],
                    tracing_launches=tracing["launches"],
                    surfaces_launches=surfaces["launches"],
                    headline={k: {f: v[f] for f in

@@ -159,6 +159,10 @@ class OutboundQueue:
         # to complete next (which may predate S's delivery entirely)
         self.enqueued = 0
         self.removed = 0
+        # monotonic time of the last put that found the writer parked
+        # idle: the stall detector's clock starts no earlier (a writer
+        # that has not yet been woken for its work is not stalled)
+        self.woken = 0.0
 
     def qsize(self) -> int:
         return len(self._q)
@@ -173,6 +177,8 @@ class OutboundQueue:
             self._overload.note_put(size)
         g = self._getter
         if g is not None and not g.done():
+            if not self._wake_deferred:
+                self.woken = time.monotonic()
             s = self._scheduler
             if s is None or not s.defer(self):
                 g.set_result(None)

@@ -1,12 +1,16 @@
 """Deterministic fault injection for the matcher degradation ladder.
 
 The registry core of the JAX package's ``faults.py``, for the sites the
-matcher service, the publish pipeline and the broker's leaf modules run:
-a device call that raises or hangs, a table recompile that fails, a
-service socket that drops, a native frame-head encode that fails, a
-client writer that stalls, a stored record that fails to restore, and
-the named crash points. Sites cost one dict lookup on an (almost always)
-empty dict when nothing is armed.
+matcher service, the publish pipeline, the broker engine and its leaf
+modules run: a device call that raises or hangs, a table recompile that
+fails, a service socket that drops, a native frame-head encode that
+fails, a client writer that stalls, a connection accept that is refused,
+a content-plane evaluation or window emission that fails, a stored
+record that fails to restore, and the named crash points. The broker's
+cluster inbound path reads the directed ``cluster.partition`` and
+``cluster.shape`` sites (``partition_key``, ``get_shape``); the shapes
+themselves and the partition helpers come with cluster mode. Sites cost
+one dict lookup on an (almost always) empty dict when nothing is armed.
 
 ``arm(site, mode, count)`` fires the fault for exactly the next
 ``count`` hits of that site (``count=-1`` = until disarmed), then
@@ -55,6 +59,18 @@ NATIVE_ENCODE = "native.encode"        # C publish-frame head assembly
                                        # (trips fall back to the
                                        # pure-Python encoder)
 CLIENT_WRITE = "client.write"          # broker client writer loop
+LISTENER_ACCEPT = "listener.accept"    # broker connection accept
+CLUSTER_PARTITION = "cluster.partition"  # directed inter-node network
+                                       # partition (keyed per link
+                                       # direction "src->dst")
+CLUSTER_SHAPE = "cluster.shape"        # directed inter-node WAN link
+                                       # shape (keyed "src->dst")
+FILTER_EVAL = "filter.eval"            # content-plane batch evaluation
+                                       # (trips fail OPEN: the flush
+                                       # delivers unfiltered)
+FILTER_WINDOW = "filter.window"        # aggregate window emission
+                                       # (trips shed that emission,
+                                       # counted in agg_shed)
 STORAGE_RESTORE = "storage.restore"    # per-record boot restore parse
 CRASH_AT = "crash.at"                  # named kill points; keyed per
                                        # point: crash.at#<p>. Mode "kill"
@@ -98,6 +114,9 @@ class FaultRegistry:
         self._lock = threading.Lock()
         # site -> FIFO of specs (so "raise twice then hang once" scripts)
         self._specs: dict[str, list[_Spec]] = {}
+        # directed link key "src->dst" -> link shape (continuous state,
+        # not a countdown of discrete trips)
+        self._shapes: dict = {}
         self.fired: dict[str, int] = {}
         # swappable monotonic-ns clock: the service's trace stamps read
         # through this indirection so a test can script time
@@ -127,10 +146,28 @@ class FaultRegistry:
     def clear(self) -> None:
         with self._lock:
             self._specs.clear()
+            self._shapes.clear()
             self.fired.clear()
 
     def armed(self, site: str) -> bool:
         return site in self._specs
+
+    # -- directed link shapes -------------------------------------------
+
+    def set_shape(self, key: str, spec) -> None:
+        with self._lock:
+            self._shapes[key] = spec
+
+    def get_shape(self, key: str):
+        """Racy-but-safe hot-path lookup (one dict get on an almost
+        always empty dict), mirroring the ``fire`` fast path."""
+        if not self._shapes:
+            return None
+        return self._shapes.get(key)
+
+    def count_fired(self, site_key: str) -> None:
+        """Count one shape action under ``fired``."""
+        self.fired[site_key] = self.fired.get(site_key, 0) + 1
 
     def any_armed(self) -> bool:
         """True when ANY site is armed: the cheap hot-path guard before
@@ -212,6 +249,12 @@ class FaultRegistry:
 REGISTRY = FaultRegistry()
 
 
+def partition_key(src: str, dst: str) -> str:
+    """The key of the directed link ``src -> dst`` under the
+    ``cluster.partition`` and ``cluster.shape`` sites."""
+    return f"{src}->{dst}"
+
+
 def crash_point(point: str) -> None:
     """Die here if the named crash point (``CRASH_POINTS``) is armed:
     ``crash.at#<point>`` fires the registry's ``kill_fn`` (SIGKILL to
@@ -233,6 +276,7 @@ clear = REGISTRY.clear
 armed = REGISTRY.armed
 fire = REGISTRY.fire
 fire_detail = REGISTRY.fire_detail
+get_shape = REGISTRY.get_shape
 arm_from_spec = REGISTRY.arm_from_spec
 fired = REGISTRY.fired
 

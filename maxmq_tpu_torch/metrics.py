@@ -19,7 +19,9 @@ read only an object's ``.tracer``) and the matcher-side registrations
 (the supervisor's fallbacks and breaker, the service client's
 transport, the pool, the signature engine's kernel widths).
 ``register_broker_metrics`` and the registrations that read a broker, a
-cluster manager or storage come with the broker engine.
+cluster manager or storage come with the broker's start path; the
+cluster peer-series bound (``CLUSTER_PEER_SERIES``) is here, read by the
+broker's $SYS cluster entries.
 """
 
 from __future__ import annotations
@@ -381,6 +383,12 @@ class MetricsServer:
 # reasons a small enum, but the exposition page stays bounded even if a
 # future call site invents reasons dynamically
 STAGE_ERROR_SERIES = 32
+
+# per-peer link-series cardinality bound, mirroring the ADR-012
+# offender metric's discipline: the peer set is operator-supplied and
+# small, but the exposition page must stay bounded regardless (the
+# broker's $SYS cluster entries read it too)
+CLUSTER_PEER_SERIES = 8
 
 
 def _register_trace_metrics(registry: Registry, broker) -> None:

@@ -358,3 +358,46 @@ def test_sig_surfaces_on_card_match_cpu(cuda_card):
         for t, g in zip(topics, got):
             assert chip_smoke.normalize(g) == chip_smoke.normalize(
                 idx.subscribers(t)), (fn, t)
+
+
+@pytest.mark.gpu
+def test_broker_sig_on_card_matches_trie_broker(cuda_card):
+    """A small corpus in two of the port's brokers: ``build_matcher``'s
+    supervised sig stack on the card, and the trie; raw TCP subscribers
+    on both receive the same frames for the same publishes (bypass off:
+    every batch launches the kernel)."""
+    import asyncio
+
+    filters, gen = chip_smoke.build_corpus(3_000, seed=5, share_frac=0.1)
+    kit, bk = chip_smoke.port_kit(), chip_smoke.broker_kit()
+    preload = [(f"cl-{i}", Subscription(filter=f, qos=i % 3))
+               for i, f in enumerate(filters)]
+    traffic = chip_smoke.publish_frames(kit, gen(1_024, seed2=6), 7)
+
+    async def run(matcher):
+        side = await chip_smoke.start_broker(
+            bk, chip_smoke.broker_config(bk, matcher), preload,
+            matcher == "sig")
+        try:
+            index = side.broker.topics
+            plan = chip_smoke.subscriber_plan(kit, 24, gen(1_024, seed2=6),
+                                              index.subscribers)
+            await chip_smoke.connect_subscribers(kit, side, plan)
+            launches = sig_kernel.sig_match_fixed.launches
+            if side.broker.matcher is not None:
+                chip_smoke.catch_up(side.broker.matcher.engine)
+                side.broker.matcher.inner.cpu_bypass = False
+                launches = sig_kernel.sig_match_fixed.launches
+            await side.bursts(kit, traffic)
+            return (side.streams(),
+                    sig_kernel.sig_match_fixed.launches - launches,
+                    side.broker.matcher)
+        finally:
+            await side.close()
+
+    got, launches, sup = asyncio.run(run("sig"))
+    want, _l, _m = asyncio.run(run("trie"))
+    assert launches > 0
+    assert not {k: v for k, v in sup.fallbacks_by_reason.items()
+                if k != "overflow" and v}
+    assert got == want and sum(len(v) for v in got.values()) > 500

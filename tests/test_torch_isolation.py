@@ -49,7 +49,8 @@ def _imports(path: Path):
 
 def test_ast_scan_finds_no_forbidden_import():
     files = sorted(PACKAGE.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_cluster_cards.py"]
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_cluster_cards.py",
+        ROOT / "scripts" / "torch_broker_fleet.py"]
     assert len(files) > 10
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imports(f) if _forbidden(m)]
@@ -282,6 +283,66 @@ def test_broker_leaves_and_sig_surfaces_stand_alone(tmp_path):
         for fn in (engine.subscribers_batch,
                    engine.subscribers_compact_batch):
             assert list(fn(["a/b"])[0].subscriptions) == ["c1"]
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib")
+                     or m == "maxmq_tpu" or m.startswith("maxmq_tpu."))
+        print("FORBIDDEN", bad)
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+ENGINE_MODULES = ("broker.server", "filtering.plane", "bootstrap")
+
+
+def test_broker_engine_stands_alone():
+    """The broker engine, its content plane and the matcher boot exist in
+    the port, are in the AST scan's reach, and run in a fresh interpreter
+    (a broker with ``build_matcher``'s supervised signature stack on the
+    CPU, a predicate subscription, a publish round trip over TCP) without
+    JAX or the JAX package being imported."""
+    for m in ENGINE_MODULES:
+        assert (PACKAGE / (m.replace(".", "/") + ".py")).is_file(), m
+    script = textwrap.dedent(f"""
+        import asyncio, importlib, sys
+        for m in {ENGINE_MODULES!r}:
+            importlib.import_module("maxmq_tpu_torch." + m)
+        from maxmq_tpu_torch.bootstrap import (build_matcher,
+                                               capabilities_from_config)
+        from maxmq_tpu_torch.broker import Broker, BrokerOptions, TCPListener
+        from maxmq_tpu_torch.hooks import AllowHook
+        from maxmq_tpu_torch.mqtt_client import MQTTClient
+        from maxmq_tpu_torch.utils.config import Config
+
+        async def main():
+            conf = Config()
+            conf.mqtt_sys_topic_interval = 0
+            conf.filter_backend = "torch"
+            b = Broker(BrokerOptions(
+                capabilities=capabilities_from_config(conf), device="cpu"))
+            b.add_hook(AllowHook())
+            build_matcher(conf, b, device="cpu")
+            lst = b.add_listener(TCPListener("t", "127.0.0.1:0"))
+            await b.serve()
+            port = lst._server.sockets[0].getsockname()[1]
+            c = MQTTClient(client_id="c")
+            await c.connect("127.0.0.1", port)
+            await c.subscribe("a/+?$expr=payload.t>1")
+            await c.subscribe("b/#")
+            await c.publish("a/x", b'{{"t": 0}}')
+            await c.publish("a/y", b'{{"t": 2}}')
+            await c.publish("b/z", b"plain")
+            got = [(await c.next_message(timeout=10)).topic
+                   for _ in range(2)]
+            assert got == ["a/y", "b/z"], got
+            assert b.content.evaluator.device_fallbacks == 0
+            await c.disconnect()
+            await b.close()
+            await b.matcher.close()
+        asyncio.run(main())
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib")
                      or m == "maxmq_tpu" or m.startswith("maxmq_tpu."))

@@ -174,11 +174,10 @@ SMOKE_CPU_SIZES = {"subs": {"mixed_100k": 2_000, "hash_plus_100k": 2_000,
                    "decode_sample": 128,
                    "frames": 200,
                    "pipeline": {"burst": 64,
-                                "supervisor": {"deadline_ms": 1_000.0},
-                                "mixed_100k": {"burst": 256, "trickle": 16,
-                                               "compare": 256},
-                                "iot_1m_share": {"burst": 128, "trickle": 0,
-                                                 "compare": 64}},
+                                "supervisor": {"deadline_ms": 1_000.0}},
+                   "broker": {"clients": 16, "mixed_100k": 256,
+                              "iot_1m_share": 128, "faults": 279,
+                              "fleet": {"iot_1m_share": 128}},
                    "content": {"shapes": ((64, 256), (300, 64)), "reps": 2},
                    "tracing": {"bursts": 2, "service_topics": 128}}
 

@@ -7,17 +7,19 @@ the open breaker, a reprobe that closes it, reprobes that fail (doubled
 backoff) and a failed recompile that keeps serving. A dead matcher-service
 socket under the port's supervisor is answered from the trie.
 
-Then the whole slice: PUBLISH frames to delivery frames (codec, inbound
-aliases, the supervised batcher over the signature engine, the fan-out
-and the wire templates, as ``chip_smoke.py``'s phase 12 runs it), the
-port's pipeline against the JAX package's: equal frames per client.
+Then the whole slice: PUBLISH frames to delivery frames through each
+package's broker (codec, inbound aliases, the supervised batcher over the
+signature engine, the fan-out and the wire templates, as
+``chip_smoke.py``'s phase 12 runs it), the port's broker against the JAX
+package's and the port's trie broker: equal frames per TCP subscriber,
+equal bytes per corpus client served in process, and equal match answers
+for every published topic.
 """
 
 import asyncio
 import os
 import tempfile
 import time
-from collections import Counter
 from types import SimpleNamespace
 
 import pytest
@@ -273,67 +275,132 @@ def jax_kit():
         TopicIndex=j_trie.TopicIndex)
 
 
+def jax_broker_kit():
+    from maxmq_tpu import bootstrap
+    from maxmq_tpu.broker import Broker, BrokerOptions, Client, TCPListener
+    from maxmq_tpu.hooks import AllowHook
+    from maxmq_tpu.utils.config import Config
+
+    return SimpleNamespace(
+        Broker=Broker, BrokerOptions=BrokerOptions, TCPListener=TCPListener,
+        Client=Client, AllowHook=AllowHook, Config=Config,
+        capabilities_from_config=bootstrap.capabilities_from_config,
+        build_matcher=bootstrap.build_matcher)
+
+
 # the production supervisor with a wider deadline: on a CPU shared with
 # other test workers a 250 ms wall-clock deadline would make which answers
 # the trie serves depend on load (the fault-script tests above and the
 # card run hold the deadline itself)
-SLICE_SUPERVISOR = {**chip_smoke.PIPELINE_SUPERVISOR, "deadline_ms": 5_000.0}
+SLICE_DEADLINE_MS = 5_000
 
 
-async def run_slice(kit, engine_of, filters, clients, traffic, burst=64):
-    """PUBLISH frames through one package's pipeline at the production
-    matcher settings; returns each client's frames and the supervisor."""
-    pkg = PKGS[engine_of]
-    idx = kit.TopicIndex()
-    for i, f in enumerate(filters):
-        idx.subscribe(f"cl-{i}", clients.subscription(kit, i, f))
-    eng = pkg.engine(idx)
-    eng.emit_intents = True
-    for n in (1, 16, 64):                  # the buckets, outside deadlines
-        eng.subscribers_fixed_batch(["$warm/x"] * n)
-    batcher = pkg.MicroBatcher(eng, cpu_bypass=False,
-                               **chip_smoke.PIPELINE_BATCHER)
-    sup = pkg.sup.SupervisedMatcher(batcher, index=idx,
-                                    **SLICE_SUPERVISOR)
-    dec = chip_smoke.PubDecoder(kit)
-    dlv = chip_smoke.Deliveries(kit, clients)
-    frames, owners = traffic["burst"]
-    for a in range(0, len(frames), burst):
-        pkts = dec.decode(frames[a:a + burst], owners[a:a + burst])
-        res = await asyncio.gather(*(sup.subscribers_async(p.topic)
-                                     for p in pkts))
-        for p, r in zip(pkts, res):
-            if p.fixed.retain:
-                idx.retain(p)
-            dlv.fan_out(r, p)
-    for p in dec.decode(*traffic["trickle"]):
-        dlv.fan_out(await sup.subscribers_async(p.topic), p)
-    await batcher.close()
-    return dlv, sup
+async def run_slice(bk, pkg_kit, matcher, preload, plan, traffic, fleet,
+                    versions, device=None):
+    """PUBLISH frames through one package's broker (``build_matcher`` at
+    the production settings, or its trie), the subscribers of ``plan``
+    connected over TCP and the corpus clients of ``fleet`` served live in
+    process (a CONNECT built with ``pkg_kit``, the broker's package, at
+    ``versions``); returns each subscriber's frames and each fleet
+    session's bytes, the match answer of every published topic, by topic
+    and normalized (the answers the broker dispatched; the trie broker's
+    are its index's), and the matcher."""
+    conf = chip_smoke.broker_config(bk, matcher)
+    conf.matcher_deadline_ms = SLICE_DEADLINE_MS
+    kit = chip_smoke.port_kit()
+    side = await chip_smoke.start_broker(bk, conf, preload,
+                                         matcher != "trie", device)
+    b = side.broker
+    answers, dispatch = [], b._dispatch_match
+
+    def recorded(topic):
+        answers.append((topic, dispatch(topic)))
+        return answers[-1][1]
+
+    b._dispatch_match = recorded
+    try:
+        await chip_smoke.connect_subscribers(kit, side, plan)
+        chip_smoke.connect_fleet(bk, pkg_kit, side, fleet, versions)
+        engine = getattr(b.matcher, "engine", None)
+        if engine is not None:                 # the clients' subscriptions
+            await asyncio.get_running_loop().run_in_executor(
+                None, chip_smoke.catch_up, engine)
+        for frames in traffic:
+            await side.bursts(kit, frames)
+        streams = side.streams()
+        streams.update(side.fleet_streams({}))
+        streams.update(await chip_smoke.resume_offline(side, plan))
+        if b.matcher is None:
+            answers = [(pk.topic, b.topics.subscribers(pk.topic))
+                       for frames in traffic
+                       for pk in chip_smoke.PubDecoder(kit).decode(*frames)]
+        else:
+            answers = [(t, f.result()) for t, f in answers
+                       if t != chip_smoke.FENCE_TOPIC]
+        return (streams, {t: chip_smoke.normalize(r) for t, r in answers},
+                b.matcher)
+    finally:
+        del b._dispatch_match
+        await side.close()
 
 
 async def test_publish_frames_to_delivery_frames_parity():
-    """Both packages' pipelines over the same PUBLISH frames (v5 and
-    v3.1.1, QoS 0-2, inbound aliases, retained publishes; subscribers
-    with identifiers, retain-as-published, outbound aliases, '$share'
-    groups, some offline) deliver the same frames to each client, with
-    no answer from a supervisor's hedge."""
+    """Both packages' brokers over the same PUBLISH frames (v5 and
+    v3.1.1, QoS 0-2, inbound aliases, retained publishes; subscribers over
+    TCP with identifiers, retain-as-published, outbound aliases, '$share'
+    groups, persistent sessions resumed after the traffic; the 2,000-filter
+    corpus's online clients as live sessions), each with
+    ``build_matcher``'s supervised signature stack (the port's on the
+    CPU), and the port's trie broker: every subscriber and corpus client
+    receives the same bytes in the same order, every published topic gets
+    the same match answer, and no answer comes from a supervisor's
+    hedge."""
     filters, gen = chip_smoke.build_corpus(2_000, seed=42, share_frac=0.1)
     clients = chip_smoke.ClientTable(len(filters))
-    traffic = {}
-    for key, n, seed in (("burst", 512, 42), ("trickle", 16, 43)):
+    traffic, published = [], set()
+    for n, seed in ((512, 42), (16, 43)):
         topics = gen(n, seed2=4000 + seed)
+        published.update(topics)
         t_frames = chip_smoke.publish_frames(chip_smoke.port_kit(), topics,
                                              seed)
         assert chip_smoke.publish_frames(jax_kit(), topics, seed) \
             == t_frames                    # the two encoders agree
-        traffic[key] = t_frames
-    got = {}
-    for name, kit in (("torch", chip_smoke.port_kit()), ("jax", jax_kit())):
-        dlv, sup = await run_slice(kit, name, filters, clients, traffic)
-        hedged = {k: v for k, v in sup.fallbacks_by_reason.items()
-                  if k != "overflow" and v}
-        assert not hedged and not sup.breaker_trips, (name, hedged)
-        got[name] = {c: Counter(f) for c, f in dlv.frames.items()}
-        assert dlv.delivered > 250 and dlv.slow_checked > 100
-    assert got["torch"] == got["jax"]
+        traffic.append(t_frames)
+    versions = {f"cl-{i}": (5 if clients.v5[i] else 4,
+                            int(clients.alias_max[i]))
+                for i in range(len(filters))}
+    got, matched = {}, {}
+    for name, bk, kit, matcher, device in (
+            ("torch", chip_smoke.broker_kit(), chip_smoke.port_kit(), "sig",
+             "cpu"),
+            ("jax", jax_broker_kit(), jax_kit(), "sig", None),
+            ("torch trie", chip_smoke.broker_kit(), chip_smoke.port_kit(),
+             "trie", None)):
+        preload = [(f"cl-{i}", clients.subscription(kit, i, f))
+                   for i, f in enumerate(filters)]
+        # every online corpus client live in process: its deliveries are
+        # compared too (the offline ones have no session to deliver to)
+        fleet = [(cid, [sub]) for i, (cid, sub) in enumerate(preload)
+                 if not clients.offline[i]]
+        index = kit.TopicIndex()
+        for cid, sub in preload:
+            index.subscribe(cid, sub)
+        plan = chip_smoke.subscriber_plan(
+            chip_smoke.port_kit(), 24, gen(512, seed2=4042),
+            index.subscribers)
+        streams, answers, sup = await run_slice(
+            bk, kit, matcher, preload, plan, traffic, fleet, versions,
+            device)
+        if sup is not None:
+            hedged = {k: v for k, v in sup.fallbacks_by_reason.items()
+                      if k != "overflow" and v}
+            assert not hedged and not sup.breaker_trips, (name, hedged)
+        got[name], matched[name] = streams, answers
+        fleet_bytes = sum(len(streams[cid]) for cid, _s in fleet)
+        delivered = sum(len(v) for c, v in streams.items()
+                        if not c.startswith("cl-"))
+        assert delivered > 1_000 and fleet_bytes > 10_000, (
+            name, delivered, fleet_bytes)
+    assert set(matched["torch trie"]) == published   # every topic
+    assert matched["torch"] == matched["jax"] == matched["torch trie"]
+    assert got["torch"] == got["jax"] == got["torch trie"]
