@@ -27,8 +27,8 @@ Phases, each of which raises on failure:
    16-bit words and one without 32-bit words;
 3. the signature service path: the port's MatcherService on a unix
    socket, driven through its ServiceMatcher client with the 100K
-   ``mixed_100k`` subscriptions (one OP_SUB frame each) and two OP_MATCH
-   requests of 4,096 and 8,192 topics, twice: with the batcher's
+   ``mixed_100k`` subscriptions (one OP_SUB frame each) and the OP_MATCH
+   requests of ``service_rounds`` (one of 4,096 topics), twice: with the batcher's
    adaptive host bypass (the default), then with the bypass off, where the
    kernel must serve most topics; every answer is held against the CPU
    trie, and the decode that served is printed (the native set decode
@@ -39,9 +39,10 @@ Phases, each of which raises on failure:
    decode, and the kernel held against its plain version on one headline
    batch; the kernel is also timed on the service's 256-topic batch, and
    the plane bytes a launch reads are printed. On one more batch, of
-   65,536 topics, the decode runs three ways: the native sets, the
-   native intents after ``prewarm_decode_bases``, and the Python decode
-   on a 16,384-topic sample (cold, then with its row memo warm); the
+   ``decode_batch`` topics, the decode runs three ways: the native sets,
+   the native intents after ``prewarm_decode_bases``, and the Python
+   decode on a ``decode_sample`` sample (cold, then with its row memo
+   warm); the
    intents equal the sets on every topic, the Python decode the native
    one on the sample;
 5. ``dense_walk_words`` (K4 with the pack and the sparse extract fused)
@@ -54,20 +55,23 @@ Phases, each of which raises on failure:
 6. the dense service path: the MatcherService with the dense engine
    factory (``DenseEngine`` behind the MicroBatcher, host bypass off; the
    tables fit the kernel, so it serves), the 100,000 ``dense_2k``
-   subscriptions as OP_SUB frames and the two OP_MATCH requests; every
+   subscriptions as OP_SUB frames and the OP_MATCH request; every
    answer is held against the CPU trie;
 7. dense headline: ``DenseEngine`` at batch 262,144 on ``dense_2k``,
-   pipelined, with the kernel (and on 256 topics), its plain version
+   pipelined, the Python decode on the front ``decode_batch`` topics of
+   the timed batch, with the kernel (and on 256 topics), its plain version
    (held bit for bit against it) and the torch walk timed on one batch;
 8. NFA check: ``NFAEngine`` on the card against ``match_batch_body`` on
    the CPU, bit for bit on (rows, overflow), on the check batch of
-   ``mixed_100k`` and ``iot_1m_share`` and on a narrow configuration
+   ``mixed_100k`` (and ``iot_1m_share`` where the size table's
+   ``nfa_1m`` asks) and on a narrow configuration
    (width 4, max_rows 4) where both overflow causes appear; every
    device-served answer against the CPU trie;
 9. NFA service: the MatcherService with ``MicroBatcher(NFAEngine)`` (host
    bypass off), the ``mixed_100k`` subscriptions as OP_SUB frames and the
-   two OP_MATCH requests, every answer against the CPU trie;
-10. NFA headline: ``NFAEngine`` at ``iot_1m_share``, one 262,144-topic
+   OP_MATCH request, every answer against the CPU trie;
+10. NFA headline (where ``nfa_1m`` asks): ``NFAEngine`` at
+   ``iot_1m_share``, one 262,144-topic
    batch: host tokenize, the device program (CUDA events; launches and
    busy time by ``torch.profiler``), the overflow share, the peak memory,
    and the decode on a 4,096-topic sample against the CPU trie;
@@ -81,7 +85,7 @@ Phases, each of which raises on failure:
    decode a shard, chained per topic) on the same batches, its
    ``ChainedIntents`` held against the set path and the trie, and both
    decodes timed on the same device output;
-12. the broker engine (run last, after phase 13): on each corpus two of
+12. the broker engine (run last, after phase 15): on each corpus two of
    the port's ``Broker``s in this process, each with a ``TCPListener``
    on a free local port, ``AllowHook``, capabilities from
    ``capabilities_from_config`` over the default ``Config`` and $SYS
@@ -107,7 +111,8 @@ Phases, each of which raises on failure:
    publisher's frames as one burst through its own connection, ended
    by a fence publish that every subscriber awaits before the next
    burst: first through the trie broker, then through the card broker,
-   measured. With the bypass off, then on (fresh topics each): the
+   measured. With the bypass off, then (``mixed_100k`` only) on, fresh
+   topics each: the
    match latency, loop lag, full collections, batch sizes, bypass
    share, deliveries/s at the subscribers over the bursts' wall, hedges
    by reason, breaker trips, ``matcher_degrades``, decode routes, frame
@@ -156,7 +161,36 @@ Phases, each of which raises on failure:
    65,536 topics (CUDA events; launches and busy ms by the profiler;
    peak memory) and ``subscribers_batch`` (the Python word-form decode)
    on 4,096 topics;
-15. each kernel's SASS opcode counts (``cuobjdump -sass``, where the
+15. the broker as production starts it (run after phase 13, before
+   phase 12): phase 12's ``mixed_100k`` corpus as one SQLite store of
+   persistent v5 sessions (QoS ``k % 2 + 1``) with the compared
+   subscribers' sessions, written by the port's ``SQLiteStore``, copied
+   twice; two child processes ``python -m maxmq_tpu_torch start -c
+   <conf> --no-banner`` on free ports, SQLite storage under
+   ``storage_sync = "always"``, $SYS off, JSON logs, ``matcher_max_batch``
+   4,096 (the default 256 is under the batcher's bypass cap of 512, so
+   the host bypass could take every batch), the default ``Config``
+   otherwise: the card broker (``matcher = "sig"``, no
+   ``--device``: the card) and the trie broker (``--device cpu``), each
+   restoring its copy. Their boots (restore, compile + prewarm, the
+   rest), no warning, the card broker's matcher on a CUDA device; the
+   compared subscribers resume their stored sessions on both; phase
+   12's PUBLISH frames (two publisher connections, v5 and v3.1.1) in
+   fenced bursts, trie broker first: every subscriber's frames equal;
+   both ``/metrics`` pages with the same series apart from the matcher's,
+   the card broker's batches, bypass share, K1 launches and storage
+   series, no hedge, trip or degrade, and at least half of its topics
+   answered by the card; SIGTERM, exit 0, and the two stores
+   equal record for record (clients, subscriptions, retained, every
+   inflight record: each QoS 1/2 match over the whole corpus; the
+   wall-clock fields ``WALL_CLOCK_FIELDS`` left out). Then the crash
+   rung: the card broker restarted with ``crash.at#post_fsync_pre_ack``
+   armed, PUBACK-paced QoS 1 publishes until the SIGKILL, a restart,
+   every PUBACKed publish in the inflight records of every corpus
+   session the CPU trie names for its topic, and a corpus session and a
+   compared subscriber resumed, each given its queued messages in the
+   store's order;
+16. each kernel's SASS opcode counts (``cuobjdump -sass``, where the
    toolkit has it), the kernels line (JSON), the card line, and the
    result line.
 
@@ -170,8 +204,9 @@ XLA, outside Pallas); each reads both kernels' launch counts, set to 0
 before it. Phase 12 sets them to 0 before each run of its card broker
 and reads them after; its launches ride the kernels line under
 ``broker_launches``, phase 13's tracing runs' under
-``tracing_launches`` and phase 14's (counts set to 0 before it) under
-``surfaces_launches``. The dense and NFA decodes are Python, as the
+``tracing_launches``, phase 14's (counts set to 0 before it) under
+``surfaces_launches`` and phase 15's card broker's (its child process's
+count over the traffic, from its ``/metrics``) under ``started_launches``. The dense and NFA decodes are Python, as the
 reference's.
 The corpora are made here from seed 42 (a copy of the benchmark's corpus
 generator, and the ``dense_2k`` generator); the script imports nothing
@@ -188,6 +223,9 @@ import json
 import os
 import random
 import re
+import shutil
+import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -215,45 +253,64 @@ WATCHDOG_S = 1_100
 # warm-up topics sent before them, the headline batch, the signature
 # headline's batch count and how many of them warm up (the pipeline and
 # the decode's row memo) untimed, the dense_2k generator's arguments, the
-# NFA headline's decode sample, the cluster phase's batch and batch
+# NFA headline's decode sample, whether the NFA check and headline run
+# at ``iot_1m_share``, the cluster phase's batch and batch
 # count (bench config 5: batches of 8,192 on a 2 x 4 mesh), the signature
-# headline's batch decoded three ways and its Python decode sample, the
+# headline's batch decoded three ways (also the dense headline's decoded
+# share of its timed batch) and its Python decode sample, the
 # frames of the scanner check, the tracing phase's burst (and a
 # supervisor override for the CPU rehearsal), the broker phase's compared
-# subscribers, its publishes a run per corpus and its faulted publishes,
+# subscribers, its publishes a run per corpus, the corpora that also run
+# with the bypass on, and its faulted publishes,
 # the fleet rung's publishes per corpus (none here: at ``iot_1m_share`` its
 # two runs took 12.3 min on an H100 host, so ``scripts/torch_broker_fleet.py``
 # runs it alone), the content evaluator's shapes
 # (predicates x payloads: the reference benchmark's 64 x 4,096, and its
 # configured bounds, ``filter_max_subscriptions`` x ``filter_batch_max``)
-# and timed flushes, and the tracing phase's bursts (of the pipeline's
-# burst size) and service topics. The service requests and the decode
-# batch are the depth that was cut to keep the whole run near half of its
-# 1,200 s limit (the host side of the service phases, and full collections
-# of the heap there, grow with the topics sent).
+# and timed flushes, the tracing phase's bursts (of the pipeline's
+# burst size) and service topics, and phase 15's corpus, compared
+# subscribers, publishes, burst, the brokers' ``matcher_max_batch`` (above
+# the batcher's bypass cap of 512, so that a burst's batches may go to the
+# card), the least share of the card broker's topics its card must answer
+# (checked on the card), crash publishes, the group commits past the
+# boot's at which the crash point kills, and its waits for a boot and for
+# a stop. The service requests, the headline batches, the decode
+# batch, the cluster batches and the broker phase's publishes are the
+# depth that was cut to keep the whole run under 800 s (the host side of
+# the service phases, and full collections of the heap there, grow with
+# the topics sent; the signature and dense headlines' host decodes ran
+# ~10,000 and ~6,000 topics/s on an H100 host).
 SIZES = {"subs": {"mixed_100k": 100_000, "hash_plus_100k": 100_000,
                   "iot_1m_share": 1_000_000, "cluster_100k": 100_000},
          "check_batch": 4_096 + 100,
-         "service_rounds": (4_096, 8_192),
+         "service_rounds": (4_096,),
          "service_warm": 1_024,
          "headline_batch": 262_144,
-         "headline_batches": 2,
-         "headline_warm": 1,
+         "headline_batches": 1,
+         "headline_warm": 0,
          "edge_batch": 70_001,
          "dense_corpus": {"n_filters": 2_000, "n_subs": 100_000,
                           "width": 440},
          "nfa_sample": 4_096,
+         "nfa_1m": True,
          "cluster_batch": 8_192,
-         "cluster_batches": 2,
-         "decode_batch": 65_536,
-         "decode_sample": 16_384,
+         "cluster_batches": 1,
+         "decode_batch": 8_192,
+         "decode_sample": 4_096,
          "frames": 4_000,
          "pipeline": {"burst": 1_024},
-         "broker": {"clients": 64, "mixed_100k": 16_384,
-                    "iot_1m_share": 4_096, "faults": 279,
+         "broker": {"corpora": ("mixed_100k", "iot_1m_share"),
+                    "clients": 64, "mixed_100k": 2_048,
+                    "iot_1m_share": 512,
+                    "faults": 279, "bypass_on": ("mixed_100k",),
                     "fleet": {}},
          "content": {"shapes": ((64, 4_096), (10_000, 256)), "reps": 3},
-         "tracing": {"bursts": 4, "service_topics": 4_096}}
+         "tracing": {"bursts": 4, "service_topics": 4_096},
+         "started": {"corpus": "mixed_100k", "clients": 64,
+                     "publishes": 4_096, "burst": 768, "max_batch": 4_096,
+                     "device_share": 0.5,
+                     "crash_publishes": 512, "crash_after": 64,
+                     "boot_s": 600.0, "stop_s": 30.0}}
 # engine counters of topics NOT served by the device path, per engine
 SIG_COUNTERS = ("host_matches", "fallbacks", "trie_routed")
 DENSE_COUNTERS = ("fallbacks",)
@@ -600,14 +657,16 @@ class ClientTable:
                                 retain_as_published=bool(self.rap[i]))
 
 
-def publish_frames(kit, topics: list[str], seed: int):
+def publish_frames(kit, topics: list[str], seed: int,
+                   publishers: int = PUB_MIX["publishers"]):
     """One encoded PUBLISH frame per topic, in order, with the publisher
     connection that sends it (``pub5-<k>`` speaks v5, ``pub4-<k>``
-    v3.1.1): QoS, retain, payload (16-256 random bytes), v5 properties
-    (user properties, correlation data, content type, message expiry,
-    payload format, response topic) and inbound topic aliases from a numpy
-    seed. An aliased publish carries topic and alias the first time its
-    publisher sends that topic, the alias alone (an empty topic) after."""
+    v3.1.1, ``k`` below ``publishers`` a version): QoS, retain, payload
+    (16-256 random bytes), v5 properties (user properties, correlation
+    data, content type, message expiry, payload format, response topic)
+    and inbound topic aliases from a numpy seed. An aliased publish
+    carries topic and alias the first time its publisher sends that
+    topic, the alias alone (an empty topic) after."""
     rng = np.random.default_rng(seed)
     mix = PUB_MIX
     n = len(topics)
@@ -615,7 +674,7 @@ def publish_frames(kit, topics: list[str], seed: int):
     qos = rng.choice(3, n, p=mix["qos"])
     alias = v5 & (rng.random(n) < mix["alias"])
     retain = rng.random(n) < mix["retain"]
-    pub = rng.integers(0, mix["publishers"], n)
+    pub = rng.integers(0, publishers, n)
     plen = rng.integers(16, 257, n)
     draws = rng.random((n, 6))
     frames, owners, state = [], [], {}
@@ -1051,11 +1110,12 @@ class BrokerSide:
             await asyncio.sleep(0.001)
         self.ack_s += time.perf_counter() - t0
 
-    async def bursts(self, kit, traffic, between=None) -> float:
-        """Each publisher's frames of ``traffic`` as one burst through its
-        connection, ended by a fence, publishers in order of first
-        appearance; ``between()`` runs after each fence. Returns the
-        seconds ``between`` took."""
+    async def bursts(self, kit, traffic, between=None,
+                     chunk: int | None = None) -> float:
+        """Each publisher's frames of ``traffic`` as bursts through its
+        connection (one burst, or ``chunk`` frames each), each ended by a
+        fence, publishers in order of first appearance; ``between()`` runs
+        after each fence. Returns the seconds ``between`` took."""
         frames, owners = traffic
         by_owner: dict = {}
         for f, o in zip(frames, owners):
@@ -1063,12 +1123,14 @@ class BrokerSide:
         spent = 0.0
         for owner, fs in by_owner.items():
             pub = await self.publisher(kit, owner)
-            pub.send(fs)
-            await self.fence(pub)
-            if between is not None:
-                t0 = time.perf_counter()
-                between()
-                spent += time.perf_counter() - t0
+            step = chunk or len(fs)
+            for i in range(0, len(fs), step):
+                pub.send(fs[i:i + step])
+                await self.fence(pub)
+                if between is not None:
+                    t0 = time.perf_counter()
+                    between()
+                    spent += time.perf_counter() - t0
         return spent
 
     def streams(self, start: dict | None = None) -> dict:
@@ -1357,6 +1419,356 @@ def streams_equal(what: str, got: dict, want: dict) -> int:
     return sum(len(v) for v in got.values())
 
 
+# -- phase 15: the broker as production starts it ------------------------
+
+# the root of the checkout: the started brokers run from it
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# the corpus sessions' v5 session expiry in phase 15's store (s)
+STARTED_EXPIRY = 3600
+# the metric families that only a broker with a matcher registers (the
+# JAX package's ``_register_matcher_metrics``, metrics.py:993-1058, and
+# the start path's kernel launches): the trie broker lacks them
+MATCHER_ONLY = ("maxmq_broker_publish_pipeline_depth",
+                "maxmq_broker_publish_trie_degraded_total")
+# the wall-clock fields of the stored records, left out when two stores
+# are compared: a client's disconnect time, a message's receipt time
+WALL_CLOCK_FIELDS = {"clients": ("disconnected_at",),
+                     "retained": ("created",), "inflight": ("created",)}
+STORE_BUCKETS = ("clients", "subscriptions", "retained", "inflight")
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def started_subscription(kit, k: int, sub):
+    """Corpus subscription ``k`` as phase 15 stores it: the corpus's
+    filter and v5 options at QoS ``k % 2 + 1`` (every match of a QoS 1/2
+    publish then leaves an inflight record)."""
+    return kit.Subscription(filter=sub.filter, qos=k % 2 + 1,
+                            identifier=sub.identifier,
+                            retain_as_published=sub.retain_as_published)
+
+
+def started_sessions(kit, corpus, plan) -> list:
+    """Phase 15's stored sessions [(client id, protocol version,
+    [Subscription, ...])]: every corpus client ``(client id,
+    Subscription)`` of ``corpus`` a v5 session with its one subscription,
+    and every compared subscriber of ``plan`` with its subscriptions and
+    the fence topic. Restored at boot, they need no SUBSCRIBE after it:
+    the engine's boot compile covers them all, and no background
+    recompile runs under the traffic."""
+    return ([(cid, 5, [sub]) for cid, sub in corpus]
+            + [(cid, version, [*subs, kit.Subscription(filter=FENCE_TOPIC)])
+               for cid, version, _a, _o, subs in plan])
+
+
+def write_corpus_store(path: str, sessions) -> None:
+    """``sessions`` [(client id, protocol version, [Subscription, ...])]
+    as one SQLite file, written with the port's ``SQLiteStore`` and
+    record classes as its ``StorageHook`` writes them (one transaction):
+    every client a persistent session of the ``tcp`` listener,
+    disconnected (a v5 one with a session expiry of ``STARTED_EXPIRY``),
+    each subscription with its options."""
+    from maxmq_tpu_torch.hooks.storage import (ClientRecord, SQLiteStore,
+                                               SubscriptionRecord)
+
+    ops = []
+    for cid, version, subs in sessions:
+        ops.append(("put", "clients", cid, ClientRecord(
+            client_id=cid, listener="tcp", protocol_version=version,
+            session_expiry=STARTED_EXPIRY if version >= 5 else 0,
+            session_expiry_set=version >= 5).to_json()))
+        for sub in subs:
+            ops.append(("put", "subscriptions", f"{cid}|{sub.filter}",
+                        SubscriptionRecord(
+                            client_id=cid, filter=sub.filter, qos=sub.qos,
+                            no_local=sub.no_local,
+                            retain_as_published=sub.retain_as_published,
+                            retain_handling=sub.retain_handling,
+                            identifier=sub.identifier).to_json()))
+    store = SQLiteStore(path, synchronous="OFF")
+    store.apply_batch(ops)
+    store.close()
+    for suffix in ("-wal", "-shm"):
+        if os.path.exists(path + suffix):
+            raise AssertionError(f"{path}{suffix} left after close")
+
+
+async def resume_subscribers(kit, side: BrokerSide, plan) -> None:
+    """The plan's online clients back on their stored sessions (clean
+    start off; the broker must report the session present); the offline
+    ones stay away."""
+    for cid, version, alias_max, offline, _subs in plan:
+        if offline:
+            continue
+        c = side.subs[cid] = WireClient(
+            kit, cid, version, alias_max, clean=False,
+            expiry=STARTED_EXPIRY if version >= 5 else None)
+        connack = await c.open(side.port)
+        if not connack[2] & 1:
+            raise AssertionError(f"{cid}: its stored session is not "
+                                 "present")
+
+
+def read_store(path: str, bucket: str) -> dict:
+    """A store file's records of one bucket, key -> parsed JSON (the
+    file may belong to a running broker: SQLite's WAL lets this read
+    beside its writer)."""
+    import sqlite3
+
+    conn = sqlite3.connect(path, timeout=30)
+    try:
+        rows = conn.execute("SELECT key, value FROM kv WHERE bucket=?",
+                            (bucket,)).fetchall()
+    finally:
+        conn.close()
+    return {k: json.loads(v) for k, v in rows}
+
+
+def stores_equal(a: str, b: str) -> dict:
+    """Two store files equal bucket by bucket, record for record, each
+    record's wall-clock fields (``WALL_CLOCK_FIELDS``) left out; returns
+    each bucket's records compared."""
+    out = {}
+    for bucket in STORE_BUCKETS:
+        recs = []
+        for path in (a, b):
+            rows = read_store(path, bucket)
+            for rec in rows.values():
+                for field in WALL_CLOCK_FIELDS.get(bucket, ()):
+                    rec.pop(field, None)
+            recs.append(rows)
+        if recs[0] != recs[1]:
+            bad = sorted(k for k in set(recs[0]) | set(recs[1])
+                         if recs[0].get(k) != recs[1].get(k))
+            k = bad[0]
+            raise AssertionError(
+                f"stores differ in {bucket}: {len(bad)} records, first "
+                f"{k!r}: {recs[0].get(k)} vs {recs[1].get(k)}")
+        out[bucket] = len(recs[0])
+    return out
+
+
+def metric_series(text: str) -> dict:
+    """An exposition page's series, (name, labels) -> value."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        key, value = line.rsplit(" ", 1)
+        name, _, labels = key.partition("{")
+        out[(name, labels.rstrip("}"))] = float(value)
+    return out
+
+
+def metric(series: dict, name: str, **labels) -> float:
+    """The sum of a family's series whose labels hold ``labels``."""
+    want = [f'{k}="{v}"' for k, v in labels.items()]
+    return sum(v for (n, lab), v in series.items()
+               if n == name and all(w in lab for w in want))
+
+
+def matcher_only(name: str) -> bool:
+    return name.startswith("maxmq_matcher_") or name in MATCHER_ONLY
+
+
+class StartedBroker:
+    """One broker as production starts it: ``python -m maxmq_tpu_torch
+    start -c <conf> --no-banner`` (``--device`` where given) in a child
+    process run from the checkout's root, on a free TCP port and a free
+    metrics port, with SQLite storage at ``db`` under ``storage_sync =
+    "always"``, $SYS off, JSON logs, ``matcher_max_batch`` where given and
+    the default ``Config`` otherwise.
+    Each start writes its log (the JSON lines of stdout and stderr) to a
+    file of its own in ``workdir``."""
+
+    def __init__(self, name: str, workdir: str, db: str, matcher: str,
+                 device: str | None = None,
+                 max_batch: int | None = None) -> None:
+        self.name, self.workdir, self.db = name, workdir, db
+        self.device = device
+        self.port, self.metrics_port = free_port(), free_port()
+        self.conf = os.path.join(workdir, f"{name}.toml")
+        with open(self.conf, "w") as f:
+            f.write(f'mqtt_tcp_address = "127.0.0.1:{self.port}"\n'
+                    f'metrics_address = "127.0.0.1:{self.metrics_port}"\n'
+                    f'matcher = "{matcher}"\n'
+                    'storage_backend = "sqlite"\n'
+                    f'storage_path = "{db}"\n'
+                    'storage_sync = "always"\n'
+                    'mqtt_sys_topic_interval = 0\n'
+                    'log_format = "json"\n')
+            if max_batch is not None:
+                f.write(f"matcher_max_batch = {max_batch}\n")
+        self.starts = 0
+        self.proc = None
+        self.log_path = ""
+
+    def start(self, faults: str = "") -> None:
+        """Start the process (``faults`` as its ``MAXMQ_FAULTS``)."""
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("MAXMQ_")}
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (ROOT, env.get("PYTHONPATH")) if p)
+        if faults:
+            env["MAXMQ_FAULTS"] = faults
+        cmd = [sys.executable, "-m", "maxmq_tpu_torch", "start", "-c",
+               self.conf, "--no-banner"]
+        if self.device is not None:
+            cmd += ["--device", self.device]
+        self.starts += 1
+        self.log_path = os.path.join(self.workdir,
+                                     f"{self.name}-{self.starts}.log")
+        self.t_start = time.perf_counter()
+        with open(self.log_path, "w") as log_file:
+            self.proc = subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                         stdout=log_file,
+                                         stderr=subprocess.STDOUT)
+
+    def lines(self) -> list[dict]:
+        """The JSON log lines of the current start (others left out)."""
+        out = []
+        with open(self.log_path) as f:
+            for line in f:
+                with contextlib.suppress(ValueError):
+                    rec = json.loads(line)
+                    if isinstance(rec, dict):
+                        out.append(rec)
+        return out
+
+    def tail(self, n: int = 4000) -> str:
+        with open(self.log_path) as f:
+            return f.read()[-n:]
+
+    async def ready(self, timeout: float) -> dict:
+        """Wait for the ``server started`` line and the listener; returns
+        the boot: seconds from the start to that line, split into the
+        restore, the matcher's compile + prewarm (``serve()``'s own
+        clock) and the rest (interpreter, imports, CUDA, config, engine
+        build), the matcher's device, the event loop, and every warning
+        or error logged meanwhile."""
+        deadline = time.monotonic() + timeout
+        while True:
+            if self.proc.poll() is not None:
+                raise AssertionError(
+                    f"{self.name} broker exited {self.proc.returncode} at "
+                    f"boot:\n{self.tail()}")
+            lines = self.lines()
+            started = next((x for x in lines
+                            if x.get("message") == "server started"), None)
+            if started is not None:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{self.name} broker not started in "
+                                     f"{timeout} s:\n{self.tail()}")
+            await asyncio.sleep(0.05)
+        boot_s = time.perf_counter() - self.t_start
+        _r, w = await asyncio.wait_for(
+            asyncio.open_connection("127.0.0.1", self.port), 30)
+        w.close()
+        loop = next((x.get("loop") for x in lines
+                     if x.get("message") == "event loop installed"), None)
+        return {"boot_s": boot_s, "restore_s": started["restore_s"],
+                "compile_prewarm_s": started["compile_s"],
+                "rest_s": boot_s - started["restore_s"]
+                - started["compile_s"],
+                "device": started["device"], "event_loop": loop,
+                "warnings": [x for x in lines if x.get("level")
+                             in ("warn", "error", "fatal")]}
+
+    async def wait(self, timeout: float) -> int:
+        """The process's exit code; fails (killing it) past ``timeout``."""
+        deadline = time.monotonic() + timeout
+        while self.proc.poll() is None:
+            if time.monotonic() > deadline:
+                self.kill()
+                raise AssertionError(f"{self.name} broker still running "
+                                     f"after {timeout} s:\n{self.tail()}")
+            await asyncio.sleep(0.05)
+        return self.proc.returncode
+
+    async def stop(self, timeout: float) -> float:
+        """SIGTERM, then exit 0 within ``timeout`` with no error logged
+        while stopping (a journal closed with uncommitted ops logs one);
+        returns the seconds the stop took."""
+        t0 = time.perf_counter()
+        n0 = len(self.lines())
+        self.proc.send_signal(signal.SIGTERM)
+        rc = await self.wait(timeout)
+        if rc != 0:
+            raise AssertionError(f"{self.name} broker exited {rc} on "
+                                 f"SIGTERM:\n{self.tail()}")
+        errors = [x for x in self.lines()[n0:]
+                  if x.get("level") in ("error", "fatal")]
+        if errors:
+            raise AssertionError(f"{self.name} broker logged errors while "
+                                 f"stopping: {errors}")
+        return time.perf_counter() - t0
+
+    async def drained(self, timeout: float) -> None:
+        """Wait until the broker holds no connection (its /metrics): the
+        clients' DISCONNECTs processed, so a clean session's records are
+        gone before a stop, as on the other broker."""
+        deadline = time.monotonic() + timeout
+        while metric(self.scrape(), "maxmq_mqtt_clients_connected"):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{self.name} broker still holds "
+                                     f"connections after {timeout} s")
+            await asyncio.sleep(0.05)
+
+    def kill(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+
+    def scrape(self) -> dict:
+        import urllib.request
+
+        url = f"http://127.0.0.1:{self.metrics_port}/metrics"
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return metric_series(r.read().decode())
+
+
+async def close_clients(side: BrokerSide) -> None:
+    for c in (*side.subs.values(), *side.pubs.values()):
+        if c.writer is not None:
+            await c.close(disconnect=True)
+
+
+async def resume_in_store_order(kit, port: int, cid: str, version: int,
+                                alias_max: int, records: list,
+                                timeout: float) -> int:
+    """Session ``cid`` resumed (clean start off): the broker must resend
+    its queued deliveries, ``records`` (its inflight records in the
+    store), in the store's order (receipt time, then packet id: the
+    order ``Inflight.all`` resends), each with its packet id and payload.
+    Returns the deliveries held."""
+    want = [(r["packet_id"], r["payload"]) for r in
+            sorted(records, key=lambda r: (r["created"], r["packet_id"]))
+            if r["packet_type"] == 3]
+    c = WireClient(kit, cid, version, alias_max, clean=False,
+                   expiry=STARTED_EXPIRY if version >= 5 else None,
+                   timeout=timeout)
+    connack = await c.open(port)
+    if not connack[2] & 1:
+        raise AssertionError(f"{cid}: no session present on resume")
+    await c.until(lambda: len(c.frames) >= len(want))
+    await c.ping()
+    got = []
+    for f in c.frames:
+        pk = next(kit.parse_stream(bytearray(f)))
+        got.append((publish_pid(f),
+                    kit.Packet.decode(*pk, version).payload.hex()))
+    await c.close(disconnect=True)
+    if got != want:
+        raise AssertionError(f"{cid}: {len(got)} deliveries on resume, "
+                             f"{len(want)} in the store, or another order")
+    return len(got)
+
+
 class LoopLag:
     """Event-loop lag while it runs: a task sleeping 1 ms at a time
     records how late each wake-up came (ms)."""
@@ -1426,6 +1838,14 @@ def collector_paused():
     finally:
         if enabled:
             gc.enable()
+
+
+def release_heap() -> None:
+    """Thaw the heap ``Smoke.phase`` froze and collect it once, after the
+    run drops what earlier phases built (engines, corpora): their garbage
+    cycles, and the device memory those hold, are freed."""
+    gc.unfreeze()
+    gc.collect()
 
 
 def trace_match_spans(tracer, matcher, tr, fut) -> None:
@@ -1622,6 +2042,10 @@ class Smoke:
                                                         qos=i % 3))
         log(f"[corpus] {name}: {len(filters)} subscriptions indexed in "
             f"{time.perf_counter() - t0:.1f} s (collector paused)")
+        # the index lives as long as the corpus: out of the collector's
+        # generations, so the engine's compile-time collection
+        # (``SigEngine._freeze_heap_if_large``) does not walk it again
+        gc.freeze()
         self.corpora[name] = (filters, gen, index)
         return self.corpora[name]
 
@@ -2194,6 +2618,12 @@ class Smoke:
             for cid, sub in self.corpus_preload(name):
                 idx.subscribe(cid, sub)
             engine = SigEngine(idx, device=self.device)
+        # frozen as a broker process's boot compile freezes its corpus
+        # and tables (``SigEngine._freeze_heap_if_large``, once per
+        # process growth step, which phase 4's 1M engine took here): full
+        # collections in the runs walk what the runs allocate (~1 s
+        # pauses over this corpus otherwise, past the 250 ms deadline)
+        gc.freeze()
         log(f"[tracing] {name}: {idx.subscription_count} subscriptions "
             f"indexed and compiled in {time.perf_counter() - t0:.1f} s")
         return idx, engine
@@ -2608,8 +3038,10 @@ class Smoke:
             out["compared_subscribers"] = len(plan)
             out["offline"] = sum(1 for p in plan if p[3])
             log(f"[broker] {name}: {json.dumps(out)}")
-            for k, (label, bypass) in enumerate((("bypass_off", False),
-                                                 ("bypass_on", True))):
+            rungs = [("bypass_off", False)]
+            if name in sz["bypass_on"]:
+                rungs.append(("bypass_on", True))
+            for k, (label, bypass) in enumerate(rungs):
                 run = await self.broker_run(f"{name} {label}", card, trie,
                                             kit, traffic[k], bypass)
                 out[label] = run
@@ -2649,19 +3081,313 @@ class Smoke:
         return out
 
     async def broker_phases(self) -> dict:
-        """Phase 12 on both corpora. It runs last: each corpus freezes the
-        heap after its brokers boot and no thaw follows (a thaw would walk
-        and free both corpora's brokers, 70 s at ``iot_1m_share``, for no
-        phase after it)."""
+        """Phase 12 on the corpora of the size table (``mixed_100k``, then
+        ``iot_1m_share`` with the bypass off only;
+        ``scripts/torch_broker_fleet.py`` adds the fleet rung there). It
+        runs last:
+        each corpus freezes the heap after its brokers boot and no thaw
+        follows (a thaw would walk and free the corpus's brokers, 70 s at
+        ``iot_1m_share``, for no phase after it)."""
         out = {"threads_at_start": sorted(t.name
                                           for t in threading.enumerate())}
         log(f"[broker] threads at the start: {out['threads_at_start']}")
-        for name in ("mixed_100k", "iot_1m_share"):
+        corpora = self.sizes["broker"]["corpora"]
+        for name in corpora:
             out[name] = await self.broker_phase(name)
         out["launches"] = {f"{n} {label}": out[n][label]["launches"]
-                           for n in ("mixed_100k", "iot_1m_share")
+                           for n in corpora
                            for label in ("bypass_off", "bypass_on", "fleet")
                            if label in out[n]}
+        return out
+
+    # -- phase 15: the broker as production starts it --------------------
+
+    async def started_brokers(self) -> dict:
+        """Phase 15: the ``mixed_100k`` corpus as a SQLite store of
+        persistent v5 sessions (QoS ``k % 2 + 1``), copied twice; two
+        brokers started as production starts them (``python -m
+        maxmq_tpu_torch start``): the card broker (``matcher = "sig"``, no
+        ``--device``: the card) and the trie broker (``--device cpu``),
+        each restoring its copy. The compared subscribers on both, the
+        traffic through both (trie broker first) in fenced bursts, every
+        subscriber's frames equal; both ``/metrics`` pages with the same
+        series apart from the matcher's; SIGTERM, exit 0, and the two
+        stores equal record for record (every ``inflight`` record: each
+        QoS 1/2 match over the whole corpus). Then the crash rung: the
+        card broker restarted with ``crash.at#post_fsync_pre_ack`` armed
+        to SIGKILL it mid-stream under PUBACK-paced QoS 1 publishes,
+        started once more, every PUBACKed publish found in the inflight
+        records of every corpus session the CPU trie names for its topic,
+        and a corpus session and a compared subscriber resumed, each
+        receiving its queued messages in the store's order."""
+        from maxmq_tpu_torch.matching.trie import TopicIndex
+
+        if self.device.type == "cuda":
+            import torch
+
+            torch.cuda.empty_cache()    # the child takes the card's memory
+        sz = self.sizes["started"]
+        name = sz["corpus"]
+        kit = port_kit()
+        _f, gen = self.corpus_filters(name)
+        out = {"corpus": name}
+        # the brokers are child processes: what this process allocates here
+        # (the corpus's sessions, the stores read back) is bookkeeping, and
+        # a full collection over the heap the earlier phases left took 20 s
+        with (collector_paused(),
+              tempfile.TemporaryDirectory(prefix="maxmq-started-") as work):
+            t0 = time.perf_counter()
+            subs = [(cid, started_subscription(kit, k, sub))
+                    for k, (cid, sub) in enumerate(self.corpus_preload(name))]
+            index = TopicIndex()
+            for cid, sub in subs:
+                index.subscribe(cid, sub)
+            topics = gen(sz["publishes"], seed2=4500)
+            plan = subscriber_plan(kit, sz["clients"], topics,
+                                   index.subscribers)
+            sessions = started_sessions(kit, subs, plan)
+            base = os.path.join(work, "corpus.db")
+            write_corpus_store(base, sessions)
+            dbs = {}
+            for side in ("card", "trie"):
+                dbs[side] = os.path.join(work, f"{side}.db")
+                shutil.copyfile(base, dbs[side])
+            out["store_write_s"] = time.perf_counter() - t0
+            out["subscriptions"] = len({(cid, sub.filter)
+                                        for cid, _v, ss in sessions
+                                        for sub in ss})
+            device = None if self.device.type == "cuda" else "cpu"
+            card = StartedBroker("card", work, dbs["card"], "sig", device,
+                                 sz["max_batch"])
+            trie = StartedBroker("trie", work, dbs["trie"], "trie", "cpu",
+                                 sz["max_batch"])
+            sides = {"card": BrokerSide(None, card.port),
+                     "trie": BrokerSide(None, trie.port)}
+            try:
+                out.update(await self.started_run(
+                    kit, topics, plan, card, trie, sides,
+                    out["subscriptions"]))
+                for side in sides.values():
+                    await close_clients(side)
+                for b in (card, trie):
+                    await b.drained(sz["stop_s"])
+                out["stop_s"] = {b.name: await b.stop(sz["stop_s"])
+                                 for b in (card, trie)}
+                out["stores"] = stores_equal(dbs["card"], dbs["trie"])
+                if not out["stores"]["inflight"]:
+                    raise AssertionError("no inflight record to compare")
+                log(f"[started] stores equal: {json.dumps(out['stores'])} "
+                    "records (clients, subscriptions, retained, inflight)")
+                out["crash"] = await self.started_crash(
+                    kit, gen, index, card, out["boot_commits"], plan)
+            except BaseException:
+                for b in (card, trie):
+                    if b.log_path:
+                        log(f"[started] {b.name} broker log:\n{b.tail()}")
+                raise
+            finally:
+                for side in sides.values():
+                    with contextlib.suppress(Exception):
+                        await close_clients(side)
+                for b in (card, trie):
+                    b.kill()
+        log(f"[started] {json.dumps(out)}")
+        return out
+
+    async def started_run(self, kit, topics, plan, card, trie, sides,
+                          n_subs: int) -> dict:
+        """Phase 15's two started brokers: boots, traffic, metrics."""
+        sz = self.sizes["started"]
+        out = {}
+        for b in (card, trie):
+            b.start()
+        boots = {b.name: await b.ready(sz["boot_s"]) for b in (card, trie)}
+        for b in (card, trie):
+            boot = boots[b.name]
+            log(f"[started] {b.name} broker boot: {json.dumps(boot)}")
+            if boot["warnings"]:
+                raise AssertionError(f"{b.name} broker warned at boot: "
+                                     f"{boot['warnings']}")
+        if (self.device.type == "cuda"
+                and not boots["card"]["device"].startswith("cuda")):
+            raise AssertionError(f"the card broker's matcher runs on "
+                                 f"{boots['card']['device']}")
+        out["boot"] = boots
+        first = {b.name: b.scrape() for b in (card, trie)}
+        for b in (card, trie):
+            held = metric(first[b.name], "maxmq_mqtt_subscriptions")
+            if held != n_subs:
+                raise AssertionError(f"{b.name} broker restored {held} "
+                                     f"subscriptions of {n_subs}")
+        out["boot_commits"] = int(metric(first["card"],
+                                         "maxmq_storage_commits_total"))
+        traffic = publish_frames(kit, topics, 46, publishers=1)
+        for b in (trie, card):
+            await resume_subscribers(kit, sides[b.name], plan)
+        before = card.scrape()
+        walls, starts = {}, {}
+        for b in (trie, card):
+            side = sides[b.name]
+            starts[b.name] = {c: len(s.frames) for c, s in side.subs.items()}
+            t0 = time.perf_counter()
+            await side.bursts(kit, traffic, chunk=sz["burst"])
+            walls[b.name] = time.perf_counter() - t0
+        frames = streams_equal(
+            "started brokers", sides["card"].streams(starts["card"]),
+            sides["trie"].streams(starts["trie"]))
+        after = {b.name: b.scrape() for b in (card, trie)}
+        out.update(self.started_metrics(before, after, frames, walls,
+                                        len(topics)))
+        out["compared_subscribers"] = len(plan)
+        log(f"[started] traffic: {json.dumps(out)}")
+        return out
+
+    def started_metrics(self, before: dict, after: dict, frames: int,
+                        walls: dict, publishes: int) -> dict:
+        """Both ``/metrics`` pages: the same series (names and label
+        sets) apart from the matcher's, which only the card broker has;
+        the card broker's matcher answered from its engine (batches
+        dispatched, no hedge but ``overflow``, no breaker trip, no
+        pipeline degrade) and, on the card, launched K1 during the
+        traffic and answered at least the size table's ``device_share``
+        of the topics; the storage series of both."""
+        card, trie = after["card"], after["trie"]
+        only_card = {n for n, _l in set(card) - set(trie)}
+        stray = sorted({n for n in only_card if not matcher_only(n)}
+                       | {n for n, _l in set(trie) - set(card)})
+        if stray:
+            raise AssertionError(f"the /metrics pages differ beyond the "
+                                 f"matcher's series: {stray}")
+
+        def delta(name, **labels):
+            return metric(card, name, **labels) - metric(before, name,
+                                                         **labels)
+
+        hedges = {lab: v for (n, lab), v in card.items()
+                  if n == "maxmq_matcher_fallbacks_total" and v
+                  and 'reason="overflow"' not in lab}
+        out = {
+            "metrics_series": {"card": len(card), "trie": len(trie),
+                               "matcher_only": len(set(card) - set(trie))},
+            "batches": delta("maxmq_matcher_batches_total"),
+            "bypassed_topics": delta("maxmq_matcher_bypassed_topics_total"),
+            "received": delta("maxmq_mqtt_messages_received"),
+            "k1_launches": delta("maxmq_matcher_kernel_launches_total",
+                                 kernel="sig_match_fixed"),
+            "device_rtt_ms": metric(card,
+                                    "maxmq_matcher_device_rtt_seconds") * 1e3,
+            "hedges": hedges,
+            "breaker_trips": metric(card, "maxmq_matcher_breaker_trips_total"),
+            "degrades": metric(card,
+                               "maxmq_broker_publish_trie_degraded_total"),
+            "deliveries_compared": frames,
+            "wall_s": walls,
+            "publishes_per_s": {k: publishes / v for k, v in walls.items()}}
+        out["bypass_share"] = out["bypassed_topics"] / max(out["received"],
+                                                           1)
+        # the topics the card answered: those the batcher neither served
+        # from its result cache nor bypassed to the host
+        out["cache_hits"] = delta("maxmq_matcher_cache_hits_total")
+        out["device_topics"] = (out["received"] - out["bypassed_topics"]
+                                - out["cache_hits"])
+        out["device_share"] = out["device_topics"] / max(out["received"], 1)
+        for side, page in after.items():
+            commits = metric(page, "maxmq_storage_commits_total")
+            out[f"{side}_storage"] = {
+                "commits": commits,
+                "barrier_waits": metric(
+                    page, "maxmq_storage_barrier_waits_total"),
+                "commit_ms_mean": metric(
+                    page, "maxmq_storage_commit_seconds_total") * 1e3
+                / max(commits, 1),
+                "last_commit_ms": metric(
+                    page, "maxmq_storage_last_commit_seconds") * 1e3,
+                "largest_batch_ops": metric(
+                    page, "maxmq_storage_largest_batch_ops"),
+                "commit_failures": metric(
+                    page, "maxmq_storage_commit_failures_total")}
+            if not out[f"{side}_storage"]["barrier_waits"]:
+                raise AssertionError(f"{side} broker: no ack waited on the "
+                                     "durability barrier")
+        if (out["batches"] < 1 or hedges or out["breaker_trips"]
+                or out["degrades"]):
+            raise AssertionError(f"the card broker's matcher: {out}")
+        if self.device.type == "cuda" and (out["k1_launches"] < 1
+                                           or not out["device_rtt_ms"]):
+            raise AssertionError("the card broker launched no "
+                                 f"sig_match_fixed on a publish batch: {out}")
+        share = self.sizes["started"]["device_share"]
+        if self.device.type == "cuda" and out["device_share"] < share:
+            raise AssertionError(f"the card answered {out['device_share']:.1%}"
+                                 f" of the card broker's topics (< {share:.0%})"
+                                 f": {out}")
+        return out
+
+    async def started_crash(self, kit, gen, index, card, boot_commits: int,
+                            plan) -> dict:
+        """The crash rung of phase 15 on the card broker's store."""
+        sz = self.sizes["started"]
+        n = sz["crash_publishes"]
+        # topics that reach at least one corpus session, so each
+        # PUBACK-paced publish costs at least one group commit: the kill
+        # lands after ``crash_after`` of them (the boot's own commits and
+        # the publisher's session record come first)
+        topics = [t for t in gen(8 * n, seed2=4600)
+                  if index.subscribers(t).subscriptions][:n]
+        skip = boot_commits + 1 + sz["crash_after"]
+        t0 = time.perf_counter()
+        card.start(f"crash.at#post_fsync_pre_ack:kill:1:0:{skip}")
+        out = {"boot": await card.ready(sz["boot_s"]), "skip": skip}
+        pub = WireClient(kit, "crash-pub", 4, timeout=30)
+        await pub.open(card.port)
+        acked = []
+        for i, topic in enumerate(topics):
+            try:
+                await pub.publish(topic, b"crash-%d" % i, qos=1)
+            except (ConnectionError, OSError, asyncio.TimeoutError):
+                break
+            acked.append(i)
+        rc = await card.wait(sz["stop_s"])
+        with contextlib.suppress(Exception):
+            await pub.close()
+        out.update(killed_rc=rc, pubacked=len(acked),
+                   run_s=time.perf_counter() - t0)
+        if rc != -signal.SIGKILL or not 0 < len(acked) < len(topics):
+            raise AssertionError(f"the crash point did not kill the card "
+                                 f"broker mid-stream: {out}")
+        card.start()
+        out["restart_boot"] = await card.ready(sz["boot_s"])
+        inflight = read_store(card.db, "inflight")
+        held = {(r["client_id"], r["payload"]) for r in inflight.values()}
+        checked = 0
+        for i in acked:
+            payload = (b"crash-%d" % i).hex()
+            for cid in index.subscribers(topics[i]).subscriptions:
+                if (cid, payload) not in held:
+                    raise AssertionError(
+                        f"PUBACKed publish {i} ({topics[i]}) is not in "
+                        f"{cid}'s inflight records")
+                checked += 1
+        out["records_checked"] = checked
+        by_client: dict = {}
+        for r in inflight.values():
+            by_client.setdefault(r["client_id"], []).append(r)
+        corpus_cid = max((c for c in by_client if c.startswith("cl-")),
+                         key=lambda c: (len(by_client[c]), c))
+        offline = [p for p in plan if p[3] and by_client.get(p[0])]
+        if not offline:
+            raise AssertionError("no offline compared subscriber has "
+                                 "queued messages")
+        cid, version, alias_max = offline[0][:3]
+        out["resumed"] = {
+            corpus_cid: await resume_in_store_order(
+                kit, card.port, corpus_cid, 5, 0, by_client[corpus_cid],
+                sz["stop_s"]),
+            cid: await resume_in_store_order(
+                kit, card.port, cid, version, alias_max, by_client[cid],
+                sz["stop_s"])}
+        out["stop_s"] = await card.stop(sz["stop_s"])
+        log(f"[started] crash rung: {json.dumps(out)}")
         return out
 
     # -- phase 14: the rest of the signature engine's device surface -----
@@ -3119,7 +3845,7 @@ class Smoke:
         times = {"prep": [], "fetch": [], "decode": []}
         pending = None
         first_results = None
-        t_first = t_last = 0.0
+        t_last = 0.0
         for i in range(len(batches) + 1):
             topics = batches[i] if i < len(batches) else None
             t0 = t1 = time.perf_counter()
@@ -3129,8 +3855,6 @@ class Smoke:
                     topics, engine.max_levels))
                 t1 = time.perf_counter()
                 out = engine._run(program, *arrays)    # enqueued, no wait
-            if i == warm:
-                t_first = t0
             if topics and i >= warm:
                 times["prep"].append(t1 - t0)
             if pending is not None:      # collect the batch before this one
@@ -3139,7 +3863,10 @@ class Smoke:
                 word_idx, word_val, overflow = engine._fetch(p_out)
                 t3 = time.perf_counter()
                 if j >= warm:            # the warm batch is not decoded
-                    b = len(p_topics)
+                    # the Python decode (~6,000 topics/s) on the front
+                    # ``decode_batch`` topics of the timed batch
+                    b = min(len(p_topics), self.sizes["decode_batch"])
+                    p_topics = p_topics[:b]
                     res = engine.decode_batch(
                         p_topics, word_idx[:b], word_val[:b], overflow[:b],
                         tables)
@@ -3200,7 +3927,7 @@ class Smoke:
         blocks = self.dense_blocks(kt, bucket)
         t_ops = ops / INT32_OPS_PER_S * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        timed_topics = batch * len(times["decode"])
+        decoded_topics = len(first_results[0])
         out = {
             "subs": index.subscription_count, "batch": batch,
             "bucket": bucket, "n_rows": tables.n_rows,
@@ -3209,8 +3936,9 @@ class Smoke:
             "host_prep_topics_per_s": batch / statistics.mean(times["prep"]),
             "extract_fetch_topics_per_s": batch / statistics.mean(
                 times["fetch"]),
-            "decode_topics_per_s": batch / statistics.mean(times["decode"]),
-            "pipelined_topics_per_s": timed_topics / (t_last - t_first),
+            "decoded_topics": decoded_topics,
+            "decode_topics_per_s": decoded_topics / statistics.mean(
+                times["decode"]),
             "kernel_ms": kernel_ms,
             "kernel_topics_per_s": bucket / (kernel_ms / 1e3),
             "kernel_ms_256": kernel_ms_256,
@@ -3252,6 +3980,12 @@ class Smoke:
         counters = {"prepared": sig_tables.prepared,
                     "tokenized": topics.tokenized}
         before = {k: dict(c) for k, c in counters.items()}
+        # what the earlier phases left (1M-subscription corpora, indexes,
+        # engines) moves to the collector's permanent generation: a full
+        # collection in this phase walks what this phase allocates, not
+        # them (they took ~110 s of full collections in a run). Garbage
+        # cycles among them are never collected: memory, not answers.
+        gc.freeze()
         t0 = time.perf_counter()
         with full_collections() as pauses:
             out = fn(*args)
@@ -3414,7 +4148,7 @@ class Smoke:
     async def nfa_service_path(self) -> dict:
         """The MatcherService with the NFA engine factory
         (``MicroBatcher(NFAEngine)``, host bypass off), the ``mixed_100k``
-        subscriptions as OP_SUB frames and the two OP_MATCH requests;
+        subscriptions as OP_SUB frames and the OP_MATCH requests;
         every answer is held against the CPU trie."""
         from maxmq_tpu_torch.matching.batcher import MicroBatcher
         from maxmq_tpu_torch.matching.engine import NFAEngine
@@ -4179,6 +4913,7 @@ class Smoke:
         for engine in self.engines.values():
             engine.close()
         self.engines.clear()
+        release_heap()
         self.phase("dense check", self.dense_kernel_vs_plain)
         dense_service = self.phase(
             "dense service", lambda: asyncio.run(self.dense_service_path()))
@@ -4187,17 +4922,23 @@ class Smoke:
         # the NFA phases allocate into stays small
         self.dense = self.dense_eng = None
         self.corpora.pop("hash_plus_100k", None)
+        release_heap()
         self.phase("nfa check mixed_100k", self.nfa_check, "mixed_100k")
         self.phase("nfa service", lambda: asyncio.run(
             self.nfa_service_path()))
-        self.phase("nfa check iot_1m_share", self.nfa_check, "iot_1m_share")
-        self.phase("nfa headline", self.nfa_headline)
+        if self.sizes["nfa_1m"]:
+            self.phase("nfa check iot_1m_share", self.nfa_check,
+                       "iot_1m_share")
+            self.phase("nfa headline", self.nfa_headline)
         self.nfa_engines.clear()
         self.corpora.pop("iot_1m_share", None)
+        release_heap()
         self.phase("cluster", self.cluster)
         content = self.phase("content evaluator", self.content_evaluator)
         tracing = self.phase("matcher tracing", lambda: asyncio.run(
             self.matcher_tracing()))
+        started = self.phase("started broker", lambda: asyncio.run(
+            self.started_brokers()))
         broker = self.phase("broker", lambda: asyncio.run(
             self.broker_phases()))
         h = heads["iot_1m_share"]
@@ -4211,6 +4952,7 @@ class Smoke:
                    broker_launches=broker["launches"],
                    tracing_launches=tracing["launches"],
                    surfaces_launches=surfaces["launches"],
+                   started_launches=started["k1_launches"],
                    headline={k: {f: v[f] for f in
                                  ("kernel_ms", "kernel_ms_256", "plain_ms",
                                   "bound_ms", "bound_by", "launches")}
@@ -4226,7 +4968,8 @@ class Smoke:
                      walk_ms=dh["walk_ms"], ms_256=dh["kernel_ms_256"],
                      headline_launches=dh["launches"])
         return {"kernels": [sig, dense], "content": content,
-                "tracing": tracing, "surfaces": surfaces}
+                "tracing": tracing, "surfaces": surfaces,
+                "started": started}
 
 
 def main() -> int:

@@ -1,23 +1,49 @@
-"""Process bootstrap, the part that builds the broker's matcher: config →
-broker capabilities, and the configured matcher engine stacked under the
-broker (engine → ``MicroBatcher`` → tracer → ``SupervisedMatcher``), warmed
-as the reference warms it.
+"""Process bootstrap: config → logger → broker + metrics server → run until
+signalled.
 
-Parity surface: internal/cli/start.go in the reference (the facade's
-Config → Capabilities mapping, internal/mqtt/server.go:76-91).
+Parity surface: internal/cli/start.go in the reference — ``runServer``
+(start.go:111-181) loads config, builds the snowflake-ID logger, spawns the
+metrics and MQTT servers concurrently, waits for SIGINT/SIGTERM
+(start.go:69-77), and optionally writes CPU/heap profiles (128-137,165-180).
 
-Copy of ``capabilities_from_config``, ``build_matcher`` and
-``supervisor_kwargs`` of the JAX package's ``bootstrap.py``.
-``build_matcher`` takes one keyword the reference lacks, ``device``: the
-engines run on the card unless the caller names another device (``"cpu"``),
-and without CUDA and without a device they raise — the matcher is never
-moved to the CPU on its own.
+Copy of the JAX package's ``bootstrap.py``. ``build_matcher``,
+``build_broker`` and ``run_server`` take one keyword the reference lacks,
+``device``: the engines and the content plane's torch evaluator run on the
+card unless the caller names another device (``"cpu"``), and without CUDA
+and without a device the device engines raise — nothing is moved to the
+CPU on its own. The worker pool (``workers > 1``) and cluster mode
+(``cluster_node_id``) are not ported yet: a config asking for either fails
+at start, naming the port's slice that brings it.
 """
 
 from __future__ import annotations
 
-from .broker import Broker, Capabilities
-from .utils.config import Config
+import asyncio
+import os
+import signal
+
+from .broker import Broker, BrokerOptions, Capabilities, TCPListener
+from .broker.listeners import HTTPStatsListener, UnixListener, WSListener
+from .hooks import AllowHook
+from .hooks.logging import LoggingHook
+from .hooks.storage import MemoryStore, SQLiteStore, StorageHook
+from .metrics import MetricsServer, Registry, register_broker_metrics
+from .utils.config import Config, config_as_dict
+from .utils.logger import Logger
+from .utils.snowflake import Snowflake
+
+BANNER = r"""
+  __  __            __  __  ___    _____ ___ _   _
+ |  \/  | __ ___  _|  \/  |/ _ \  |_   _| _ \ | | |
+ | |\/| |/ _` \ \/ / |\/| | (_) |   | | |  _/ |_| |
+ |_|  |_|\__,_|_|\_\_|  |_|\__\_\   |_| |_|  \___/
+        MQTT broker, PyTorch/CUDA port
+"""
+
+# what a config asks for that this package does not run yet, with the port
+# slice that brings it
+WORKER_POOL_SLICE = "port slice 12, the worker pool"
+CLUSTER_SLICE = "port slice 13, cluster"
 
 
 def capabilities_from_config(conf: Config) -> Capabilities:
@@ -68,6 +94,31 @@ def capabilities_from_config(conf: Config) -> Capabilities:
         filter_window_min_s=float(conf.filter_window_min_s),
         filter_window_max_s=float(conf.filter_window_max_s),
     )
+
+
+def install_event_loop(policy: str, logger: Logger | None = None) -> str:
+    """Install the configured asyncio event-loop policy BEFORE
+    asyncio.run (ADR 023 satellite). ``auto`` takes uvloop when the
+    package is installed; ``uvloop`` warns and falls back cleanly when
+    it is not — a config written for a uvloop box must still boot a
+    bare one. Returns the name of what was installed."""
+    policy = (policy or "auto").strip().lower()
+    if policy not in ("auto", "asyncio", "uvloop"):
+        raise ValueError(f"unknown broker_event_loop {policy!r} "
+                         "(want auto|asyncio|uvloop)")
+    if policy in ("auto", "uvloop"):
+        try:
+            import uvloop
+        except ImportError:
+            if policy == "uvloop" and logger is not None:
+                logger.with_prefix("bootstrap").warn(
+                    "uvloop requested but not installed; "
+                    "falling back to asyncio")
+        else:
+            asyncio.set_event_loop_policy(uvloop.EventLoopPolicy())
+            return "uvloop"
+    asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
+    return "asyncio"
 
 
 def build_matcher(conf: Config, broker: Broker, device=None):
@@ -154,3 +205,282 @@ def supervisor_kwargs(conf: Config) -> dict:
                 breaker_window_s=conf.matcher_breaker_window_s,
                 backoff_initial_s=conf.matcher_breaker_backoff_s,
                 backoff_max_s=conf.matcher_breaker_backoff_max_s)
+
+
+def build_cluster(conf: Config, broker: Broker, logger: Logger | None = None):
+    """The federation manager (ADR 013) when ``cluster_node_id`` is set.
+    Cluster mode is not ported yet: a config that sets it fails here, at
+    start, before anything serves."""
+    if not conf.cluster_node_id:
+        return None
+    raise NotImplementedError(
+        f"cluster_node_id = {conf.cluster_node_id!r}: cluster mode is not "
+        f"ported to maxmq_tpu_torch yet ({CLUSTER_SLICE})")
+
+
+def build_storage(conf: Config) -> "StorageHook | None":
+    """The ADR-014 persistence pipeline: backend store (SQLite opened
+    with the ``storage_sync``-derived synchronous pragma) behind a
+    write-behind journal, so hook writes never fsync on the event loop
+    and QoS acks can ride the durability barrier under ``always``."""
+    if not conf.storage_backend:
+        return None
+    from .hooks.faultstore import FaultInjectingStore
+    from .hooks.journal import SQLITE_SYNC_BY_POLICY, WriteBehindStore
+    policy = conf.storage_sync
+    if policy not in SQLITE_SYNC_BY_POLICY:
+        raise ValueError(f"unknown storage_sync {policy!r} "
+                         f"(want always|batched|off)")
+    if conf.storage_backend == "memory":
+        inner = MemoryStore()
+    else:
+        inner = SQLiteStore(conf.storage_path,
+                            synchronous=SQLITE_SYNC_BY_POLICY[policy])
+    # the disk.* fault shim (ADR 024) wraps unconditionally: every site
+    # is consulted off the event loop and the unarmed fast path is one
+    # empty-dict membership test per commit
+    inner = FaultInjectingStore(inner)
+    store = WriteBehindStore(
+        inner, policy=policy,
+        batch_ms=conf.storage_batch_ms,
+        batch_ops=conf.storage_batch_ops,
+        queue_bytes=conf.storage_queue_bytes,
+        breaker_threshold=conf.storage_breaker_threshold,
+        backoff_s=float(conf.storage_breaker_backoff_s),
+        backoff_max_s=float(conf.storage_breaker_backoff_max_s))
+    return StorageHook(store)
+
+
+def build_broker(conf: Config, logger: Logger, device=None) -> Broker:
+    """Assemble a broker from config: capabilities, listeners, hooks,
+    matcher. Mirrors internal/mqtt/server.go:38-118. ``device`` is where
+    the matcher engine and the content plane's torch evaluator run (None:
+    the card)."""
+    broker = Broker(BrokerOptions(capabilities=capabilities_from_config(conf),
+                                  logger=logger.with_prefix("mqtt"),
+                                  device=device))
+    broker.add_hook(LoggingHook(logger.with_prefix("mqtt")))
+    if conf.log_level == "trace":
+        # per-packet tx logging lives in its own hook: its
+        # on_packet_sent override disables zero-copy fan-out (ADR 019),
+        # so it is only attached when TRACE would actually emit
+        from .hooks.logging import PacketTxLogHook
+        broker.add_hook(PacketTxLogHook(logger.with_prefix("mqtt")))
+    if conf.auth_ledger:
+        from .hooks.auth import Ledger, LedgerHook
+        broker.add_hook(LedgerHook(Ledger.from_file(conf.auth_ledger)))
+    else:
+        broker.add_hook(AllowHook())
+    storage = build_storage(conf)
+    if storage is not None:
+        broker.add_hook(storage)
+    if conf.mqtt_tcp_address:
+        broker.add_listener(TCPListener("tcp", conf.mqtt_tcp_address,
+                                        reuse_port=conf.workers > 1))
+    if conf.mqtt_ws_address:
+        broker.add_listener(WSListener("ws", conf.mqtt_ws_address,
+                                       reuse_port=conf.workers > 1))
+    if conf.mqtt_unix_socket:
+        broker.add_listener(UnixListener("unix", conf.mqtt_unix_socket))
+    if conf.mqtt_sys_http_address:
+        broker.add_listener(HTTPStatsListener(
+            "sys-http", conf.mqtt_sys_http_address, lambda: broker.info))
+    # the cluster refusal comes before the matcher starts its background
+    # warm-up (the reference attaches a cluster after the matcher)
+    build_cluster(conf, broker, logger)
+    build_matcher(conf, broker, device=device)
+    return broker
+
+
+def build_metrics(conf: Config, broker: Broker,
+                  logger: Logger) -> MetricsServer | None:
+    if not conf.metrics_enabled:
+        return None
+    registry = Registry()
+    register_broker_metrics(registry, broker)
+    if broker.matcher is not None:
+        _register_kernel_launches(registry)
+    # no cluster is ever attached here (build_cluster refuses one), so
+    # there is no federated /cluster/metrics page to serve
+    return MetricsServer(conf.metrics_address, registry,
+                         path=conf.metrics_path,
+                         profiling=conf.metrics_profiling,
+                         logger=logger.with_prefix("metrics"),
+                         tracer=broker.tracer)
+
+
+def _register_kernel_launches(registry: Registry) -> None:
+    """The process's launches of each hand-written CUDA kernel (each
+    kernel's ``launches`` count; ``sig_kernel``'s docstring says where a
+    launch is counted, never for a plain-version call): what the device
+    matcher ran, beside its batches."""
+    from .matching.dense_kernel import dense_walk_words
+    from .matching.sig_kernel import sig_match_fixed
+
+    for fn in (sig_match_fixed, dense_walk_words):
+        registry.counter_func(
+            "maxmq_matcher_kernel_launches_total",
+            "CUDA kernel launches of this process, by kernel",
+            lambda fn=fn: fn.launches, labels={"kernel": fn.__name__})
+
+
+def new_logger_from_config(conf: Config) -> Logger:
+    from .utils.logger import new_logger
+    sf = Snowflake(machine_id=conf.machine_id)
+    return new_logger(fmt=conf.log_format, level=conf.log_level,
+                      log_id_gen=sf.next_id)
+
+
+def matcher_device(broker: Broker) -> str:
+    """Where the broker's matching runs, for the start line: the engine's
+    device (every cell's, for a mesh), ``service`` for an external
+    matcher service, ``cpu`` for the broker's own trie."""
+    m = broker.matcher
+    if m is None:
+        return "cpu"
+    m = vars(m).get("inner", m)         # a supervisor: what it guards
+    engine = vars(m).get("engine", m)   # a batcher: its engine
+    mesh = getattr(engine, "mesh", None)
+    if mesh is not None:
+        return ",".join(sorted({str(d) for d in mesh.devices.flat}))
+    device = getattr(engine, "device", None)
+    return str(device) if device is not None else "service"
+
+
+async def _maybe_attach_service(conf: Config, broker: Broker) -> None:
+    """matcher = "service": connect to the external card-owning matcher
+    (``python -m maxmq_tpu_torch matcher-service``) at conf.matcher_socket."""
+    if conf.matcher == "service":
+        from .matching.service import attach_matcher_service
+        await attach_matcher_service(
+            broker, conf.matcher_socket,
+            supervisor=(supervisor_kwargs(conf)
+                        if conf.matcher_supervised else None))
+
+
+def _signal_stop_event() -> asyncio.Event:
+    """A stop event set by SIGINT/SIGTERM (start.go:71-77 analogue)."""
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        try:
+            loop.add_signal_handler(sig, stop.set)
+        except NotImplementedError:
+            pass
+    return stop
+
+
+async def run_server(conf: Config, logger: Logger,
+                     ready: asyncio.Event | None = None,
+                     stop: asyncio.Event | None = None,
+                     broker_out: list | None = None,
+                     device=None) -> None:
+    """Run broker + metrics until ``stop`` is set or SIGINT/SIGTERM.
+
+    ``ready``/``stop`` let tests drive the full bootstrap in-process the way
+    the reference's start_test.go runs runServer with a cancellable context;
+    ``broker_out`` (a list the built Broker is appended to) lets them
+    assert on the wired components without reaching into module state.
+    ``device`` goes to ``build_broker`` (None: the card).
+    """
+    boot = logger.with_prefix("bootstrap")
+    boot.debug("effective configuration", **config_as_dict(conf))
+
+    if await _maybe_run_pool(conf, logger, ready, stop):
+        return
+
+    profiler = _start_profiling(conf)
+
+    broker = build_broker(conf, logger, device=device)
+    if broker_out is not None:
+        broker_out.append(broker)
+    # service matcher must attach BEFORE the metrics registry is built,
+    # or the matcher/pipeline metrics never register in service mode
+    await _maybe_attach_service(conf, broker)
+    metrics = build_metrics(conf, broker, logger)
+
+    if stop is None:
+        stop = _signal_stop_event()
+
+    if metrics is not None:
+        metrics.start()
+    try:
+        await broker.serve()
+    except BaseException:
+        # a failed boot (a listener that cannot bind, a restore that
+        # raises) still stops the engine's background work: the
+        # interpreter's teardown would abort torch work caught mid-op
+        if metrics is not None:
+            metrics.stop()
+        await _close_matcher(broker)
+        raise
+    boot.info("server started", tcp=conf.mqtt_tcp_address,
+              matcher=conf.matcher or "trie", device=matcher_device(broker),
+              restore_s=broker.boot_seconds.get("restore", 0.0),
+              compile_s=broker.boot_seconds.get("compile", 0.0))
+    if ready is not None:
+        ready.set()
+
+    try:
+        await stop.wait()
+    finally:
+        boot.info("shutting down")
+        await broker.close()
+        if metrics is not None:
+            metrics.stop()
+        await _close_matcher(broker)
+        if profiler is not None:
+            _stop_profiling(profiler, conf, boot)
+        boot.info("server stopped")
+
+
+async def _close_matcher(broker: Broker) -> None:
+    """Close the attached matcher, then wait (off the loop) for its
+    engine's background refresh and bucket warm-up threads, so the process
+    exits with no torch work in flight."""
+    matcher = broker.matcher
+    if matcher is None:
+        return
+    if hasattr(matcher, "close"):
+        await matcher.close()
+    engine_close = getattr(getattr(matcher, "engine", None), "close", None)
+    if engine_close is not None:
+        await asyncio.get_running_loop().run_in_executor(None, engine_close)
+
+
+async def _maybe_run_pool(conf: Config, logger, ready, stop) -> bool:
+    """The delivery-worker pool (ADR 005/021) when ``workers > 1``, or a
+    pool worker when ``MAXMQ_WORKER_ID`` is set. The pool is not ported
+    yet: either fails here, at start, before anything serves. False:
+    this process runs the broker itself."""
+    worker_id = os.environ.get("MAXMQ_WORKER_ID")
+    if worker_id is not None or conf.workers > 1:
+        what = (f"MAXMQ_WORKER_ID={worker_id}" if worker_id is not None
+                else f"workers = {conf.workers}")
+        raise NotImplementedError(
+            f"{what}: the delivery-worker pool is not ported to "
+            f"maxmq_tpu_torch yet ({WORKER_POOL_SLICE})")
+    return False
+
+
+def _start_profiling(conf: Config):
+    if not conf.profile:
+        return None
+    import cProfile
+    import tracemalloc
+    profiler = cProfile.Profile()
+    profiler.enable()
+    tracemalloc.start()
+    return profiler
+
+
+def _stop_profiling(profiler, conf: Config, boot) -> None:
+    import tracemalloc
+    profiler.disable()
+    profiler.dump_stats(f"{conf.profile_path}/cpu.prof")
+    snap = tracemalloc.take_snapshot()
+    with open(f"{conf.profile_path}/heap.prof", "w") as f:
+        for s in snap.statistics("lineno")[:256]:
+            f.write(str(s) + "\n")
+    tracemalloc.stop()
+    boot.info("profiles written", path=conf.profile_path)

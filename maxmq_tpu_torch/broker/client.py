@@ -11,6 +11,7 @@ Copy of the JAX package's ``broker/client.py``.
 from __future__ import annotations
 
 import asyncio
+import math
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -706,6 +707,9 @@ class Client:
         self.stop_cause = self.stop_cause or cause
         self._stopped.set()
         self.disconnected_at = time.time()
+        note = getattr(self.server, "note_session_closed", None)
+        if note is not None:
+            note(self)
         if self._writer_task is not None:
             try:
                 self.outbound.put_nowait(None)
@@ -740,6 +744,10 @@ class Client:
                 # (no DUP) as send quota opens
                 continue
             q = p.copy()
+            # encoded for this connection: a message restored from the
+            # store carries no version of its own (a v5 session would
+            # get a v3.1.1 frame, which it cannot parse)
+            q.protocol_version = self.properties.protocol_version
             if q.type == PT.PUBLISH and force_dup:
                 q.fixed.dup = True
             # a refused resend is parked, not dropped (it stays in
@@ -752,8 +760,13 @@ class Client:
 
     def expired(self, now: float, maximum_expiry: int) -> bool:
         """True when a disconnected session has outlived its expiry window."""
+        return now > self.expires_at(maximum_expiry)
+
+    def expires_at(self, maximum_expiry: int) -> float:
+        """The time after which this disconnected session is expired
+        (``expired``); infinity when it never disconnected."""
         if self.disconnected_at == 0:
-            return False
+            return math.inf
         if self.properties.protocol_version >= 5:
             expiry = self.properties.session_expiry
             if self.properties.session_expiry_set:
@@ -762,7 +775,7 @@ class Client:
                 expiry = 0 if self.properties.clean_start else maximum_expiry
         else:
             expiry = 0 if self.properties.clean_start else maximum_expiry
-        return now > self.disconnected_at + expiry
+        return self.disconnected_at + expiry
 
 
 class ClientRegistry:

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import asyncio
 import heapq
+import math
 import threading
 import time
 from dataclasses import dataclass, field
@@ -157,6 +158,12 @@ class Broker:
         self._housekeeper: asyncio.Task | None = None
         self._sys_task: asyncio.Task | None = None
         self._will_delays: dict[str, tuple[float, Packet]] = {}
+        # lower bounds the housekeeping sweeps keep (-inf: not swept yet):
+        # no disconnected session expires before ``_expiry_due``, and no
+        # inflight message was received before ``_inflight_oldest``, so a
+        # tick before either skips its sweep over every session
+        self._expiry_due = -math.inf
+        self._inflight_oldest = -math.inf
         # client-id -> Client parked in the ADR-016 takeover await of
         # _attach_client (after _inherit_session, before clients.add):
         # a concurrent CONNECT for the same id must fence it off there
@@ -213,6 +220,7 @@ class Broker:
         self._journal = None
         self.boot_epoch = 0             # persisted monotonic boot counter
         self.storage_barrier_waits = 0  # acks that waited on a barrier
+        self.boot_seconds: dict = {}    # serve()'s restore and compile
         # publish-path tracer (ADR 015): always constructed — the
         # stage-error counters are fed even with sampling off; span
         # stamping is gated on tracer.sample_n at every site
@@ -280,8 +288,13 @@ class Broker:
             # ADR 015: the writer thread feeds the journal_commit stage
             # histogram + commit-failure stage errors through the tracer
             self._journal.tracer = self.tracer
+        t0 = time.perf_counter()
         await self._restore_from_storage()
+        t1 = time.perf_counter()
         await self._compile_matcher_tables()
+        # the boot's two long steps (s), for the start path's log line
+        self.boot_seconds = {"restore": t1 - t0,
+                             "compile": time.perf_counter() - t1}
         if self.capabilities.connect_rate > 0:
             # per-listener CONNECT token bucket (ADR 012): armed before
             # accepting so the very first storm is already gated
@@ -322,6 +335,13 @@ class Broker:
 
         def compile_and_prewarm():
             refresh()
+            # the buckets ``build_matcher`` warmed before the restore ran
+            # on the tables of that time (none, for a restored corpus):
+            # warm them again on the compiled ones, as a background
+            # refresh does after each rotation
+            warm_max = getattr(engine, "_warm_max", None)
+            if warm_max:
+                engine.warm_buckets(warm_max, background=False)
             prewarm = getattr(engine, "prewarm_decode_bases", None)
             if prewarm is None:
                 return
@@ -1827,6 +1847,7 @@ class Broker:
             return False
         out.created = time.time()
         client.inflight.set(out.copy())
+        self._note_inflight(out)
         self.info.inflight += 1
         if not client.inflight.take_send_quota():
             client.held_pids.append(out.packet_id)
@@ -1857,6 +1878,8 @@ class Broker:
                 client.inflight.return_send_quota()
                 continue
             out = held.copy()
+            # encoded for this connection, as resend_inflight does
+            out.protocol_version = client.properties.protocol_version
             self.hooks.notify("on_qos_publish", client, out, time.time(), 0)
             if not client.closed and not client.send(out):
                 # roll back the whole release: keeping the inflight
@@ -1900,6 +1923,7 @@ class Broker:
                      packet_id=packet.packet_id)
         rel.created = time.time()
         client.inflight.set(rel.copy())
+        self._note_inflight(rel)
         client.send(rel)
 
     def _process_pubrel(self, client: Client, packet: Packet) -> None:
@@ -2126,6 +2150,7 @@ class Broker:
                 return
             out.created = now
             client.inflight.set(out.copy())
+            self._note_inflight(out)
             self.info.inflight += 1
             if not client.inflight.take_send_quota():
                 # respect the client's receive maximum [MQTT-3.3.4-9];
@@ -2243,25 +2268,60 @@ class Broker:
             return False
         return now > packet.created + expiry
 
+    # the housekeeping sweeps visit at most this many sessions between two
+    # yields to the loop: a broker holding 100,000 restored sessions would
+    # otherwise hold its loop ~0.4 s every second (the keepalive, expiry,
+    # inflight and stall sweeps), past the matcher's 250 ms deadline
+    SWEEP_CHUNK = 5_000
+
     async def _housekeeping_loop(self) -> None:
         try:
             while True:
                 await asyncio.sleep(1.0)
-                now = time.time()
-                mono = time.monotonic()
-                self._check_keepalives(mono)
-                self._check_client_expiry(now)
-                self._check_will_delays(now)
-                self._check_expired_retained(now)
-                self._check_expired_inflight(now)
-                self._check_stalled_writers(mono)
-                self._check_overload_recovery()
-                if self.content is not None:
-                    self.content.tick(now)
+                await self._housekeeping_tick(time.time(), time.monotonic())
         except asyncio.CancelledError:
             pass
 
-    def _check_stalled_writers(self, mono: float) -> None:
+    async def _housekeeping_tick(self, now: float, mono: float) -> None:
+        """One housekeeping pass, the reference's checks in its order; the
+        expiry and inflight sweeps run only when a session or a message
+        may be due (``_expiry_due``, ``_inflight_oldest``)."""
+        await self._sweep(self._check_keepalives, mono, True)
+        if now > self._expiry_due:
+            self._expiry_due = math.inf
+            await self._sweep(self._check_client_expiry, now, False)
+        self._check_will_delays(now)
+        self._check_expired_retained(now)
+        maximum = self.capabilities.maximum_message_expiry_interval
+        if maximum and now > self._inflight_oldest + maximum:
+            self._inflight_oldest = math.inf
+            await self._sweep(self._check_expired_inflight, now, False)
+        await self._sweep(self._check_stalled_writers, mono, True)
+        self._check_overload_recovery()
+        if self.content is not None:
+            self.content.tick(now)
+
+    async def _sweep(self, check, clock: float, connected: bool) -> None:
+        """Run one per-session housekeeping check over every session (the
+        connected ones where ``connected``), in registry order, as one
+        call while the registry holds at most ``SWEEP_CHUNK`` sessions,
+        else in slices of that many with a yield to the loop between two.
+        A session that left the registry, or (``connected``) closed,
+        during a yield is skipped."""
+        everyone = self.clients.all()
+        if len(everyone) <= self.SWEEP_CHUNK:
+            check(clock)
+            return
+        registry = self.clients
+        for i in range(0, len(everyone), self.SWEEP_CHUNK):
+            if i:
+                await asyncio.sleep(0)
+            check(clock, [c for c in everyone[i:i + self.SWEEP_CHUNK]
+                          if registry.get(c.id) is c
+                          and not (connected and c.closed)])
+
+    def _check_stalled_writers(self, mono: float,
+                               clients: list | None = None) -> None:
         """Slow-consumer policy (ADR 012): a connected client whose
         writer made no progress past the stall deadline while work is
         queued — or whose writer died outright — is disconnected with
@@ -2271,7 +2331,8 @@ class Broker:
         deadline = self.capabilities.stall_deadline_ms / 1000.0
         if deadline <= 0:
             return
-        for client in self.clients.connected():
+        for client in (self.clients.connected() if clients is None
+                       else clients):
             dead = client.write_error is not None
             # no progress since the later of the writer's last flush and
             # the wake-up for its queued work: a writer idle past the
@@ -2321,9 +2382,11 @@ class Broker:
                 continue
             self._publish_retained_to(client, sub, existing)
 
-    def _check_keepalives(self, mono: float) -> None:
+    def _check_keepalives(self, mono: float,
+                          clients: list | None = None) -> None:
         grace = self.capabilities.keepalive_grace
-        for client in self.clients.connected():
+        for client in (self.clients.connected() if clients is None
+                       else clients):
             if client.keepalive <= 0:
                 continue
             if mono - client.last_received > client.keepalive * grace:
@@ -2332,12 +2395,32 @@ class Broker:
                     client.stop(ProtocolError(codes.ErrKeepAliveTimeout)),
                     "keepalive-stop")
 
-    def _check_client_expiry(self, now: float) -> None:
+    def _check_client_expiry(self, now: float,
+                             clients: list | None = None) -> None:
         maximum = self.capabilities.maximum_session_expiry_interval
-        for client in self.clients.all():
-            if client.closed and client.expired(now, maximum):
+        for client in (self.clients.all() if clients is None else clients):
+            if not client.closed:
+                continue
+            due = client.expires_at(maximum)
+            if now > due:
                 self.hooks.notify("on_client_expired", client)
                 self._purge_session(client)
+            elif due < self._expiry_due:
+                self._expiry_due = due
+
+    def note_session_closed(self, client: Client) -> None:
+        """A session's connection ended (``Client.stop``): the expiry
+        sweep's bound moves to its expiry time if that comes sooner."""
+        due = client.expires_at(
+            self.capabilities.maximum_session_expiry_interval)
+        if due < self._expiry_due:
+            self._expiry_due = due
+
+    def _note_inflight(self, packet: Packet) -> None:
+        """A message entered a session's inflight window: the inflight
+        sweep's bound moves to its receipt time if that is older."""
+        if 0 < packet.created < self._inflight_oldest:
+            self._inflight_oldest = packet.created
 
     def _check_will_delays(self, now: float) -> None:
         for cid in list(self._will_delays):
@@ -2395,11 +2478,12 @@ class Broker:
             self.info.retained -= 1
             self.hooks.notify("on_retained_expired", topic)
 
-    def _check_expired_inflight(self, now: float) -> None:
+    def _check_expired_inflight(self, now: float,
+                                clients: list | None = None) -> None:
         maximum = self.capabilities.maximum_message_expiry_interval
         if not maximum:
             return
-        for client in self.clients.all():
+        for client in (self.clients.all() if clients is None else clients):
             expired = 0
             for packet in client.inflight.all():
                 if packet.created > 0 and now > packet.created + maximum:
@@ -2409,6 +2493,8 @@ class Broker:
                         client.inflight.return_send_quota()
                         expired += 1
                         self.hooks.notify("on_qos_dropped", client, packet)
+                else:
+                    self._note_inflight(packet)
             if expired and not client.closed:
                 # the returned quota must reach parked messages: with
                 # nothing left inflight no ack will ever drain held_pids

@@ -1,11 +1,19 @@
-"""Command-line interface: ``matcher-service`` and ``version``.
+"""Command-line interface: ``start``, ``matcher-service`` and ``version``.
+
+    python -m maxmq_tpu_torch start [-c maxmq.conf] [--device cuda|cpu]
+
+boots the broker from its config (TOML file, then ``MAXMQ_*`` env) and
+runs it until SIGINT/SIGTERM, as the JAX package's ``maxmq start`` does;
 
     python -m maxmq_tpu_torch matcher-service --socket PATH [--device cuda|cpu]
 
-serves topic matches on a unix socket; a JAX-package broker started with
-``matcher = "service"`` (and ``matcher_socket = PATH``) attaches
-to it unchanged. The service runs on the card unless ``--device cpu`` is
-given; with no CUDA device it refuses to start.
+serves topic matches on a unix socket; a broker of either package started
+with ``matcher = "service"`` (and ``matcher_socket = PATH``) attaches to it
+unchanged. Both run on the card unless ``--device cpu`` is given; with no
+CUDA device and no ``--device cpu`` they refuse to start.
+
+Parity surface: cmd/maxmq/main.go + internal/cli in the reference — a root
+command with ``start`` (start.go:50-80) and ``version`` (version.go:22-33).
 """
 
 from __future__ import annotations
@@ -20,8 +28,22 @@ from . import __version__
 def make_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="maxmq_tpu_torch",
-        description="maxmq-tpu-torch: the maxmq matcher service on CUDA")
+        description="maxmq-tpu-torch: the maxmq MQTT broker and its matcher "
+                    "service on PyTorch and CUDA")
     sub = parser.add_subparsers(dest="command")
+
+    start = sub.add_parser("start", help="start the broker server")
+    start.add_argument("--config", "-c", default=None,
+                       help="path to maxmq.conf (TOML); default: search "
+                            "., /etc/maxmq, /etc")
+    start.add_argument("--profile", action="store_true",
+                       help="write cpu.prof and heap.prof on shutdown")
+    start.add_argument("--no-banner", action="store_true")
+    start.add_argument("--device", default=None, choices=("cuda", "cpu"),
+                       help="where the matcher engine and the content "
+                            "plane's torch evaluator run (default: cuda; "
+                            "fails without a CUDA device)")
+
     svc = sub.add_parser(
         "matcher-service",
         help="run the card-owning matcher service: brokers started with "
@@ -45,14 +67,51 @@ def cmd_version() -> int:
     return 0
 
 
-def cmd_matcher_service(args: argparse.Namespace) -> int:
-    from .matching.service import MatcherService
+def _device(command: str, requested):
+    """The device a command runs on, or None after saying on stderr why
+    there is none (no CUDA and no ``--device cpu``)."""
     from .matching.sig import resolve_device
 
     try:
-        device = resolve_device(args.device)
+        return resolve_device(requested)
     except RuntimeError as exc:
-        print(f"matcher-service: {exc}", file=sys.stderr)
+        print(f"{command}: {exc}", file=sys.stderr)
+        return None
+
+
+def cmd_start(args: argparse.Namespace) -> int:
+    from .bootstrap import (BANNER, install_event_loop,
+                            new_logger_from_config, run_server)
+    from .utils.config import load_config
+
+    device = _device("start", args.device)
+    if device is None:
+        return 2
+    conf = load_config(path=args.config)
+    if args.profile:
+        conf.profile = True
+    logger = new_logger_from_config(conf)
+    if not args.no_banner:
+        print(BANNER, file=sys.stderr)
+    # ADR 023 satellite: the loop policy must land before asyncio.run
+    loop = install_event_loop(conf.broker_event_loop, logger)
+    logger.with_prefix("bootstrap").info("event loop installed", loop=loop)
+    try:
+        asyncio.run(run_server(conf, logger, device=device.type))
+    except KeyboardInterrupt:
+        pass
+    except Exception as exc:
+        logger.with_prefix("bootstrap").fatal("server failed",
+                                              error=str(exc))
+        return 1
+    return 0
+
+
+def cmd_matcher_service(args: argparse.Namespace) -> int:
+    from .matching.service import MatcherService
+
+    device = _device("matcher-service", args.device)
+    if device is None:
         return 2
 
     async def run() -> None:
@@ -77,6 +136,8 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_args(argv)
     if args.command == "version":
         return cmd_version()
+    if args.command == "start":
+        return cmd_start(args)
     if args.command == "matcher-service":
         return cmd_matcher_service(args)
     parser.print_help()

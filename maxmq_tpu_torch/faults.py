@@ -6,7 +6,9 @@ modules run: a device call that raises or hangs, a table recompile that
 fails, a service socket that drops, a native frame-head encode that
 fails, a client writer that stalls, a connection accept that is refused,
 a content-plane evaluation or window emission that fails, a stored
-record that fails to restore, and the named crash points. The broker's
+record that fails to restore, a journal write or group commit that
+fails, a disk that errors, fills, fails its fsync or stalls under the
+journal (``hooks/faultstore.py``), and the named crash points. The broker's
 cluster inbound path reads the directed ``cluster.partition`` and
 ``cluster.shape`` sites (``partition_key``, ``get_shape``); the shapes
 themselves and the partition helpers come with cluster mode. Sites cost
@@ -71,7 +73,20 @@ FILTER_EVAL = "filter.eval"            # content-plane batch evaluation
 FILTER_WINDOW = "filter.window"        # aggregate window emission
                                        # (trips shed that emission,
                                        # counted in agg_shed)
+STORAGE_PUT = "storage.put"            # journal enqueue boundary
+STORAGE_COMMIT = "storage.commit"      # journal writer-thread group commit
 STORAGE_RESTORE = "storage.restore"    # per-record boot restore parse
+DISK_WRITE = "disk.write"              # backend write/commit path: an
+                                       # armed trip surfaces as EIO from
+                                       # the store
+DISK_ENOSPC = "disk.enospc"            # backend commit: disk full
+                                       # (ENOSPC) from the store
+DISK_FSYNC = "disk.fsync"              # backend commit: write landed,
+                                       # fsync FAILED — dirty-page state
+                                       # unknown (fsyncgate; the journal
+                                       # must poison + reopen + replay)
+DISK_LATENCY = "disk.latency"          # backend commit latency (hang
+                                       # mode sleeps the WRITER thread)
 CRASH_AT = "crash.at"                  # named kill points; keyed per
                                        # point: crash.at#<p>. Mode "kill"
                                        # SIGKILLs the PROCESS

@@ -1,9 +1,10 @@
 """Hook/plugin layer: the event boundary, the auth hooks, the logging
-hooks and persistence (the storage hook and its stores). The write-behind
-journal comes with the broker engine."""
+hooks and persistence (the storage hook, its stores, and the write-behind
+journal with its disk-fault shim)."""
 
 from .auth import ACLRule, AllowHook, AuthRule, Ledger, LedgerHook
 from .base import Hook, Hooks, RejectPacket
+from .journal import WriteBehindStore
 from .logging import LoggingHook, PacketTxLogHook
 from .storage import (ClientRecord, MemoryStore, MessageRecord, SQLiteStore,
                       StorageHook, Store, SubscriptionRecord)
@@ -12,5 +13,5 @@ __all__ = [
     "ACLRule", "AllowHook", "AuthRule", "Ledger", "LedgerHook",
     "Hook", "Hooks", "RejectPacket", "LoggingHook", "PacketTxLogHook",
     "ClientRecord", "MemoryStore", "MessageRecord", "SQLiteStore",
-    "StorageHook", "Store", "SubscriptionRecord",
+    "StorageHook", "Store", "SubscriptionRecord", "WriteBehindStore",
 ]

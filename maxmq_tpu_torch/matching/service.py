@@ -1,10 +1,11 @@
 """Matcher service: one card-owning process serving topic matches over a
 local socket (ADR 005/006).
 
-Copy of the server and client halves of the JAX package's
-``matching/service.py``; the broker-side attach hook stays with the
-broker. The wire protocol is byte-compatible, so a JAX-package broker
-attaches to this service unchanged (``matcher = "service"``).
+Copy of the JAX package's ``matching/service.py``: the server, the
+client, and the broker half (``_ForwardHook``, ``attach_matcher_service``).
+The wire protocol is byte-compatible, so a JAX-package broker attaches to
+this service unchanged (``matcher = "service"``), and so does the port's
+broker.
 
 The service owns the index + SigEngine + MicroBatcher; any number of
 broker processes connect as clients, forward their subscription ops, and
@@ -42,6 +43,7 @@ import os
 import random
 
 from .. import faults
+from ..hooks.base import Hook
 from ..protocol.packets import Subscription
 from ..utils.framing import frame as _frame, read_frame as _read_frame
 from .trie import (SubscriberSet, TopicIndex,
@@ -302,9 +304,9 @@ class MatcherService:
 class ServiceMatcher:
     """Drop-in broker matcher backed by a MatcherService socket: exposes
     ``enqueue(topic) -> Future`` (the ADR-006 pipeline surface) plus
-    ``subscribers_async``, and forwards subscription ops. A broker wires
-    it in with its ``attach_matcher_service(broker, path)``, which also
-    sets ``index``, ``tracer`` and ``_reseed`` below."""
+    ``subscribers_async``, and forwards subscription ops. Attach with
+    ``attach_matcher_service(broker, path)`` so sub/unsub forwarding is
+    wired automatically."""
 
     def __init__(self, path: str) -> None:
         self.path = path
@@ -584,3 +586,78 @@ class ServiceMatcher:
         self._send(OP_MATCH, {"r": req, "t": list(topics)})
         return await fut
 
+
+class _ForwardHook(Hook):
+    """Hook forwarding the broker's subscription lifecycle to the
+    service."""
+
+    id = "matcher-service-forward"
+
+    def __init__(self, matcher: ServiceMatcher) -> None:
+        self.matcher = matcher
+
+    def on_started(self) -> None:
+        # fires after _restore_from_storage (which installs persisted
+        # subscriptions WITHOUT the subscribe hooks): replay the index
+        if self.matcher._reseed is not None:
+            self.matcher._reseed(self.matcher)
+
+    def on_subscribed(self, client, packet, reason_codes, counts) -> None:
+        for sub, rc in zip(packet.filters, reason_codes):
+            if rc < 0x80:
+                self.matcher.forward_subscribe(client.id, sub)
+
+    def on_unsubscribed(self, client, packet) -> None:
+        for sub in packet.filters:
+            self.matcher.forward_unsubscribe(client.id, sub.filter)
+
+    def on_client_expired(self, client) -> None:
+        self.matcher.forward_drop(client.id)
+
+    def on_disconnect(self, client, err, expire: bool) -> None:
+        # expire-on-disconnect purges the local session immediately
+        # (clean sessions); the service must drop those filters too
+        if expire:
+            self.matcher.forward_drop(client.id)
+
+    def on_session_established(self, client, packet) -> None:
+        # clean-start reconnect purged any previous session's filters
+        if packet.clean_start and not client.inline:
+            self.matcher.forward_drop(client.id)
+
+
+async def attach_matcher_service(broker, path: str,
+                                 supervisor: dict | None = None):
+    """Connect to a MatcherService and wire a broker to it: matcher for
+    the publish pipeline + hook forwarding subscription ops. The
+    broker's CURRENT index contents (e.g. subscriptions restored from
+    persistent storage, which bypass the subscribe hooks) are seeded to
+    the service at attach time and re-seeded after any reconnect.
+
+    ``supervisor`` (a dict of SupervisedMatcher kwargs, or None to
+    attach bare) wraps the broker-facing surface in the ADR-011
+    degradation ladder: a dead socket, a hung service, or an errored
+    match answers from the broker's own CPU trie within the deadline.
+    Returns the attached matcher (the supervisor when wrapped — its
+    ServiceMatcher is reachable as ``.inner``, and attribute access
+    delegates, so ``forward_*``/stats work on either)."""
+    matcher = ServiceMatcher(path)
+    matcher.index = broker.topics       # enables the topic cache
+    matcher.tracer = broker.tracer      # ADR 017: RPC trace stamps
+    await matcher.connect()
+
+    def reseed(m: ServiceMatcher) -> None:
+        for cid, sub in broker.topics.walk_subscriptions():
+            m.forward_subscribe(cid, sub)
+
+    matcher._reseed = reseed
+    reseed(matcher)
+    broker.add_hook(_ForwardHook(matcher))
+    attach = matcher
+    if supervisor is not None:
+        from .supervisor import SupervisedMatcher
+        attach = SupervisedMatcher(matcher, index=broker.topics,
+                                   logger=getattr(broker, "log", None),
+                                   **supervisor)
+    broker.attach_matcher(attach)
+    return attach

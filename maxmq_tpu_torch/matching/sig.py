@@ -901,9 +901,11 @@ class SigEngine(OverlayedEngine):
     def warm_buckets(self, max_batch: int = 4096,
                      background: bool = True) -> None:
         """Run the fixed program once at each bucket shape of the
-        dispatch ladder up to ``max_batch``: loads the kernel library and
-        fills the caching allocator with the shapes real batches use. The
-        warm topic is a '$'-prefixed dummy that matches nothing."""
+        dispatch ladder up to ``max_batch``: loads the kernel library,
+        captures each shape's CUDA graph on the card
+        (``sig_kernel.FixedProgram.capture``) and fills the caching
+        allocator with the shapes real batches use. The warm topic is a
+        '$'-prefixed dummy that matches nothing."""
         self._warm_max = max_batch      # re-warmed after each rotation
         sizes, b = [], 16
         while b < max_batch:
@@ -914,7 +916,11 @@ class SigEngine(OverlayedEngine):
         def _warm():
             for size in sizes:
                 try:
-                    fetch = self.dispatch_fixed(["$maxmq/warm"] * size).fetch
+                    warm = ["$maxmq/warm"] * size
+                    state = self._device_state()
+                    state.program.capture(*pad_to_bucket(
+                        state.tables, *prepare_batch(state.tables, warm)[:2]))
+                    fetch = self.dispatch_fixed(warm).fetch
                     # wait on the raw output directly — _fetch_stream
                     # would fold this zero-match batch into the EMA hint
                     if fetch.event is not None:

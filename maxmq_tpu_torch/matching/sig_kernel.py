@@ -11,7 +11,11 @@ pathological corpora to the CPU trie.
 
 ``sig_match_fixed`` is the wrapper: for CUDA tensors it launches the
 kernel (or raises), for CPU tensors it runs ``sig_match_fixed_plain``,
-the same function in torch ops. The wire format is the JAX package's
+the same function in torch ops. ``sig_match_fixed.launches`` counts the
+kernel's launches, each once where it is made: the wrapper counts an
+eager launch; a launch recorded into a CUDA graph (``FixedGraph``, which
+checks that its capture recorded exactly one) is counted by each replay
+of the graph, never by the capture. The wire format is the JAX package's
 "stream": ``counts_u8[B]`` (0xFF = overflow, else the topic's matched
 rows) and ``stream``, the matched rows of all topics concatenated in
 topic order; only its front ``sum(counts)`` entries are defined.
@@ -19,12 +23,16 @@ topic order; only its front ``sum(counts)`` entries are defined.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import numpy as np
 import torch
 
 from .. import faults, kernels
 from .sig_torch import (MASK32, adjusted_signatures, fold16_replicated,
-                        to_int32_bits, token_tensor)
+                        host_tokens, to_int32_bits, token_tensor,
+                        widen_tokens)
 
 PLAIN_SLICE = 8192   # topics per slice of the plain version: bounds its
                      # [slice, words] int64 intermediates (~200 MB each at
@@ -224,8 +232,17 @@ def sig_match_fixed(sig, too_deep, grp_of_word, planes32, planes16,
         msg = lib.sig_match_error_string(rc).decode()
         raise faults.DeviceMatchError(
             f"sig_match_fixed launch failed: {msg} ({rc})")
-    sig_match_fixed.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        # recorded into a CUDA graph, not launched: each replay launches
+        # it and ``FixedGraph.run`` counts that
+        _capture.recorded = getattr(_capture, "recorded", 0) + 1
+    else:
+        sig_match_fixed.launches += 1
     return counts, rows
+
+
+_capture = threading.local()    # kernel launches recorded by this
+                                # thread's capture in progress
 
 
 sig_match_fixed.launches = 0   # kernel launches (not plain-version calls)
@@ -255,9 +272,17 @@ def prologue(dev: dict, kplan: dict, toks8: np.ndarray,
     on the tables' device: adjusted signatures, and for the packed
     region the 16-bit fold replicated into both lanes."""
     device = dev["device"]
-    toks = token_tensor(toks8, device)
-    le = torch.from_numpy(np.ascontiguousarray(lens_enc, dtype=np.int8)
-                          ).to(device).to(torch.int64)
+    return device_prologue(dev, kplan, token_tensor(toks8, device),
+                           torch.from_numpy(np.ascontiguousarray(
+                               lens_enc, dtype=np.int8)).to(device))
+
+
+def device_prologue(dev: dict, kplan: dict, toks: torch.Tensor,
+                    le8: torch.Tensor):
+    """``prologue`` from the tokens (int64 uint32 values) and the int8
+    length encoding already on the device: device work only, no host
+    synchronisation (so a CUDA graph can capture it)."""
+    le = le8.to(torch.int64)
     lengths = le.abs()
     sig = adjusted_signatures(dev, toks, lengths, le < 0)
     if kplan["n_words16"]:
@@ -276,25 +301,124 @@ def region_planes(dev: dict, kplan: dict):
     return dev["planes32"][:, :kplan["n_words32"]], planes16
 
 
-def build_fixed_fn(dev: dict, kplan: dict, max_rows: int):
-    """fn(toks8, lens_enc) -> (counts_u8, stream): prologue, one kernel
-    launch, epilogue — all enqueued on the device without a host
-    synchronisation."""
-    planes32, planes16 = region_planes(dev, kplan)
+# Batches up to this many topics run the fixed program as a CUDA graph on
+# CUDA (one per batch shape, captured when the engine warms its dispatch
+# buckets, then one replay a batch): the eager program is ~170 torch ops,
+# and each op gives the interpreter lock up and waits for it back, so on
+# a broker whose loop is busy (fan-out, storage) a batch waited ~5 ms an
+# op, past the matcher's 250 ms deadline. Larger batches (the headline's
+# 262,144) and shapes that were not warmed run eagerly: a graph keeps its
+# intermediates allocated for its lifetime.
+GRAPH_MAX_BATCH = 4096
 
-    def fn(toks8, lens_enc):
-        try:
-            sig, too_deep = prologue(dev, kplan, toks8, lens_enc)
-            counts, rows = sig_match_fixed(sig, too_deep, dev["grp_of_word"],
-                                           planes32, planes16, max_rows)
-            return counts, compact_stream(counts, rows, max_rows)
-        except faults.DeviceMatchError:
-            raise
-        except RuntimeError as exc:
-            # runtime failures (launch, out of memory) come back untyped:
-            # re-raise typed so a supervisor's logs separate a sick device
-            # from a host bug
-            raise faults.DeviceMatchError(
-                f"fused sig kernel dispatch failed: {exc!r:.300}") from exc
 
-    return fn
+class FixedGraph:
+    """The fixed program for one batch shape captured as a CUDA graph:
+    static device inputs (the token matrix in its host dtype, the int8
+    length encoding), one replay, outputs copied out of the graph's
+    static buffers. ``run`` is thread-safe; each replay launches
+    ``sig_match_fixed`` once and counts it."""
+
+    def __init__(self, dev: dict, body, toks8: np.ndarray,
+                 lens_enc: np.ndarray) -> None:
+        device = dev["device"]
+        self.lock = threading.Lock()
+        self.toks_in = torch.from_numpy(host_tokens(toks8)).to(device)
+        self.le_in = torch.from_numpy(np.ascontiguousarray(
+            lens_enc, dtype=np.int8)).to(device)
+        # one eager run on the capture's side stream first (lazy CUDA
+        # initialisation must not happen under capture), then the capture
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            body(self.toks_in, self.le_in)
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        _capture.recorded = 0
+        with torch.cuda.graph(self.graph, stream=side,
+                              capture_error_mode="thread_local"):
+            self.counts, self.stream = body(self.toks_in, self.le_in)
+        if _capture.recorded != 1:
+            raise RuntimeError(f"the fixed program's capture recorded "
+                               f"{_capture.recorded} sig_match_fixed "
+                               "launches, not 1")
+
+    def run(self, toks8: np.ndarray, lens_enc: np.ndarray):
+        with self.lock:
+            self.toks_in.copy_(torch.from_numpy(host_tokens(toks8)))
+            self.le_in.copy_(torch.from_numpy(np.ascontiguousarray(
+                lens_enc, dtype=np.int8)))
+            self.graph.replay()
+            sig_match_fixed.launches += 1
+            return self.counts.clone(), self.stream.clone()
+
+
+class FixedProgram:
+    """``program(toks8, lens_enc) -> (counts_u8, stream)``: prologue, one
+    kernel launch, epilogue, all enqueued on the device without a host
+    synchronisation. A batch shape that ``capture`` captured replays its
+    ``FixedGraph``; every other batch (and every batch on the CPU) runs
+    the program eagerly. Nothing is captured on the dispatch path."""
+
+    def __init__(self, dev: dict, kplan: dict, max_rows: int) -> None:
+        self.dev, self.kplan, self.max_rows = dev, kplan, max_rows
+        self.planes = region_planes(dev, kplan)
+        self.graphs: dict = {}
+        self.graphs_lock = threading.Lock()
+
+    def _body(self, toks_raw, le8):
+        sig, too_deep = device_prologue(self.dev, self.kplan,
+                                        widen_tokens(toks_raw), le8)
+        return self._match(sig, too_deep)
+
+    def _match(self, sig, too_deep):
+        counts, rows = sig_match_fixed(sig, too_deep, self.dev["grp_of_word"],
+                                       *self.planes, self.max_rows)
+        return counts, compact_stream(counts, rows, self.max_rows)
+
+    @staticmethod
+    def _key(toks8: np.ndarray):
+        return toks8.shape, toks8.dtype.str
+
+    def capture(self, toks8: np.ndarray, lens_enc: np.ndarray) -> bool:
+        """Capture this batch shape's CUDA graph (on CUDA, up to
+        ``GRAPH_MAX_BATCH`` topics, once per shape): the engine's bucket
+        warm-up calls it for each dispatch bucket. True when the shape
+        replays a graph from now on."""
+        if (self.dev["device"].type != "cuda"
+                or toks8.shape[0] > GRAPH_MAX_BATCH):
+            return False
+        key = self._key(toks8)
+        with self.graphs_lock:
+            if key not in self.graphs:
+                with _device_errors():
+                    self.graphs[key] = FixedGraph(self.dev, self._body,
+                                                  toks8, lens_enc)
+        return True
+
+    def __call__(self, toks8: np.ndarray, lens_enc: np.ndarray):
+        with _device_errors():
+            graph = self.graphs.get(self._key(toks8))
+            if graph is not None:
+                return graph.run(toks8, lens_enc)
+            return self._match(*prologue(self.dev, self.kplan, toks8,
+                                         lens_enc))
+
+
+@contextlib.contextmanager
+def _device_errors():
+    """Runtime failures (launch, out of memory) come back untyped: they
+    are re-raised as ``faults.DeviceMatchError`` so a supervisor's logs
+    separate a sick device from a host bug."""
+    try:
+        yield
+    except faults.DeviceMatchError:
+        raise
+    except RuntimeError as exc:
+        raise faults.DeviceMatchError(
+            f"fused sig kernel dispatch failed: {exc!r:.300}") from exc
+
+
+def build_fixed_fn(dev: dict, kplan: dict, max_rows: int) -> FixedProgram:
+    """The fixed program of one snapshot (``FixedProgram``)."""
+    return FixedProgram(dev, kplan, max_rows)

@@ -43,16 +43,28 @@ def token_tensor(toks: np.ndarray, device) -> torch.Tensor:
     JAX program sees after ``astype(int32).astype(uint32)`` (the int32 pad
     -1 becomes 0xFFFFFFFF). The narrow dtype crosses to the device; the
     widening runs there."""
+    return widen_tokens(torch.from_numpy(host_tokens(toks)).to(device))
+
+
+def host_tokens(toks: np.ndarray) -> np.ndarray:
+    """A compact host token matrix in a dtype torch copies as is: uint16
+    bits as int16 (``widen_tokens`` masks them back)."""
     toks = np.ascontiguousarray(toks)
-    if toks.dtype == np.uint8:
-        return torch.from_numpy(toks).to(device).to(torch.int64)
-    if toks.dtype == np.uint16:
-        t = torch.from_numpy(toks.view(np.int16)).to(device)
+    if toks.dtype not in (np.uint8, np.uint16, np.int32):
+        raise TypeError(f"unsupported token dtype {toks.dtype}")
+    return toks.view(np.int16) if toks.dtype == np.uint16 else toks
+
+
+def widen_tokens(t: torch.Tensor) -> torch.Tensor:
+    """A compact token tensor on its device (uint8, or uint16 / int32
+    bits in int16 / int32) -> int64 uint32 values, as ``token_tensor``."""
+    if t.dtype == torch.uint8:
+        return t.to(torch.int64)
+    if t.dtype == torch.int16:
         return t.to(torch.int64) & 0xFFFF
-    if toks.dtype == np.int32:
-        t = torch.from_numpy(toks).to(device)
+    if t.dtype == torch.int32:
         return t.to(torch.int64) & MASK32
-    raise TypeError(f"unsupported token dtype {toks.dtype}")
+    raise TypeError(f"unsupported token dtype {t.dtype}")
 
 
 def topic_signatures(consts: dict, toks: torch.Tensor,

@@ -14,14 +14,15 @@ Profiling endpoints are the Python equivalents of net/http/pprof:
 snapshot when tracing is active).
 
 Copy of the JAX package's ``metrics.py``: the registry, the exposition,
-the HTTP server with its debug routes, the tracer's registrations (which
-read only an object's ``.tracer``) and the matcher-side registrations
-(the supervisor's fallbacks and breaker, the service client's
-transport, the pool, the signature engine's kernel widths).
-``register_broker_metrics`` and the registrations that read a broker, a
-cluster manager or storage come with the broker's start path; the
-cluster peer-series bound (``CLUSTER_PEER_SERIES``) is here, read by the
-broker's $SYS cluster entries.
+the HTTP server with its debug routes, ``register_broker_metrics`` with
+every registration that reads a broker (its storage pipeline, overload
+ladder, fan-out ledger, content plane, matcher and tracer) and the
+matcher-side registrations (the supervisor's fallbacks and breaker, the
+service client's transport, the pool, the signature engine's kernel
+widths). The cluster manager's registrations come with cluster mode:
+``register_broker_metrics`` raises for a broker with a cluster attached.
+The cluster peer-series bound (``CLUSTER_PEER_SERIES``) is here, read by
+the broker's $SYS cluster entries.
 """
 
 from __future__ import annotations
@@ -379,6 +380,54 @@ class MetricsServer:
             self.logger.info("metrics server stopped")
 
 
+def register_broker_metrics(registry: Registry, broker) -> None:
+    """Register the ``maxmq_mqtt_*`` metric family reading the broker's
+    ``$SYS`` counters at scrape time (internal/mqtt/metrics.go:31-88: 15
+    counter/gauge funcs over mochi's atomic system.Info)."""
+    info = broker.info
+    counters = [
+        ("bytes_received", "Total number of bytes received"),
+        ("bytes_sent", "Total number of bytes sent"),
+        ("messages_received", "Total number of publish messages received"),
+        ("messages_sent", "Total number of publish messages sent"),
+        ("messages_dropped", "Total number of publish messages dropped"),
+        ("packets_received", "Total number of packets received"),
+        ("packets_sent", "Total number of packets sent"),
+        ("clients_total", "Total number of clients known to the broker"),
+        ("inflight_dropped", "Total number of inflight messages dropped"),
+    ]
+    gauges = [
+        ("clients_connected", "Number of currently connected clients"),
+        ("clients_disconnected", "Number of disconnected persistent sessions"),
+        ("clients_maximum", "Maximum number of concurrently connected clients"),
+        ("retained", "Number of retained messages"),
+        ("inflight", "Number of inflight messages"),
+        ("subscriptions", "Number of active subscriptions"),
+        ("uptime", "Broker uptime in seconds"),
+    ]
+    for name, help_ in counters:
+        registry.counter_func(f"maxmq_mqtt_{name}", help_,
+                              lambda n=name: getattr(info, n))
+    for name, help_ in gauges:
+        registry.gauge_func(f"maxmq_mqtt_{name}", help_,
+                            lambda n=name: getattr(info, n))
+    # matcher-side metrics (device path; no reference equivalent)
+    _register_matcher_metrics(registry, broker)
+    # host-path overload ladder (ADR 012)
+    _register_overload_metrics(registry, broker)
+    # cluster federation (ADR 013)
+    _register_cluster_metrics(registry, broker)
+    # crash-consistent storage pipeline (ADR 014)
+    _register_storage_metrics(registry, broker)
+    # publish-path tracing (ADR 015)
+    _register_trace_metrics(registry, broker)
+    # zero-copy fan-out (ADR 019)
+    _register_fanout_metrics(registry, broker)
+    # MQTT+ content plane (ADR 023)
+    _register_filter_metrics(registry, broker)
+
+
+
 # stage-error label cardinality bound: stages are a fixed set and
 # reasons a small enum, but the exposition page stays bounded even if a
 # future call site invents reasons dynamically
@@ -463,6 +512,331 @@ def _register_trace_metrics(registry: Registry, broker) -> None:
         "maxmq_broker_trace_sample_n",
         "Publish sampling stride (0 = tracing off)",
         lambda: tracer.sample_n)
+
+
+def _register_cluster_metrics(registry: Registry, broker) -> None:
+    """The cluster manager's registrations (ADR 013) come with cluster
+    mode. With no manager attached this adds nothing, as the JAX
+    package's early return does; with one it raises."""
+    mgr = getattr(broker, "cluster", None)
+    if mgr is None:
+        return
+    raise NotImplementedError(
+        "cluster mode is not ported to maxmq_tpu_torch yet (port slice "
+        "13, cluster): no cluster metrics")
+
+
+def _register_storage_metrics(registry: Registry, broker) -> None:
+    """ADR-014 storage-pipeline observability: journal pressure (queue
+    depth/bytes), group-commit health (latency, batch size, failures),
+    the degradation breaker, and what restore had to quarantine. Duck-
+    typed off the storage hook so custom Store implementations degrade
+    to the subset they expose."""
+    hook = next((h for h in broker.hooks
+                 if hasattr(h, "bump_boot_epoch")), None)
+    if hook is None:
+        return
+    registry.counter_func(
+        "maxmq_storage_quarantined_records_total",
+        "Torn/undecodable records set aside at restore instead of "
+        "aborting boot", lambda: hook.quarantined)
+    registry.counter_func(
+        "maxmq_storage_journal_sheds_total",
+        "QoS0-irrelevant journal rewrites shed while the broker was "
+        "load-shedding past the journal watermark",
+        lambda: hook.journal_sheds)
+    registry.counter_func(
+        "maxmq_storage_rewrites_skipped_total",
+        "Redundant inflight resend rewrites elided (record already in "
+        "the pipeline/store)", lambda: hook.rewrites_skipped)
+    registry.gauge_func(
+        "maxmq_storage_boot_epoch",
+        "Persisted monotonic boot counter (strictly increases across "
+        "restarts; adopted by the cluster layer)",
+        lambda: broker.boot_epoch)
+    registry.counter_func(
+        "maxmq_storage_barrier_waits_total",
+        "QoS acks released through the storage_sync=always durability "
+        "barrier", lambda: broker.storage_barrier_waits)
+    jr = getattr(hook, "journal", None)
+    backing = jr.inner if jr is not None else hook.store
+    if getattr(backing, "corruptions", None) is not None:
+        registry.counter_func(
+            "maxmq_storage_corruptions_total",
+            "Storage files that failed the open-time integrity check "
+            "and were moved aside + recreated",
+            lambda: backing.corruptions)
+    if getattr(backing, "aside_failures", None) is not None:
+        registry.counter_func(
+            "maxmq_storage_aside_failures_total",
+            "Corrupt-file move-asides that failed (forensic copy lost; "
+            "the damaged file was removed in place so the recreate "
+            "still booted)", lambda: backing.aside_failures)
+    if jr is None:
+        return
+    for name, help_, fn in (
+            ("queue_depth", "Journal ops awaiting group commit",
+             lambda: jr.queue_depth),
+            ("queue_bytes", "Journal bytes awaiting group commit",
+             lambda: jr.queued_bytes_now),
+            ("breaker_state",
+             "Storage breaker state (0=closed, 1=open, 2=half-open)",
+             lambda: jr.breaker_state),
+            ("last_commit_seconds", "Duration of the last group commit",
+             lambda: jr.last_commit_s),
+            ("last_batch_ops", "Ops in the last group commit",
+             lambda: jr.last_batch_ops),
+            ("largest_batch_ops", "Largest group commit since start",
+             lambda: jr.largest_batch_ops),
+            ("dirty",
+             "1 when a write was lost or parked past its durability "
+             "promise (degraded-mode writes, shed rewrites)",
+             lambda: int(jr.dirty)),
+            ("disk_full",
+             "1 while the last commit failure was ENOSPC and no commit "
+             "has succeeded since (the ADR-024 disk-full rung is up)",
+             lambda: int(getattr(jr, "disk_full", False)))):
+        registry.gauge_func(f"maxmq_storage_{name}", help_, fn)
+    for name, help_, fn in (
+            ("commits", "Group commits applied to the backend",
+             lambda: jr.commits),
+            ("commit_failures", "Group commits that failed (batch "
+             "parked and retried)", lambda: jr.commit_failures),
+            ("put_failures", "Writes dropped at the journal enqueue "
+             "boundary", lambda: jr.put_failures),
+            ("ops_written", "Individual ops committed to the backend",
+             lambda: jr.ops_written),
+            ("ops_coalesced", "Same-key writes merged in the journal "
+             "before commit", lambda: jr.coalesced),
+            ("queue_overflows", "Enqueues that landed past the journal "
+             "byte watermark", lambda: jr.overflows),
+            ("breaker_trips", "Times the storage breaker opened "
+             "(memory-backed degraded writes)", lambda: jr.breaker_trips),
+            ("breaker_recoveries", "Half-open reprobes that restored "
+             "the backend and replayed the parked journal",
+             lambda: jr.breaker_recoveries),
+            ("barriers_released_degraded", "Durability barriers "
+             "released undurable because the breaker opened",
+             lambda: jr.barriers_released_degraded),
+            ("commit_seconds", "Cumulative time in backend commits",
+             lambda: jr.commit_seconds_total),
+            ("degraded_seconds", "Cumulative wall time with the "
+             "storage breaker not closed", lambda: jr.degraded_seconds),
+            ("fsync_failures", "Group commits whose flush failed — "
+             "each one poisons the backend connection (ADR 024)",
+             lambda: getattr(jr, "fsync_failures", 0)),
+            ("enospc_failures", "Group commits refused by a full disk "
+             "(immediate breaker trip, ADR 024)",
+             lambda: getattr(jr, "enospc_failures", 0)),
+            ("backend_reopens", "Poisoned backend connections reopened "
+             "before replaying the parked journal (ADR 024)",
+             lambda: getattr(jr, "backend_reopens", 0))):
+        registry.counter_func(f"maxmq_storage_{name}_total", help_, fn)
+
+
+def _register_overload_metrics(registry: Registry, broker) -> None:
+    """ADR-012 overload-ladder observability: the global byte ledger +
+    watermark state, every ladder counter, and the cardinality-bounded
+    per-client top-offender family (at most overload.TOP_OFFENDERS
+    series per scrape; see docs/adr/012-overload-protection.md)."""
+    over = getattr(broker, "overload", None)
+    if over is None:
+        return
+    from .broker.overload import top_offenders
+    registry.gauge_func(
+        "maxmq_broker_overload_queued_bytes",
+        "Wire bytes queued across all client outbound queues",
+        lambda: over.queued_bytes)
+    registry.gauge_func(
+        "maxmq_broker_overload_shedding",
+        "1 while above the high-water mark (QoS0 fan-out shed, "
+        "retained delivery deferred)",
+        lambda: int(over.shedding))
+    for name, help_ in (
+            ("sheds", "Entries into the load-shedding regime"),
+            ("recoveries", "Exits back below the low-water mark"),
+            ("shed_messages", "QoS0 deliveries dropped while shedding"),
+            ("budget_drops",
+             "Deliveries dropped by the per-client/global byte budgets "
+             "(oldest-first QoS0 shed + refused new deliveries)"),
+            ("qos_drops",
+             "QoS>0 deliveries refused by a full queue and rolled back "
+             "(quota returned, inflight entry removed)"),
+            ("deferred_retained",
+             "Retained deliveries deferred to recovery by shedding"),
+            ("stalled_disconnects",
+             "Clients disconnected by the writer stall deadline"),
+            ("disk_full_sheds",
+             "QoS0-irrelevant storage rewrites shed by the ENOSPC "
+             "ladder rung while the backing disk was full (ADR 024)")):
+        registry.counter_func(f"maxmq_broker_overload_{name}_total",
+                              help_, lambda n=name: getattr(over, n))
+    for reason, attr in (("rate", "connects_refused"),
+                         ("half_open", "half_open_refused")):
+        registry.counter_func(
+            "maxmq_broker_overload_connects_refused_total",
+            "Connections refused by admission control, by reason",
+            lambda a=attr: getattr(over, a), labels={"reason": reason})
+    registry.multi_func(
+        "maxmq_broker_client_dropped_messages_total", "counter",
+        "Deliveries dropped by a client's own backpressure (queue/byte "
+        "budget, stalls; global watermark sheds excluded), top "
+        "offenders only (cardinality bounded to overload.TOP_OFFENDERS "
+        "series)",
+        lambda: [({"client": row["client"]}, row["dropped"])
+                 for row in top_offenders(broker.clients.all())])
+
+
+def _register_fanout_metrics(registry: Registry, broker) -> None:
+    """ADR-019 zero-copy fan-out ledger: template reuse vs the
+    residual per-subscriber encodes, shared vs copied wire bytes,
+    writev batch shape, and the per-loop-iteration writer-wake
+    coalescing — the terms the fanout bench config divides by."""
+    over = getattr(broker, "overload", None)
+    if over is None:
+        return
+    for name, help_ in (
+            ("template_builds",
+             "Shared PUBLISH wire templates/frames built (one per "
+             "publish x protocol major version)"),
+            ("template_sends",
+             "Deliveries enqueued as shared wire bytes or patched "
+             "template buffer sequences"),
+            ("slow_encodes",
+             "Deliveries that took the per-subscriber copy+encode "
+             "slow path (hook overrides, resends, retained sends)"),
+            ("shared_bytes",
+             "Wire bytes served from shared template segments, never "
+             "copied per subscriber"),
+            ("copied_bytes",
+             "Wire bytes materialized per subscriber (patched frame "
+             "heads + slow-path encodes)"),
+            ("writev_batches",
+             "Writer burst flushes handed to transport.writelines"),
+            ("writev_buffers",
+             "Wire buffers carried by those writelines batches")):
+        registry.counter_func(f"maxmq_broker_fanout_{name}_total",
+                              help_, lambda n=name: getattr(over, n))
+    sched = getattr(broker, "flush_sched", None)
+    if sched is not None:
+        for name, help_ in (
+                ("flushes", "Coalesced writer-wake flush passes run"),
+                ("deferred", "Writer wakes parked for a flush pass"),
+                ("coalesced",
+                 "Duplicate same-iteration wakes absorbed by a park")):
+            registry.counter_func(
+                f"maxmq_broker_fanout_flush_{name}_total", help_,
+                lambda n=name: getattr(sched, n))
+
+
+def _register_filter_metrics(registry: Registry, broker) -> None:
+    """ADR-023 content plane: predicate-subscription registry size,
+    batch-evaluation throughput, the delivery mask's effect, windowed
+    aggregation output/shedding, and the device-path fallback ladder
+    — the terms the mqttplus bench config divides by."""
+    cp = getattr(broker, "content", None)
+    if cp is None:
+        return
+    registry.gauge_func(
+        "maxmq_filter_subscriptions",
+        "Content subscriptions currently registered (predicate "
+        "and/or aggregate)", lambda: len(cp.subs))
+    registry.gauge_func(
+        "maxmq_filter_predicates",
+        "Distinct compiled predicate programs in the registry",
+        lambda: cp.n_predicates)
+    registry.gauge_func(
+        "maxmq_filter_windows",
+        "Tumbling aggregation windows currently holding state",
+        lambda: cp.n_windows)
+    for name, help_ in (
+            ("batches", "Pipeline flushes the content plane "
+             "evaluated (one vectorized pass each)"),
+            ("evals", "Predicate x message pairs evaluated "
+             "vectorized (the per-message reference loop would "
+             "run this many scalar programs)"),
+            ("masked", "Deliveries suppressed because the "
+             "subscriber's every matching content predicate "
+             "evaluated false"),
+            ("eval_errors", "Batch evaluations that failed and "
+             "failed OPEN (unfiltered delivery preserved)"),
+            ("agg_emitted", "Synthesized aggregate publishes "
+             "emitted at window close"),
+            ("agg_shed", "Window-close emissions shed under "
+             "overload or the filter.window fault"),
+            ("rejected_subscribes", "SUBSCRIBE filters rejected for "
+             "malformed/over-quota content options"),
+            ("device_fallbacks", "Vectorized batches that fell back "
+             "from the device backend to NumPy (ADR-011-style "
+             "breaker ladder)")):
+        registry.counter_func(f"maxmq_filter_{name}_total", help_,
+                              lambda n=name: getattr(cp, n))
+
+
+def _register_matcher_metrics(registry: Registry, broker) -> None:
+    matcher = getattr(broker, "matcher", None)
+    if matcher is not None and hasattr(matcher, "matches"):
+        registry.counter_func(
+            "maxmq_matcher_matches_total",
+            "Topic matches answered by the device matcher",
+            lambda: matcher.matches)
+        _register_fallback_metrics(registry, matcher)
+        if hasattr(matcher, "breaker_state"):
+            _register_breaker_metrics(registry, matcher)
+        if hasattr(matcher, "batches"):
+            registry.counter_func(
+                "maxmq_matcher_batches_total",
+                "Device micro-batches dispatched",
+                lambda: matcher.batches)
+            registry.gauge_func(
+                "maxmq_matcher_largest_batch",
+                "Largest micro-batch formed since start",
+                lambda: matcher.largest_batch)
+        if hasattr(matcher, "cache_hits"):
+            registry.counter_func(
+                "maxmq_matcher_cache_hits_total",
+                "Matches served from the version-keyed topic cache",
+                lambda: matcher.cache_hits)
+        if hasattr(matcher, "bypasses"):
+            registry.counter_func(
+                "maxmq_matcher_bypassed_topics_total",
+                "Topics served inline on the host by the adaptive "
+                "bypass (ADR 008)",
+                lambda: matcher.bypasses)
+            registry.gauge_func(
+                "maxmq_matcher_device_rtt_seconds",
+                "Measured device round-trip EWMA driving the bypass",
+                lambda: matcher.device_rtt)
+        eng = getattr(matcher, "engine", matcher)
+        if hasattr(eng, "host_matches"):
+            registry.counter_func(
+                "maxmq_matcher_host_matches_total",
+                "Topics matched by the device-free host sig path "
+                "(bypass + single-topic surface, ADR 008)",
+                lambda: eng.host_matches)
+        if hasattr(eng, "trie_routed"):
+            registry.counter_func(
+                "maxmq_matcher_trie_routed_total",
+                "Topics served from the CPU trie by the small-corpus "
+                "router (ADR 008)",
+                lambda: eng.trie_routed)
+        if hasattr(eng, "kernel_plan"):
+            _register_kernel_width_metrics(registry, eng)
+        _register_transport_metrics(registry, matcher)
+    if matcher is not None:
+        # ANY attached matcher drives the ADR-006 pipeline; scrapes run
+        # on the metrics thread while close() may null the queue on the
+        # event loop, so bind the queue reference exactly once per read
+        registry.gauge_func(
+            "maxmq_broker_publish_pipeline_depth",
+            "Publishes queued awaiting in-order fan-out (ADR 006)",
+            lambda: (q.qsize()
+                     if (q := broker._pub_queue) is not None else 0))
+        registry.counter_func(
+            "maxmq_broker_publish_trie_degraded_total",
+            "Publishes served from the broker's own trie after a match "
+            "future failed (the rung below the ADR-011 supervisor)",
+            lambda: broker.matcher_degrades)
 
 
 def _register_fallback_metrics(registry: Registry, matcher) -> None:

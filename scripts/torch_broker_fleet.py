@@ -45,6 +45,7 @@ def main() -> int:
     s = chip_smoke.Smoke("cuda")
     s.sizes = {**s.sizes, "broker": {**s.sizes["broker"],
                                      "iot_1m_share": 256,
+                                     "bypass_on": ("iot_1m_share",),
                                      "fleet": {"iot_1m_share": 4_096}}}
     t0 = time.perf_counter()
     asyncio.run(s.broker_phase("iot_1m_share"))

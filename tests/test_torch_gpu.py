@@ -401,3 +401,138 @@ def test_broker_sig_on_card_matches_trie_broker(cuda_card):
     assert not {k: v for k, v in sup.fallbacks_by_reason.items()
                 if k != "overflow" and v}
     assert got == want and sum(len(v) for v in got.values()) > 500
+
+
+@pytest.mark.gpu
+def test_fixed_graph_matches_eager_and_counts_launches(cuda_card):
+    """The fixed program runs eagerly (one launch a call) until
+    ``capture`` captures the batch shape's CUDA graph (shapes up to
+    ``GRAPH_MAX_BATCH``; the capture's eager run is one launch, the
+    capture none); from then on each call replays the graph, one launch,
+    with the eager program's counts and stream bit for bit. Past the
+    bound ``capture`` declines and calls stay eager; the engine's bucket
+    warm-up captures every dispatch bucket up to its batch."""
+    from maxmq_tpu_torch.matching import sig as sigmod
+
+    idx, topics = corpus(11, False)
+    engine = SigEngine(idx, device=cuda_card)
+    engine.route_small = False
+    state = engine._state
+    launches = lambda: sig_kernel.sig_match_fixed.launches
+    for batch in (16, 256, sig_kernel.GRAPH_MAX_BATCH,
+                  sig_kernel.GRAPH_MAX_BATCH + 1):
+        tops = (topics * (batch // len(topics) + 1))[:batch]
+        toks8, lens = prepare_batch(state.tables, tops)[:2]
+        toks8, lens = sigmod.pad_to_bucket(state.tables, toks8, lens)
+        fn = sig_kernel.build_fixed_fn(state.dev, engine.kernel_plan,
+                                       engine.fixed_max_rows)
+        n0 = launches()
+        counts, stream = fn(toks8, lens)
+        n1 = launches()
+        graphed = fn.capture(toks8, lens)
+        n2 = launches()
+        got = [fn(toks8, lens), fn(toks8, lens)]
+        n3 = launches()
+        assert graphed == (len(lens) <= sig_kernel.GRAPH_MAX_BATCH)
+        assert (n1 - n0, n2 - n1, n3 - n2) == (1, 1 if graphed else 0, 2)
+        assert bool(fn.graphs) == graphed
+        c = counts.cpu()
+        total = int(torch.where(c == 0xFF, 0, c.to(torch.int64)).sum())
+        for g in got:
+            assert torch.equal(g[0], counts)
+            assert torch.equal(g[1][:total], stream[:total])
+    engine.warm_buckets(1000, background=False)
+    assert {k[0][0] for k in engine._state.program.graphs} == {
+        16, 64, 256, 1024}
+
+
+@pytest.mark.gpu
+def test_start_on_card_serves_publishes(cuda_card, tmp_path):
+    """``python -m maxmq_tpu_torch start`` with no ``--device``: the
+    signature matcher on the card behind SQLite storage under
+    ``storage_sync = "always"``; a few QoS 1 publishes round-trip, the
+    start line names the CUDA device, ``sig_match_fixed`` launched, and
+    SIGTERM stops it with exit 0."""
+    import asyncio
+    import json
+    import os
+    import signal
+    import subprocess
+    import sys
+    import time
+    import urllib.request
+    from pathlib import Path
+
+    from maxmq_tpu_torch.mqtt_client import MQTTClient
+
+    root = Path(chip_smoke.__file__).resolve().parent
+    port, mport = chip_smoke.free_port(), chip_smoke.free_port()
+    conf = tmp_path / "c.toml"
+    conf.write_text(f'mqtt_tcp_address = "127.0.0.1:{port}"\n'
+                    f'metrics_address = "127.0.0.1:{mport}"\n'
+                    'matcher = "sig"\nmqtt_sys_topic_interval = 0\n'
+                    'log_format = "json"\nstorage_backend = "sqlite"\n'
+                    'storage_sync = "always"\n'
+                    f'storage_path = "{tmp_path / "s.db"}"\n')
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MAXMQ_")}
+    env["PYTHONPATH"] = str(root)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "maxmq_tpu_torch", "start", "-c", str(conf),
+         "--no-banner"], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+    async def drive():
+        deadline = time.monotonic() + 240
+        while True:
+            assert proc.poll() is None, proc.communicate(timeout=10)
+            try:
+                _r, w = await asyncio.open_connection("127.0.0.1", port)
+                w.close()
+                break
+            except OSError:
+                assert time.monotonic() < deadline, "never accepted"
+                await asyncio.sleep(0.2)
+        sub, pub = MQTTClient(client_id="s"), MQTTClient(client_id="p")
+        for c in (sub, pub):
+            await c.connect("127.0.0.1", port)
+        await sub.subscribe(("card/+/t", 1))
+        for i in range(20):
+            await pub.publish(f"card/{i}/t", b"%d" % i, qos=1)
+        got = [(await sub.next_message(timeout=30)).payload
+               for _ in range(20)]
+        for c in (sub, pub):
+            await c.disconnect()
+        return got
+
+    def scrape():
+        with urllib.request.urlopen(f"http://127.0.0.1:{mport}/metrics",
+                                    timeout=30) as r:
+            return chip_smoke.metric_series(r.read().decode())
+
+    try:
+        got = asyncio.run(drive())
+        # the bucket warm-up (K1's launches here: the one-filter corpus
+        # is served from the trie) runs on background threads
+        deadline = time.monotonic() + 120
+        while True:
+            series = scrape()
+            if (chip_smoke.metric(series, "maxmq_matcher_kernel_launches_total",
+                                  kernel="sig_match_fixed")
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.5)
+        proc.send_signal(signal.SIGTERM)
+        _out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=30)
+    assert got == [b"%d" % i for i in range(20)]
+    assert proc.returncode == 0, err[-2000:]
+    lines = [json.loads(x) for x in err.splitlines() if x.startswith("{")]
+    started = next(x for x in lines if x["message"] == "server started")
+    assert started["device"].startswith("cuda")
+    assert chip_smoke.metric(series, "maxmq_matcher_kernel_launches_total",
+                             kernel="sig_match_fixed") >= 1, err[-3000:]
+    assert chip_smoke.metric(series,
+                             "maxmq_storage_barrier_waits_total") >= 1

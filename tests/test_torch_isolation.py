@@ -353,3 +353,72 @@ def test_broker_engine_stands_alone():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+START_MODULES = ("hooks.journal", "hooks.faultstore", "bootstrap", "cli",
+                 "metrics", "matching.service")
+
+
+def test_start_path_stands_alone(tmp_path):
+    """The start path's modules exist in the port, are in the AST scan's
+    reach, and ``python -m maxmq_tpu_torch start --device cpu`` (a SQLite
+    journal under ``storage_sync = "always"``, the signature matcher, the
+    metrics server) serves a client and stops on SIGTERM without JAX or
+    the JAX package in its interpreter."""
+    import signal
+    import socket
+    import time
+
+    for m in START_MODULES:
+        assert (PACKAGE / (m.replace(".", "/") + ".py")).is_file(), m
+    ports = []
+    for _ in range(2):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            ports.append(s.getsockname()[1])
+    conf = tmp_path / "c.toml"
+    conf.write_text(f'mqtt_tcp_address = "127.0.0.1:{ports[0]}"\n'
+                    f'metrics_address = "127.0.0.1:{ports[1]}"\n'
+                    'matcher = "sig"\nmqtt_sys_topic_interval = 0\n'
+                    'storage_backend = "sqlite"\nstorage_sync = "always"\n'
+                    f'storage_path = "{tmp_path / "s.db"}"\n')
+    script = textwrap.dedent(f"""
+        import atexit, runpy, sys
+
+        def forbidden():
+            bad = sorted(m for m in sys.modules
+                         if m.split(".")[0] in ("jax", "jaxlib")
+                         or m == "maxmq_tpu" or m.startswith("maxmq_tpu."))
+            print("FORBIDDEN", bad, flush=True)
+        atexit.register(forbidden)
+        sys.argv = ["maxmq_tpu_torch", "start", "-c", {str(conf)!r},
+                    "--no-banner", "--device", "cpu"]
+        runpy.run_module("maxmq_tpu_torch", run_name="__main__")
+    """)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MAXMQ_")}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.Popen([sys.executable, "-c", script], cwd=ROOT,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.monotonic() + 90
+        while True:
+            assert proc.poll() is None, proc.communicate(timeout=10)
+            try:
+                with socket.create_connection(("127.0.0.1", ports[0]), 1):
+                    break
+            except OSError:
+                assert time.monotonic() < deadline, "never accepted"
+                time.sleep(0.1)
+        with socket.create_connection(("127.0.0.1", ports[0]), 5) as s:
+            s.sendall(bytes.fromhex("100e00044d5154540402003c000269"
+                                    "73"))          # CONNECT, id "is"
+            assert s.recv(4) == b"\x20\x02\x00\x00"   # CONNACK accepted
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=30)
+    assert proc.returncode == 0, err[-2000:]
+    assert "FORBIDDEN []" in out, (out, err[-2000:])

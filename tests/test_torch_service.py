@@ -168,6 +168,7 @@ SMOKE_CPU_SIZES = {"subs": {"mixed_100k": 2_000, "hash_plus_100k": 2_000,
                    "dense_corpus": {"n_filters": 300, "n_subs": 3_000,
                                     "width": 60},
                    "nfa_sample": 128,
+                   "nfa_1m": True,
                    "cluster_batch": 256,
                    "cluster_batches": 2,
                    "decode_batch": 256,
@@ -175,11 +176,18 @@ SMOKE_CPU_SIZES = {"subs": {"mixed_100k": 2_000, "hash_plus_100k": 2_000,
                    "frames": 200,
                    "pipeline": {"burst": 64,
                                 "supervisor": {"deadline_ms": 1_000.0}},
-                   "broker": {"clients": 16, "mixed_100k": 256,
+                   "broker": {"corpora": ("mixed_100k", "iot_1m_share"),
+                              "clients": 16, "mixed_100k": 256,
                               "iot_1m_share": 128, "faults": 279,
+                              "bypass_on": ("mixed_100k", "iot_1m_share"),
                               "fleet": {"iot_1m_share": 128}},
                    "content": {"shapes": ((64, 256), (300, 64)), "reps": 2},
-                   "tracing": {"bursts": 2, "service_topics": 128}}
+                   "tracing": {"bursts": 2, "service_topics": 128},
+                   "started": {"corpus": "mixed_100k", "clients": 64,
+                               "publishes": 256, "burst": 64,
+                               "max_batch": 4_096, "device_share": 0.5,
+                               "crash_publishes": 64, "crash_after": 20,
+                               "boot_s": 120.0, "stop_s": 30.0}}
 
 
 def test_chip_smoke_phases_rehearse_on_cpu():
