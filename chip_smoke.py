@@ -85,7 +85,7 @@ Phases, each of which raises on failure:
    decode a shard, chained per topic) on the same batches, its
    ``ChainedIntents`` held against the set path and the trie, and both
    decodes timed on the same device output;
-12. the broker engine (run last, after phase 15): on each corpus two of
+12. the broker engine (run last, after phase 16): on each corpus two of
    the port's ``Broker``s in this process, each with a ``TCPListener``
    on a free local port, ``AllowHook``, capabilities from
    ``capabilities_from_config`` over the default ``Config`` and $SYS
@@ -190,7 +190,38 @@ Phases, each of which raises on failure:
    session the CPU trie names for its topic, and a corpus session and a
    compared subscriber resumed, each given its queued messages in the
    store's order;
-16. each kernel's SASS opcode counts (``cuobjdump -sass``, where the
+16. the cluster federation (run right after phase 15): ``mixed_100k``'s
+   persistent v5 sessions split by index mod 3 into three SQLite stores,
+   each with a third of the compared subscribers (phase 12's plan round
+   robin over the nodes, a '#' probe on each), copied for two
+   federations of three ``start`` children on a line A - B - C
+   (symmetric ``cluster_peers``, ``cluster_session_replication = false``,
+   phase 15's other settings): the card federation (``sig``, no
+   ``--device``) and the trie federation (``--device cpu``), booted in
+   parallel; each node's ``maxmq_cluster_routes_held`` awaited until it
+   equals what its peers advertise (computed from the stores) with every
+   link up; the subscribers resume; phase 12's PUBLISH frames from
+   publishers on A and C (so C's reach A over two hops through B) in
+   fenced bursts of 512, trie federation first, every subscriber's frames
+   equal; then B restarted in both federations (SIGTERM, ``start`` on
+   its store: the stale epoch flushed, the routes converged again) and
+   more bursts, equal again. The tracer samples every 32nd inbound
+   publish in both federations, so frames and stores are compared
+   without the ``mq-trace`` property it stamps. Each node's forward
+   counters equal its twin's; on every card node no hedge, trip or
+   degrade and ``sig_match_fixed`` launched during the traffic (B, which
+   relays and serves forwarded publishes, included); every card node's
+   ``/cluster/metrics`` holds every node's series; after SIGTERM every
+   node's store equals its twin's. Printed beside them: each card node's
+   launches that served publishes (shadow probes left out), the share of
+   its topics the card answered (the host bypass serves the rest: a
+   forward reaches a node's batcher one or two at a time), and each
+   node's match and cross-node latencies. Then the same line in this
+   process with the batchers' host bypass off, card against tries, so
+   K1 answers every forwarded publish the frames hold: frames, forward
+   counters and retained sets equal, every card node at least half its
+   topics on the device and K1 launched once a batch or more;
+17. each kernel's SASS opcode counts (``cuobjdump -sass``, where the
    toolkit has it), the kernels line (JSON), the card line, and the
    result line.
 
@@ -206,7 +237,9 @@ and reads them after; its launches ride the kernels line under
 ``broker_launches``, phase 13's tracing runs' under
 ``tracing_launches``, phase 14's (counts set to 0 before it) under
 ``surfaces_launches`` and phase 15's card broker's (its child process's
-count over the traffic, from its ``/metrics``) under ``started_launches``. The dense and NFA decodes are Python, as the
+count over the traffic, from its ``/metrics``) under ``started_launches``,
+and phase 16's card nodes' (each child's count over both traffic runs)
+under ``federation_launches``. The dense and NFA decodes are Python, as the
 reference's.
 The corpora are made here from seed 42 (a copy of the benchmark's corpus
 generator, and the ``dense_2k`` generator); the script imports nothing
@@ -274,9 +307,13 @@ WATCHDOG_S = 1_100
 # card), the least share of the card broker's topics its card must answer
 # (checked on the card), crash publishes, the group commits past the
 # boot's at which the crash point kills, and its waits for a boot and for
-# a stop. The service requests, the headline batches, the decode
-# batch, the cluster batches and the broker phase's publishes are the
-# depth that was cut to keep the whole run under 800 s (the host side of
+# a stop; phase 16's corpus, compared subscribers, publishes before and
+# after B's restart, burst (below the '#' probes' 1,024-item queue), the
+# nodes' ``matcher_max_batch`` (phase 15's), and its waits for a boot, a
+# stop, the routes' convergence and the telemetry. The service requests,
+# the headline batches, the decode batch, the cluster batches, the broker
+# phase's publishes and phase 15's publishes are the depth that was cut
+# to keep the whole run under 800 s (the host side of
 # the service phases, and full collections of the heap there, grow with
 # the topics sent; the signature and dense headlines' host decodes ran
 # ~10,000 and ~6,000 topics/s on an H100 host).
@@ -300,17 +337,25 @@ SIZES = {"subs": {"mixed_100k": 100_000, "hash_plus_100k": 100_000,
          "frames": 4_000,
          "pipeline": {"burst": 1_024},
          "broker": {"corpora": ("mixed_100k", "iot_1m_share"),
-                    "clients": 64, "mixed_100k": 2_048,
+                    "clients": 64, "mixed_100k": 1_024,
                     "iot_1m_share": 512,
                     "faults": 279, "bypass_on": ("mixed_100k",),
                     "fleet": {}},
          "content": {"shapes": ((64, 4_096), (10_000, 256)), "reps": 3},
          "tracing": {"bursts": 4, "service_topics": 4_096},
          "started": {"corpus": "mixed_100k", "clients": 64,
-                     "publishes": 4_096, "burst": 768, "max_batch": 4_096,
+                     "publishes": 2_048, "burst": 768, "max_batch": 4_096,
                      "device_share": 0.5,
                      "crash_publishes": 512, "crash_after": 64,
-                     "boot_s": 600.0, "stop_s": 30.0}}
+                     "boot_s": 600.0, "stop_s": 30.0},
+         "federation": {"corpus": "mixed_100k", "clients": 64,
+                        "publishes": 2_048, "rung_publishes": 512,
+                        "burst": 512, "max_batch": 4_096, "boot_s": 600.0,
+                        "stop_s": 30.0, "converge_s": 120.0,
+                        "telemetry_s": 15.0,
+                        "in_process": {"subs": 100_000, "clients": 64,
+                                       "publishes": 512, "burst": 512},
+                        "device_share": 0.5}}
 # engine counters of topics NOT served by the device path, per engine
 SIG_COUNTERS = ("host_matches", "fallbacks", "trie_routed")
 DENSE_COUNTERS = ("fallbacks",)
@@ -1072,14 +1117,16 @@ class BrokerSide:
             await pub.open(self.port)
         return pub
 
-    async def fence(self, pub) -> None:
-        """End a burst: the fence through ``pub``, then every online
-        subscriber holding it and ``pub``'s publishes settled."""
+    async def fence(self, pub, subs=None) -> None:
+        """End a burst: the fence through ``pub``, then every subscriber
+        of ``subs`` (this side's online ones by default) holding it and
+        ``pub``'s publishes settled."""
         self.tag += 1
         tag = self.tag
         pub.send([pub.fence_frame(tag)])
         await asyncio.gather(*(c.until(lambda c=c: c.fence >= tag)
-                               for c in self.online))
+                               for c in (self.online if subs is None
+                                         else subs)))
         await pub.until(lambda: not pub.outstanding)
         # the fence's fan-out came after every delivery of the burst:
         # the fleet's writers hold them all once their queues are empty
@@ -1111,22 +1158,26 @@ class BrokerSide:
         self.ack_s += time.perf_counter() - t0
 
     async def bursts(self, kit, traffic, between=None,
-                     chunk: int | None = None) -> float:
+                     chunk: int | None = None, side_of=None,
+                     subs=None) -> float:
         """Each publisher's frames of ``traffic`` as bursts through its
         connection (one burst, or ``chunk`` frames each), each ended by a
-        fence, publishers in order of first appearance; ``between()`` runs
-        after each fence. Returns the seconds ``between`` took."""
+        fence that ``subs`` wait on (``fence``), publishers in order of
+        first appearance; a publisher connects to ``side_of(owner)`` (this
+        side by default); ``between()`` runs after each fence. Returns the
+        seconds ``between`` took."""
         frames, owners = traffic
         by_owner: dict = {}
         for f, o in zip(frames, owners):
             by_owner.setdefault(o, []).append(f)
         spent = 0.0
         for owner, fs in by_owner.items():
-            pub = await self.publisher(kit, owner)
+            side = self if side_of is None else side_of(owner)
+            pub = await side.publisher(kit, owner)
             step = chunk or len(fs)
             for i in range(0, len(fs), step):
                 pub.send(fs[i:i + step])
-                await self.fence(pub)
+                await self.fence(pub, subs)
                 if between is not None:
                     t0 = time.perf_counter()
                     between()
@@ -1419,6 +1470,72 @@ def streams_equal(what: str, got: dict, want: dict) -> int:
     return sum(len(v) for v in got.values())
 
 
+# the v5 property identifiers by the size of their value (MQTT 5.0 2.2.2.2)
+_PROP_FIXED = {**dict.fromkeys((0x01, 0x17, 0x19, 0x24, 0x25, 0x28, 0x29,
+                                0x2A), 1),
+               **dict.fromkeys((0x13, 0x21, 0x22, 0x23), 2),
+               **dict.fromkeys((0x02, 0x11, 0x18, 0x27), 4)}
+_PROP_VARINT = 0x0B
+_PROP_USER = 0x26
+TRACE_PROPERTY = b"mq-trace"
+
+
+def without_trace(frame: bytes) -> bytes:
+    """A v5 PUBLISH frame without its ``mq-trace`` user properties (the
+    cross-node trace key a node stamps on the deliveries of an adopted
+    trace), the lengths re-encoded; every other byte as it came."""
+    from maxmq_tpu_torch.protocol.codec import read_varint, write_varint
+
+    _rem, i = read_varint(frame, 1)
+    head = i
+    i += 2 + int.from_bytes(frame[i:i + 2], "big")         # topic
+    if (frame[0] >> 1) & 3:
+        i += 2                                              # packet id
+    plen, j = read_varint(frame, i)
+    end = j + plen
+    kept, k = bytearray(), j
+    while k < end:
+        pid, start = frame[k], k
+        k += 1
+        if pid in _PROP_FIXED:
+            k += _PROP_FIXED[pid]
+        elif pid == _PROP_VARINT:
+            _v, k = read_varint(frame, k)
+        elif pid == _PROP_USER:
+            n = int.from_bytes(frame[k:k + 2], "big")
+            key = frame[k + 2:k + 2 + n]
+            k += 2 + n
+            k += 2 + int.from_bytes(frame[k:k + 2], "big")
+            if key == TRACE_PROPERTY:
+                continue
+        else:                       # a string or binary value
+            k += 2 + int.from_bytes(frame[k:k + 2], "big")
+        kept += frame[start:k]
+    if len(kept) == plen:
+        return frame
+    body = bytearray(frame[head:i])
+    write_varint(body, len(kept))
+    body += kept + frame[end:]
+    out = bytearray(frame[:1])
+    write_varint(out, len(body))
+    return bytes(out + body)
+
+
+def drop_trace(rec: dict) -> dict:
+    """A stored record with the ``mq-trace`` pairs left out of its
+    properties (``properties_json``), as ``without_trace`` for frames."""
+    props = rec.get("properties_json")
+    if props:
+        p = json.loads(props)
+        user = [u for u in p.get("user_properties", ())
+                if u[0] != TRACE_PROPERTY.decode()]
+        p.pop("user_properties", None)
+        if user:
+            p["user_properties"] = user
+        rec["properties_json"] = p
+    return rec
+
+
 # -- phase 15: the broker as production starts it ------------------------
 
 # the root of the checkout: the started brokers run from it
@@ -1528,18 +1645,21 @@ def read_store(path: str, bucket: str) -> dict:
     return {k: json.loads(v) for k, v in rows}
 
 
-def stores_equal(a: str, b: str) -> dict:
+def stores_equal(a: str, b: str, normal=None) -> dict:
     """Two store files equal bucket by bucket, record for record, each
-    record's wall-clock fields (``WALL_CLOCK_FIELDS``) left out; returns
-    each bucket's records compared."""
+    record's wall-clock fields (``WALL_CLOCK_FIELDS``) left out and each
+    record passed through ``normal`` where given; returns each bucket's
+    records compared."""
     out = {}
     for bucket in STORE_BUCKETS:
         recs = []
         for path in (a, b):
             rows = read_store(path, bucket)
-            for rec in rows.values():
+            for key, rec in rows.items():
                 for field in WALL_CLOCK_FIELDS.get(bucket, ()):
                     rec.pop(field, None)
+                if normal is not None:
+                    rows[key] = normal(rec)
             recs.append(rows)
         if recs[0] != recs[1]:
             bad = sorted(k for k in set(recs[0]) | set(recs[1])
@@ -1569,6 +1689,57 @@ def metric(series: dict, name: str, **labels) -> float:
     want = [f'{k}="{v}"' for k, v in labels.items()]
     return sum(v for (n, lab), v in series.items()
                if n == name and all(w in lab for w in want))
+
+
+def hist_quantiles(after: dict, before: dict, name: str,
+                   qs=(0.5, 0.99), **labels) -> list:
+    """The quantiles ``qs`` (ms) of what the histogram family ``name``
+    counted between two pages: its series holding ``labels``, summed
+    bucket by bucket, each quantile interpolated in its bucket as
+    Prometheus's ``histogram_quantile`` does (None where it counted
+    nothing)."""
+    want = [f'{k}="{v}"' for k, v in labels.items()]
+    cum: dict = {}
+    for page, sign in ((after, 1), (before, -1)):
+        for (n, lab), v in page.items():
+            if n == f"{name}_bucket" and all(w in lab for w in want):
+                le = float(re.search(r'le="([^"]+)"', lab).group(1))
+                cum[le] = cum.get(le, 0.0) + sign * v
+    bounds = sorted(cum)
+    if not bounds or cum[bounds[-1]] <= 0:
+        return [None] * len(qs)
+    out = []
+    for q in qs:
+        rank = q * cum[bounds[-1]]
+        lo, below = 0.0, 0.0
+        for b in bounds:
+            if cum[b] >= rank:
+                out.append(1e3 * (lo if b == float("inf") else
+                                  lo + (b - lo) * (rank - below)
+                                  / max(cum[b] - below, 1e-12)))
+                break
+            lo, below = b, cum[b]
+    return out
+
+
+def fed_latency(after: dict, before: dict) -> dict:
+    """A node's sampled latencies between two ``/metrics`` pages (ms,
+    [p50, p99]): the match's queue and device (or trie) stages, the
+    publish end to end (every QoS), and the cross-node end to end that
+    this node's publishes took by hop count."""
+    hops = sorted({re.search(r'hops="(\d+)"', lab).group(1)
+                   for (n, lab) in after
+                   if n == "maxmq_cluster_publish_e2e_seconds_bucket"})
+    stage = "maxmq_broker_publish_stage_seconds"
+    return {"match_queue": hist_quantiles(after, before, stage,
+                                          stage="match_queue"),
+            "match_device": hist_quantiles(after, before, stage,
+                                           stage="match_device"),
+            "e2e": hist_quantiles(after, before,
+                                  "maxmq_broker_publish_e2e_seconds"),
+            "cluster_e2e": {h: hist_quantiles(
+                after, before, "maxmq_cluster_publish_e2e_seconds", hops=h)
+                for h in hops}}
 
 
 def matcher_only(name: str) -> bool:
@@ -1606,6 +1777,12 @@ class StartedBroker:
         self.starts = 0
         self.proc = None
         self.log_path = ""
+
+    def add_config(self, text: str) -> None:
+        """Append config lines (phase 16's cluster identity, once every
+        node's port is known)."""
+        with open(self.conf, "a") as f:
+            f.write(text)
 
     def start(self, faults: str = "") -> None:
         """Start the process (``faults`` as its ``MAXMQ_FAULTS``)."""
@@ -1708,12 +1885,14 @@ class StartedBroker:
                                  f"stopping: {errors}")
         return time.perf_counter() - t0
 
-    async def drained(self, timeout: float) -> None:
-        """Wait until the broker holds no connection (its /metrics): the
+    async def drained(self, timeout: float, keep: int = 0) -> None:
+        """Wait until the broker holds no connection but ``keep`` (a
+        federation node's peers' bridge links) (its /metrics): the
         clients' DISCONNECTs processed, so a clean session's records are
         gone before a stop, as on the other broker."""
         deadline = time.monotonic() + timeout
-        while metric(self.scrape(), "maxmq_mqtt_clients_connected"):
+        while metric(self.scrape(),
+                     "maxmq_mqtt_clients_connected") > keep:
             if time.monotonic() > deadline:
                 raise AssertionError(f"{self.name} broker still holds "
                                      f"connections after {timeout} s")
@@ -1724,10 +1903,10 @@ class StartedBroker:
             self.proc.kill()
             self.proc.wait(30)
 
-    def scrape(self) -> dict:
+    def scrape(self, path: str = "/metrics") -> dict:
         import urllib.request
 
-        url = f"http://127.0.0.1:{self.metrics_port}/metrics"
+        url = f"http://127.0.0.1:{self.metrics_port}{path}"
         with urllib.request.urlopen(url, timeout=30) as r:
             return metric_series(r.read().decode())
 
@@ -1767,6 +1946,300 @@ async def resume_in_store_order(kit, port: int, cid: str, version: int,
         raise AssertionError(f"{cid}: {len(got)} deliveries on resume, "
                              f"{len(want)} in the store, or another order")
     return len(got)
+
+
+# -- phase 16: the cluster federation ------------------------------------
+
+# phase 16's topology: a line A - B - C with symmetric ``cluster_peers``.
+# The publishers sit on A and C, so C's publishes reach A's subscribers
+# over two hops through B, which relays and serves forwarded publishes.
+FED_LINE = {"A": ("B",), "B": ("A", "C"), "C": ("B",)}
+FED_PUBLISHER_NODES = ("A", "C")
+# a node's forward counters (``maxmq_cluster_<name>_total``), held
+# against its twin in the other federation: sent, delivered, refused,
+# parked and the dedup / origin-echo drops
+FED_FORWARDS = ("forwards_sent", "forwards_delivered", "forwards_refused",
+                "forwards_parked", "loops_dropped")
+# phase 16's tracer stride (phase 12's)
+FED_TRACE_STRIDE = 32
+
+
+def fed_config(node: str, ports: dict) -> str:
+    """The config lines that make a started broker node ``node`` of
+    phase 16's line (``ports``: each node's MQTT port): its id, its
+    peers and federated sessions off (the one cluster setting off the
+    default; they come with the next port slice), and the tracer on,
+    sampling every ``FED_TRACE_STRIDE``-th inbound publish, for the
+    match and cross-node latency histograms. Its stride counts the
+    federation's timed control traffic (heartbeats, telemetry, clock
+    probes) too, so which publishes it samples, and so which v5
+    deliveries carry an adopted trace's ``mq-trace`` property, differ
+    between the federations: frames and stores are compared without
+    that property (``without_trace``, ``drop_trace``)."""
+    peers = ",".join(f"{p}@127.0.0.1:{ports[p]}" for p in FED_LINE[node])
+    return (f'cluster_node_id = "{node}"\n'
+            f'cluster_peers = "{peers}"\n'
+            "cluster_session_replication = false\n"
+            f"trace_sample_n = {FED_TRACE_STRIDE}\n")
+
+
+def fed_converged(held: dict, expected: dict, line=FED_LINE) -> bool:
+    """Every node of ``held`` (node -> [routes held, links up]) holds the
+    routes its peers advertise (``expected``, from ``fed_routes``) with
+    each of its links up."""
+    return all(v == [expected[n], len(line[n])] for n, v in held.items())
+
+
+def fed_plan(kit, plan, nodes=tuple(FED_LINE), probes: bool = True) -> list:
+    """``plan``'s compared subscribers over ``nodes``, round robin in their
+    order (A, B, C, A, ...), its '#' probe replaced by one '#' probe a
+    node (``tcp-probe-<node>``; none where ``probes`` is off, so the
+    routes are not one '#'): [(node, cid, version, alias_max, offline,
+    [Subscription, ...])]."""
+    out = [(nodes[k % len(nodes)], *entry) for k, entry in
+           enumerate(e for e in plan if e[0] != "tcp-probe")]
+    if probes:
+        out += [(n, f"tcp-probe-{n}", 4, 0, False,
+                 [kit.Subscription(filter="#")]) for n in nodes]
+    return out
+
+
+def fed_local_filters(sessions) -> set:
+    """The filters a node's manager aggregates from its restored
+    subscriptions (``ClusterManager._note_filter``): a ``$share``
+    filter's inner filter, no '$' filter."""
+    from maxmq_tpu_torch.matching.topics import parse_share
+
+    out = set()
+    for _cid, _v, subs in sessions:
+        for sub in subs:
+            group, inner = parse_share(sub.filter)
+            f = inner if group else sub.filter
+            if f and not f.startswith("$"):
+                out.add(f)
+    return out
+
+
+def fed_routes(local: dict, line=FED_LINE) -> dict:
+    """The routes each node of the tree ``line`` holds once it has
+    converged, from each node's local filters: a peer advertises the
+    minimal cover of its own filters and of what its other peers
+    advertise to it (split horizon), so node X holds, summed over its
+    peers P, the cover P advertises to X."""
+    from maxmq_tpu_torch.cluster.routes import IncrementalCover
+
+    memo: dict = {}
+
+    def advertised(p: str, x: str) -> set:
+        if (p, x) not in memo:
+            fs = set(local[p])
+            for q in line[p]:
+                if q != x:
+                    fs |= advertised(q, p)
+            memo[p, x] = IncrementalCover(fs).cover
+        return memo[p, x]
+
+    return {x: sum(len(advertised(p, x)) for p in line[x]) for x in line}
+
+
+class Federation:
+    """One federation of phase 16 as its clients see it: each node's
+    ``BrokerSide`` (its compared subscribers and publishers, by node) and
+    the fences sent. A publisher ``pub<v>-<k>`` sits on node
+    ``publishers[k % len(publishers)]``; a fence ends a burst once every
+    online subscriber of every node holds it."""
+
+    def __init__(self, ports: dict,
+                 publishers=FED_PUBLISHER_NODES) -> None:
+        self.sides = {n: BrokerSide(None, p) for n, p in ports.items()}
+        self.publishers = publishers
+
+    @property
+    def online(self) -> list:
+        return [c for side in self.sides.values() for c in side.online]
+
+    async def resume(self, kit, plan, nodes=None) -> None:
+        """The plan's online subscribers of ``nodes`` (all) back on their
+        stored sessions, each on its node."""
+        for node, *entry in plan:
+            if nodes is None or node in nodes:
+                await resume_subscribers(kit, self.sides[node], [entry])
+
+    async def connect(self, kit, plan) -> None:
+        """The plan's subscribers connected fresh and subscribed, each on
+        its node (the offline ones leave with their sessions kept)."""
+        for node, *entry in plan:
+            await connect_subscribers(kit, self.sides[node], [entry])
+
+    def side_of(self, owner: str) -> BrokerSide:
+        return self.sides[self.publishers[int(owner.rsplit("-", 1)[1])
+                                          % len(self.publishers)]]
+
+    async def bursts(self, kit, traffic, chunk: int) -> None:
+        """``BrokerSide.bursts`` of ``traffic`` in bursts of ``chunk``,
+        each publisher on its node, every fence (counted on the first
+        side) awaited by every node's online subscribers."""
+        first = next(iter(self.sides.values()))
+        await first.bursts(kit, traffic, chunk=chunk, side_of=self.side_of,
+                           subs=self.online)
+
+    def marks(self) -> dict:
+        return {cid: len(c.frames) for side in self.sides.values()
+                for cid, c in side.subs.items()}
+
+    def streams(self, start: dict, untraced: bool = False) -> dict:
+        """Every node's subscribers' frames since ``start``; ``untraced``:
+        each v5 frame ``without_trace``."""
+        out = {}
+        for side in self.sides.values():
+            for cid, frames in side.streams(start).items():
+                out[cid] = ([without_trace(f) for f in frames]
+                            if untraced and side.subs[cid].version == 5
+                            else frames)
+        return out
+
+    async def close(self, nodes=None) -> None:
+        for node, side in self.sides.items():
+            if nodes is None or node in nodes:
+                await close_clients(side)
+                side.subs.clear()
+                side.pubs.clear()
+
+
+def fed_corpus_slices(nodes, n_subs: int, seed: int):
+    """Each node's corpus slice [(client id, Subscription)] and the
+    corpus's topic generator: ``build_corpus``'s filters split by index
+    over ``nodes``, QoS ``i % 3``."""
+    kit = port_kit()
+    filters, gen = build_corpus(n_subs, seed=seed)
+    slices = {n: [] for n in nodes}
+    for i, f in enumerate(filters):
+        slices[nodes[i % len(nodes)]].append(
+            (f"cl-{i}", kit.Subscription(filter=f, qos=i % 3)))
+    return slices, gen
+
+
+def fed_matcher_counts(broker) -> dict:
+    """A broker's supervised batcher's counts ({} without a matcher):
+    batches and the topics in them, the topics of those the bypass served
+    on the host and its shadow probes, cache hits, the topics its engine
+    served off the device (``SIG_COUNTERS``), the supervisor's hedges
+    by reason (``hedges_<reason>``, every reason but ``overflow``) and
+    breaker trips."""
+    sup = broker.matcher
+    if sup is None:
+        return {}
+    b = sup.inner
+    return {"batches": b.batches, "batched_topics": b.batched_topics,
+            "bypassed_topics": b.bypasses, "shadow_probes": b.shadow_probes,
+            "cache_hits": b.cache_hits,
+            "engine_host_topics": sum(getattr(b.engine, c, 0)
+                                      for c in SIG_COUNTERS),
+            **{f"hedges_{k}": v for k, v in sup.fallbacks_by_reason.items()
+               if k != "overflow"},
+            "breaker_trips": sup.breaker_trips}
+
+
+async def fed_in_process(line, specs: dict, seed: int, publishers,
+                         n_subs: int = 600, publishes: int = 384,
+                         burst: int = 64, clients: int = 12) -> dict:
+    """One federation over the tree ``line`` in this process (the port's
+    CPU tests and card test run it): node ``n`` a broker of
+    ``specs[n]`` = (broker kit, cluster package, matcher or None, device)
+    holding its corpus slice (``fed_corpus_slices``), a
+    ``ClusterManager`` with federated sessions off (the default keepalive:
+    a shorter one declares a link dead while a full-size node holds the
+    loop; a fast reconnect backoff), the compared subscribers
+    (``fed_plan`` without probes, so the routes are real covers)
+    connected and subscribed, the routes converged
+    (``fed_routes``), each engine caught up with its index
+    (``catch_up``), then ``publish_frames`` in fenced bursts from
+    ``publishers``. Every node with a matcher has its batcher's host
+    bypass off (as phase 12's), so its engine answers every topic it
+    matches, forwarded ones included. Returns the subscribers' frames,
+    each node's forward counters and retained (topic, payload) pairs, the
+    routes expected, ``sig_match_fixed``'s launches during the traffic
+    and each matcher node's counts over it (``fed_matcher_counts``)."""
+    from maxmq_tpu_torch.matching import sig_kernel
+
+    kit = port_kit()
+    nodes = tuple(line)
+    slices, gen = fed_corpus_slices(nodes, n_subs, seed)
+    topics = gen(publishes, seed2=seed + 1)
+    index = kit.TopicIndex()
+    for pairs in slices.values():
+        for cid, sub in pairs:
+            index.subscribe(cid, sub)
+    plan = fed_plan(kit, subscriber_plan(kit, clients, topics,
+                                         index.subscribers, seed=seed),
+                    nodes, probes=False)
+    sides, mgrs = {}, {}
+    try:
+        for node in nodes:
+            bk, _cl, matcher, device = specs[node]
+            sides[node] = await start_broker(
+                bk, broker_config(bk, matcher or ""), slices[node],
+                matcher is not None, device=device)
+            if matcher is not None:
+                sides[node].broker.matcher.inner.cpu_bypass = False
+        for node, peers in line.items():
+            cl = specs[node][1]
+            mgr = cl.ClusterManager(
+                sides[node].broker, node,
+                [cl.PeerSpec(p, "127.0.0.1", sides[p].port) for p in peers],
+                session_replication=False,
+                backoff_initial_s=0.05, backoff_max_s=0.5)
+            sides[node].broker.attach_cluster(mgr)
+            await mgr.start()
+            mgrs[node] = mgr
+        fed = Federation({n: sides[n].port for n in nodes}, publishers)
+        await fed.connect(kit, plan)
+        local = {}
+        for node in nodes:
+            sessions = [(cid, 0, [sub]) for cid, sub in slices[node]]
+            sessions += [(cid, v, [*subs, kit.Subscription(filter=FENCE_TOPIC)])
+                         for n, cid, v, _a, _o, subs in plan if n == node]
+            local[node] = fed_local_filters(sessions)
+        expected = fed_routes(local, line)
+        deadline = time.monotonic() + 30
+        while not fed_converged(
+                {n: [m.routes.remote_route_count, m.links_up]
+                 for n, m in mgrs.items()}, expected, line):
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"routes held {[m.routes.remote_route_count for m in mgrs.values()]}"
+                    f", expected {expected}")
+            await asyncio.sleep(0.02)
+        for node in nodes:
+            engine = getattr(sides[node].broker.matcher, "engine", None)
+            if engine is not None:
+                # the engine's background refresh over the compared
+                # subscribers' subscriptions, awaited before the traffic
+                # (as phase 12's): a refresh under way holds the matches
+                await asyncio.get_running_loop().run_in_executor(
+                    None, catch_up, engine)
+        counts0 = {n: fed_matcher_counts(sides[n].broker) for n in nodes}
+        launches = sig_kernel.sig_match_fixed.launches
+        await fed.bursts(kit, publish_frames(kit, topics, seed + 2,
+                                             publishers=len(publishers)),
+                         burst)
+        k1 = sig_kernel.sig_match_fixed.launches - launches
+        out = {"frames": fed.streams({}),
+               "forwards": {n: {f: getattr(m, f) for f in FED_FORWARDS}
+                            for n, m in mgrs.items()},
+               "retained": {n: sorted((p.topic, p.payload) for p in
+                                      sides[n].broker.topics.retained_for("#"))
+                            for n in nodes},
+               "expected_routes": expected,
+               "k1_launches": k1,
+               "matchers": {n: {k: v - counts0[n][k] for k, v in
+                                fed_matcher_counts(sides[n].broker).items()}
+                            for n in nodes if counts0[n]}}
+        await fed.close()
+        return out
+    finally:
+        for side in sides.values():
+            await side.close()
 
 
 class LoopLag:
@@ -1980,6 +2453,10 @@ class Smoke:
         self.nfa_engines = {}      # corpus -> NFAEngine, default widths
         self.record = {"max_abs_err": 0, "bit_equal": True}
         self.dense_record = {"max_abs_err": 0, "bit_equal": True}
+        # the card's name and power limit, printed beside phase 16's
+        # numbers (the host's CPU in a CPU rehearsal)
+        self.card = (card_line() if self.device.type == "cuda"
+                     else "cpu rehearsal")
 
     def sm_count(self) -> int:
         """SMs of the card (the launch shapes' input); 132 when rehearsing
@@ -3388,6 +3865,370 @@ class Smoke:
                 sz["stop_s"])}
         out["stop_s"] = await card.stop(sz["stop_s"])
         log(f"[started] crash rung: {json.dumps(out)}")
+        return out
+
+    # -- phase 16: the cluster federation ----------------------------------
+
+    async def federation(self) -> dict:
+        """Phase 16: two federations of three started brokers on a line
+        A - B - C (``FED_LINE``): the card federation (``matcher =
+        "sig"``, no ``--device``) and the trie federation (``--device
+        cpu``). ``mixed_100k``'s persistent v5 sessions (QoS ``k % 2 +
+        1``) split by index mod 3 into three SQLite stores with the
+        compared subscribers of each node (``fed_plan``: phase 12's
+        plan round robin over the nodes, a '#' probe on each), each
+        store copied for both federations; ``fed_config`` the only
+        settings off phase 15's. The six children boot in parallel; the
+        route convergence is awaited on each node's ``/metrics``
+        (``maxmq_cluster_routes_held`` equal to ``fed_routes`` of the
+        stores, every link up); the compared subscribers resume; the
+        PUBLISH frames in fenced bursts from A and C, trie federation
+        first, every subscriber's frames equal; then B restarted in both
+        (SIGTERM, ``start`` again on its store), the stale epoch flushed
+        and the routes converged again, and more bursts, equal again.
+        On every card node: no hedge, trip or degrade, ``sig_match_fixed``
+        launched during the traffic (B included), ``/cluster/metrics``
+        with every node's series; each node's forward counters equal to
+        its twin's; after SIGTERM every node's store equal to its twin's
+        (its retained and inflight records included)."""
+        from maxmq_tpu_torch.matching.trie import TopicIndex
+
+        if self.device.type == "cuda":
+            import torch
+
+            torch.cuda.empty_cache()    # the children take the card
+        sz = self.sizes["federation"]
+        name = sz["corpus"]
+        kit = port_kit()
+        _f, gen = self.corpus_filters(name)
+        nodes = list(FED_LINE)
+        out = {"corpus": name}
+        with (collector_paused(),
+              tempfile.TemporaryDirectory(prefix="maxmq-fed-") as work):
+            t0 = time.perf_counter()
+            subs = [(cid, started_subscription(kit, k, sub))
+                    for k, (cid, sub) in enumerate(self.corpus_preload(name))]
+            index = TopicIndex()
+            for cid, sub in subs:
+                index.subscribe(cid, sub)
+            topics = gen(sz["publishes"] + sz["rung_publishes"], seed2=4700)
+            plan = fed_plan(kit, subscriber_plan(kit, sz["clients"], topics,
+                                                 index.subscribers))
+            dbs, local = {}, {}
+            for i, node in enumerate(nodes):
+                sessions = started_sessions(
+                    kit, subs[i::len(nodes)],
+                    [entry for n, *entry in plan if n == node])
+                local[node] = fed_local_filters(sessions)
+                base = os.path.join(work, f"{node}.db")
+                write_corpus_store(base, sessions)
+                for fed in ("trie", "card"):
+                    dbs[fed, node] = os.path.join(work, f"{fed}-{node}.db")
+                    shutil.copyfile(base, dbs[fed, node])
+            out["routes_expected"] = fed_routes(local)
+            out["store_write_s"] = time.perf_counter() - t0
+            device = None if self.device.type == "cuda" else "cpu"
+            brokers = {}
+            for fed in ("trie", "card"):
+                for node in nodes:
+                    brokers[fed, node] = StartedBroker(
+                        f"{fed}-{node}", work, dbs[fed, node],
+                        "sig" if fed == "card" else "trie",
+                        device if fed == "card" else "cpu", sz["max_batch"])
+                ports = {n: brokers[fed, n].port for n in nodes}
+                for node in nodes:
+                    brokers[fed, node].add_config(fed_config(node, ports))
+            feds = {fed: Federation({n: brokers[fed, n].port for n in nodes})
+                    for fed in ("trie", "card")}
+            try:
+                out.update(await self.federation_run(
+                    kit, topics, plan, brokers, feds, out["routes_expected"]))
+                out["stores"] = {node: stores_equal(
+                    dbs["card", node], dbs["trie", node], drop_trace)
+                    for node in nodes}
+                log(f"[federation] stores equal: {json.dumps(out['stores'])}"
+                    " (clients, subscriptions, retained, inflight)")
+            except BaseException:
+                for b in brokers.values():
+                    if b.log_path:
+                        log(f"[federation] {b.name} broker log:\n{b.tail()}")
+                raise
+            finally:
+                for f in feds.values():
+                    with contextlib.suppress(Exception):
+                        await f.close()
+                for b in brokers.values():
+                    b.kill()
+            # in this process, as phase 12 runs: the collector paused
+            out["in_process"] = await self.fed_forwarded()
+        log(f"[federation] {self.card} {json.dumps(out)}")
+        return out
+
+    async def fed_forwarded(self) -> dict:
+        """The line in this process (``fed_in_process``, sized by the size
+        table's ``in_process``: a ``build_corpus`` of ``subs`` split in
+        three, ``clients`` compared subscribers, ``publishes`` in bursts
+        of ``burst``): every node a port broker with its ``build_matcher``
+        sig stack on the card, against the same line on its tries, the
+        batchers' host bypass off, so the card answers every topic a card
+        node matches, the publishes forwarded to it included. Every
+        subscriber's frames, each node's forward counters and retained
+        set equal; on each card node batches formed, no topic bypassed
+        and no shadow probe, no hedge or trip, and at least
+        ``device_share`` of its matched topics answered on the device
+        (less cache hits and the engine's host paths); on the card, K1
+        launched at least once for each batch."""
+        from maxmq_tpu_torch import cluster
+
+        sz = self.sizes["federation"]
+        ip = sz["in_process"]
+        bk = broker_kit()
+        device = None if self.device.type == "cuda" else "cpu"
+        runs, walls = {}, {}
+        for fed, spec in (("trie", (bk, cluster, None, None)),
+                          ("card", (bk, cluster, "sig", device))):
+            t0 = time.perf_counter()
+            runs[fed] = await fed_in_process(
+                FED_LINE, dict.fromkeys(FED_LINE, spec), 42,
+                FED_PUBLISHER_NODES, n_subs=ip["subs"],
+                publishes=ip["publishes"], burst=ip["burst"],
+                clients=ip["clients"])
+            walls[fed] = time.perf_counter() - t0
+        card, trie = runs["card"], runs["trie"]
+        out = {"deliveries_compared": streams_equal(
+                   "federation in process", card["frames"], trie["frames"]),
+               "wall_s": walls, "k1_launches": card["k1_launches"],
+               "nodes": card["matchers"]}
+        for key in ("forwards", "retained", "expected_routes"):
+            if card[key] != trie[key]:
+                raise AssertionError(f"federation in process: {key} "
+                                     f"{card[key]} vs {trie[key]}")
+        for c in card["matchers"].values():
+            c["device_share"] = ((c["batched_topics"] - c["bypassed_topics"]
+                                  - c["engine_host_topics"])
+                                 / max(c["batched_topics"] + c["cache_hits"],
+                                       1))
+        log(f"[federation] in process, bypass off: {self.card} "
+            f"{json.dumps(out)}")
+        for node, c in card["matchers"].items():
+            hedges = sum(v for k, v in c.items() if k.startswith("hedges_"))
+            if (c["batches"] < 1 or c["bypassed_topics"] or c["shadow_probes"]
+                    or hedges or c["breaker_trips"]
+                    or c["device_share"] < sz["device_share"]):
+                raise AssertionError(f"federation in process: card node "
+                                     f"{node}'s matcher: {c}")
+        batches = sum(c["batches"] for c in card["matchers"].values())
+        if self.device.type == "cuda" and card["k1_launches"] < batches:
+            raise AssertionError(
+                f"federation in process: {card['k1_launches']} K1 launches "
+                f"for {batches} batches: {out}")
+        return out
+
+    async def fed_boot(self, brokers: dict, which) -> dict:
+        """Start the brokers ``which`` at once; their boots (as
+        ``StartedBroker.ready``), none warning, every card node's matcher
+        on a CUDA device on the card."""
+        sz = self.sizes["federation"]
+        for k in which:
+            brokers[k].start()
+        boots = await asyncio.gather(*(brokers[k].ready(sz["boot_s"])
+                                       for k in which))
+        out = {}
+        for k, boot in zip(which, boots):
+            if boot["warnings"]:
+                raise AssertionError(f"{brokers[k].name} warned at boot: "
+                                     f"{boot['warnings']}")
+            if (self.device.type == "cuda" and k[0] == "card"
+                    and not boot["device"].startswith("cuda")):
+                raise AssertionError(f"{brokers[k].name}'s matcher runs on "
+                                     f"{boot['device']}")
+            out[brokers[k].name] = boot
+        return out
+
+    async def fed_converge(self, brokers: dict, expected: dict) -> dict:
+        """Wait until every node of both federations has each link up and
+        holds the routes its peers advertise (``expected``, from
+        ``fed_routes``), read from its ``/metrics``; returns the seconds
+        and the routes held."""
+        sz = self.sizes["federation"]
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + sz["converge_s"]
+        while True:
+            held = {fed: {} for fed, _n in brokers}
+            for (fed, node), b in brokers.items():
+                page = b.scrape()
+                held[fed][node] = [metric(page, "maxmq_cluster_routes_held"),
+                                   metric(page, "maxmq_cluster_links_up")]
+            if all(fed_converged(h, expected) for h in held.values()):
+                return {"converge_s": time.perf_counter() - t0,
+                        "routes_held": held}
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"the federations did not converge in "
+                    f"{sz['converge_s']} s: [routes held, links up] "
+                    f"{held}, routes expected {expected}")
+            await asyncio.sleep(0.1)
+
+    async def fed_traffic(self, kit, feds: dict, brokers: dict, traffic,
+                          what: str) -> dict:
+        """``traffic`` through the trie federation, then the card one;
+        every subscriber's frames equal (without the ``mq-trace``
+        property); each node's forward counters equal its twin's; on each
+        card node no hedge, trip or degrade and K1 launched. Recorded, not
+        held: each card node's launches that served publishes (less the
+        shadow probes), the share of its matched topics the card answered
+        (the host bypass serves the rest), and both federations' sampled
+        latencies (``fed_latency``)."""
+        sz = self.sizes["federation"]
+        before = {k: b.scrape() for k, b in brokers.items()}
+        walls, starts = {}, {}
+        for fed in ("trie", "card"):
+            starts[fed] = feds[fed].marks()
+            t0 = time.perf_counter()
+            await feds[fed].bursts(kit, traffic, sz["burst"])
+            walls[fed] = time.perf_counter() - t0
+        frames = streams_equal(
+            f"federation {what}",
+            feds["card"].streams(starts["card"], untraced=True),
+            feds["trie"].streams(starts["trie"], untraced=True))
+        after = {k: b.scrape() for k, b in brokers.items()}
+        out = {"deliveries_compared": frames, "wall_s": walls,
+               "deliveries_per_s": {f: frames / w for f, w in walls.items()},
+               "nodes": {}}
+        for node in FED_LINE:
+            card, trie = after["card", node], after["trie", node]
+            fwd = {f: [metric(p, f"maxmq_cluster_{f}_total")
+                       - metric(before[k, node], f"maxmq_cluster_{f}_total")
+                       for k, p in (("card", card), ("trie", trie))]
+                   for f in FED_FORWARDS}
+            if any(c != t for c, t in fwd.values()):
+                raise AssertionError(f"federation {what}: node {node}'s "
+                                     f"forward counters [card, trie]: {fwd}")
+            hedges = {lab: v for (n, lab), v in card.items()
+                      if n == "maxmq_matcher_fallbacks_total" and v
+                      and 'reason="overflow"' not in lab}
+
+            def delta(name, **labels):
+                return (metric(card, name, **labels)
+                        - metric(before["card", node], name, **labels))
+
+            rec = {
+                "forwards": {f: v[0] for f, v in fwd.items()},
+                "k1_launches": delta("maxmq_matcher_kernel_launches_total",
+                                     kernel="sig_match_fixed"),
+                "shadow_probes": delta("maxmq_matcher_shadow_probes_total"),
+                "batches": delta("maxmq_matcher_batches_total"),
+                "batched_topics": delta("maxmq_matcher_batched_topics_total"),
+                "bypassed_topics": delta(
+                    "maxmq_matcher_bypassed_topics_total"),
+                "cache_hits": delta("maxmq_matcher_cache_hits_total"),
+                "hedges": hedges,
+                "breaker_trips": metric(card,
+                                        "maxmq_matcher_breaker_trips_total"),
+                "degrades": metric(card,
+                                   "maxmq_broker_publish_trie_degraded_total"),
+                # the batcher's device round trip (its EWMA), which the
+                # bypass holds the host's cost against
+                "device_rtt_ms": metric(
+                    card, "maxmq_matcher_device_rtt_seconds") * 1e3,
+                "link_rtt_ms": {lab: v for (n, lab), v in card.items()
+                                if n == "maxmq_cluster_peer_rtt_ms"},
+                "latency_ms": {fed: fed_latency(after[fed, node],
+                                                before[fed, node])
+                               for fed in ("card", "trie")}}
+            # K1's launches less the shadow probes (one launch each at
+            # most, answers dropped): the launches that served publishes;
+            # the share of the topics matched that the card answered
+            rec["served_launches"] = rec["k1_launches"] - rec["shadow_probes"]
+            rec["device_share"] = ((rec["batched_topics"]
+                                    - rec["bypassed_topics"])
+                                   / max(rec["batched_topics"]
+                                         + rec["cache_hits"], 1))
+            if rec["hedges"] or rec["breaker_trips"] or rec["degrades"]:
+                raise AssertionError(f"federation {what}: card node {node}'s "
+                                     f"matcher: {rec}")
+            if self.device.type == "cuda" and rec["k1_launches"] < 1:
+                raise AssertionError(f"federation {what}: card node {node} "
+                                     f"launched no sig_match_fixed: {rec}")
+            out["nodes"][node] = rec
+        log(f"[federation] {what}: {self.card} {json.dumps(out)}")
+        return out
+
+    async def fed_telemetry(self, brokers: dict) -> dict:
+        """Every card node's ``/cluster/metrics`` holds every node's
+        series (its own and its peers' gossiped snapshots), waited for
+        up to two telemetry intervals."""
+        sz = self.sizes["federation"]
+        deadline = time.monotonic() + sz["telemetry_s"]
+        while True:
+            nodes = {}
+            for node in FED_LINE:
+                page = brokers["card", node].scrape("/cluster/metrics")
+                nodes[node] = sorted({lab for (n, lab) in page
+                                      if n == "maxmq_mqtt_messages_received"})
+            want = sorted(f'node="{n}"' for n in FED_LINE)
+            if all(v == want for v in nodes.values()):
+                return nodes
+            if time.monotonic() > deadline:
+                raise AssertionError(f"/cluster/metrics of the card nodes: "
+                                     f"{nodes}")
+            await asyncio.sleep(0.2)
+
+    async def federation_run(self, kit, topics, plan, brokers, feds,
+                             expected: dict) -> dict:
+        """Phase 16's two federations: boots, convergence, traffic, the
+        restart of B, stops."""
+        sz = self.sizes["federation"]
+        out = {}
+        t0 = time.perf_counter()
+        out["boot"] = await self.fed_boot(brokers, list(brokers))
+        log(f"[federation] boots: {self.card} {json.dumps(out['boot'])}")
+        out["converge"] = await self.fed_converge(brokers, expected)
+        for f in feds.values():
+            await f.resume(kit, plan)
+        n = sz["publishes"]
+        out["traffic"] = await self.fed_traffic(
+            kit, feds, brokers, publish_frames(kit, topics[:n], 47,
+                                               publishers=2), "traffic")
+        out["telemetry"] = await self.fed_telemetry(brokers)
+        # the rung: B restarted in both federations
+        t1 = time.perf_counter()
+        marks = {k: b.scrape() for k, b in brokers.items()}
+        for fed, f in feds.items():
+            await f.close(nodes=("B",))
+        await asyncio.gather(*(brokers[fed, "B"].drained(
+            sz["stop_s"], keep=len(FED_LINE["B"])) for fed in feds))
+        stops = await asyncio.gather(*(brokers[fed, "B"].stop(sz["stop_s"])
+                                       for fed in feds))
+        out["rung"] = {"stop_s": dict(zip(feds, stops)),
+                       "boot": await self.fed_boot(
+                           brokers, [(fed, "B") for fed in feds])}
+        out["rung"]["converge"] = await self.fed_converge(brokers, expected)
+        # B came back as a new incarnation (its boot epoch bumped), and
+        # its peers replaced the old one's routes with its fresh snapshot
+        for (fed, node), b in brokers.items():
+            page = b.scrape()
+            name, why = (("maxmq_storage_boot_epoch", "boot epoch")
+                          if node == "B" else
+                          ("maxmq_cluster_snapshots_applied_total",
+                           "snapshots applied"))
+            if not metric(page, name) > metric(marks[fed, node], name):
+                raise AssertionError(f"{b.name}'s {why} did not grow over "
+                                     "B's restart")
+        for f in feds.values():
+            await f.resume(kit, plan, nodes=("B",))
+        out["rung"]["restart_s"] = time.perf_counter() - t1
+        out["rung"]["traffic"] = await self.fed_traffic(
+            kit, feds, brokers, publish_frames(kit, topics[n:], 48,
+                                               publishers=2), "after B's restart")
+        for f in feds.values():
+            await f.close()
+        await asyncio.gather(*(b.drained(sz["stop_s"], keep=len(FED_LINE[k[1]]))
+                               for k, b in brokers.items()))
+        stops = await asyncio.gather(*(b.stop(sz["stop_s"])
+                                       for b in brokers.values()))
+        out["stop_s"] = {b.name: s for b, s in zip(brokers.values(), stops)}
+        out["phase_s"] = time.perf_counter() - t0
         return out
 
     # -- phase 14: the rest of the signature engine's device surface -----
@@ -4939,6 +5780,10 @@ class Smoke:
             self.matcher_tracing()))
         started = self.phase("started broker", lambda: asyncio.run(
             self.started_brokers()))
+        # phase 16 (the CPU rehearsal of the whole run leaves it out: it
+        # has a test of its own)
+        federation = (self.phase("federation", lambda: asyncio.run(
+            self.federation())) if "federation" in self.sizes else None)
         broker = self.phase("broker", lambda: asyncio.run(
             self.broker_phases()))
         h = heads["iot_1m_share"]
@@ -4953,6 +5798,11 @@ class Smoke:
                    tracing_launches=tracing["launches"],
                    surfaces_launches=surfaces["launches"],
                    started_launches=started["k1_launches"],
+                   federation_launches=None if federation is None else {
+                       node: federation["traffic"]["nodes"][node][
+                           "k1_launches"]
+                       + federation["rung"]["traffic"]["nodes"][node][
+                           "k1_launches"] for node in FED_LINE},
                    headline={k: {f: v[f] for f in
                                  ("kernel_ms", "kernel_ms_256", "plain_ms",
                                   "bound_ms", "bound_by", "launches")}
@@ -4969,7 +5819,7 @@ class Smoke:
                      headline_launches=dh["launches"])
         return {"kernels": [sig, dense], "content": content,
                 "tracing": tracing, "surfaces": surfaces,
-                "started": started}
+                "started": started, "federation": federation}
 
 
 def main() -> int:

@@ -11,9 +11,11 @@ Copy of the JAX package's ``bootstrap.py``. ``build_matcher``,
 ``device``: the engines and the content plane's torch evaluator run on the
 card unless the caller names another device (``"cpu"``), and without CUDA
 and without a device the device engines raise — nothing is moved to the
-CPU on its own. The worker pool (``workers > 1``) and cluster mode
-(``cluster_node_id``) are not ported yet: a config asking for either fails
-at start, naming the port's slice that brings it.
+CPU on its own. Cluster mode (``cluster_node_id``) runs the federation
+without federated sessions: the session replication
+(``cluster_session_replication = true``, the default) and the worker pool
+(``workers > 1``) are not ported yet, and a config asking for either fails
+at start, naming the port's slice that brings them (``SESSIONS_SLICE``).
 """
 
 from __future__ import annotations
@@ -40,10 +42,10 @@ BANNER = r"""
         MQTT broker, PyTorch/CUDA port
 """
 
-# what a config asks for that this package does not run yet, with the port
-# slice that brings it
-WORKER_POOL_SLICE = "port slice 12, the worker pool"
-CLUSTER_SLICE = "port slice 13, cluster"
+# what a config asks for that this package does not run yet: federated
+# sessions (``cluster_session_replication``) and the worker pool
+SESSIONS_SLICE = ("port slice 13, federated sessions and the worker "
+                  "pool")
 
 
 def capabilities_from_config(conf: Config) -> Capabilities:
@@ -208,14 +210,39 @@ def supervisor_kwargs(conf: Config) -> dict:
 
 
 def build_cluster(conf: Config, broker: Broker, logger: Logger | None = None):
-    """The federation manager (ADR 013) when ``cluster_node_id`` is set.
-    Cluster mode is not ported yet: a config that sets it fails here, at
-    start, before anything serves."""
+    """Attach the federation manager (ADR 013) when ``cluster_node_id``
+    is set: bridge links to every ``cluster_peers`` entry, the
+    aggregated route table, and $cluster/* inbound handling. The links
+    start with broker.serve(). The manager refuses session replication
+    (``cluster_session_replication = true``), which is not ported yet,
+    naming the slice that brings it."""
     if not conf.cluster_node_id:
         return None
-    raise NotImplementedError(
-        f"cluster_node_id = {conf.cluster_node_id!r}: cluster mode is not "
-        f"ported to maxmq_tpu_torch yet ({CLUSTER_SLICE})")
+    from .cluster import ClusterManager
+    from .cluster.membership import parse_peers
+    manager = ClusterManager(
+        broker, conf.cluster_node_id, parse_peers(conf.cluster_peers),
+        link_qos=conf.cluster_link_qos,
+        max_hops=conf.cluster_max_hops,
+        link_byte_budget=conf.cluster_link_byte_budget,
+        keepalive=float(conf.cluster_link_keepalive),
+        session_replication=conf.cluster_session_replication,
+        session_sync=conf.cluster_session_sync,
+        session_sync_timeout_ms=conf.cluster_session_sync_timeout_ms,
+        fwd_durability=conf.cluster_fwd_durability,
+        replica_expiry_s=float(conf.cluster_replica_expiry_s),
+        share_balance=conf.cluster_share_balance,
+        session_takeover_timeout_ms=(
+            conf.cluster_session_takeover_timeout_ms),
+        trace_propagation=conf.cluster_trace_propagation,
+        trace_return=conf.cluster_trace_return,
+        telemetry_interval_s=float(conf.cluster_telemetry_interval_s),
+        telemetry_full_every=conf.cluster_telemetry_full_every,
+        rtt_deadline_k=float(conf.cluster_rtt_deadline_k),
+        content_routes=conf.cluster_content_routes,
+        logger=logger.with_prefix("cluster") if logger else None)
+    broker.attach_cluster(manager)
+    return manager
 
 
 def build_storage(conf: Config) -> "StorageHook | None":
@@ -285,8 +312,9 @@ def build_broker(conf: Config, logger: Logger, device=None) -> Broker:
     if conf.mqtt_sys_http_address:
         broker.add_listener(HTTPStatsListener(
             "sys-http", conf.mqtt_sys_http_address, lambda: broker.info))
-    # the cluster refusal comes before the matcher starts its background
-    # warm-up (the reference attaches a cluster after the matcher)
+    # the session-replication refusal comes before the matcher starts its
+    # background warm-up (the reference attaches a cluster after the
+    # matcher; nothing in either depends on the other's order)
     build_cluster(conf, broker, logger)
     build_matcher(conf, broker, device=device)
     return broker
@@ -299,21 +327,29 @@ def build_metrics(conf: Config, broker: Broker,
     registry = Registry()
     register_broker_metrics(registry, broker)
     if broker.matcher is not None:
-        _register_kernel_launches(registry)
-    # no cluster is ever attached here (build_cluster refuses one), so
-    # there is no federated /cluster/metrics page to serve
+        _register_device_counts(registry, broker.matcher)
+    # ADR 017: with a cluster attached, ANY node serves the federated
+    # /cluster/metrics page from its telemetry plane
+    telemetry = getattr(broker.cluster, "telemetry", None) \
+        if broker.cluster is not None else None
     return MetricsServer(conf.metrics_address, registry,
                          path=conf.metrics_path,
                          profiling=conf.metrics_profiling,
                          logger=logger.with_prefix("metrics"),
-                         tracer=broker.tracer)
+                         tracer=broker.tracer,
+                         cluster_metrics=(telemetry.cluster_exposition
+                                          if telemetry is not None
+                                          else None))
 
 
-def _register_kernel_launches(registry: Registry) -> None:
+def _register_device_counts(registry: Registry, matcher) -> None:
     """The process's launches of each hand-written CUDA kernel (each
     kernel's ``launches`` count; ``sig_kernel``'s docstring says where a
     launch is counted, never for a plain-version call): what the device
-    matcher ran, beside its batches."""
+    matcher ran, beside its batches. With a batcher, also the topics of
+    its batches and its shadow probes: bypassed batches sent to the
+    device only to time it (one launch each at most), whose answers
+    serve no publish."""
     from .matching.dense_kernel import dense_walk_words
     from .matching.sig_kernel import sig_match_fixed
 
@@ -322,6 +358,16 @@ def _register_kernel_launches(registry: Registry) -> None:
             "maxmq_matcher_kernel_launches_total",
             "CUDA kernel launches of this process, by kernel",
             lambda fn=fn: fn.launches, labels={"kernel": fn.__name__})
+    if hasattr(matcher, "shadow_probes"):
+        registry.counter_func(
+            "maxmq_matcher_batched_topics_total",
+            "Topics in the micro-batches formed (device and bypass)",
+            lambda: matcher.batched_topics)
+        registry.counter_func(
+            "maxmq_matcher_shadow_probes_total",
+            "Bypassed batches duplicated to the device to refresh the "
+            "round-trip estimate (their answers are dropped)",
+            lambda: matcher.shadow_probes)
 
 
 def new_logger_from_config(conf: Config) -> Logger:
@@ -459,7 +505,7 @@ async def _maybe_run_pool(conf: Config, logger, ready, stop) -> bool:
                 else f"workers = {conf.workers}")
         raise NotImplementedError(
             f"{what}: the delivery-worker pool is not ported to "
-            f"maxmq_tpu_torch yet ({WORKER_POOL_SLICE})")
+            f"maxmq_tpu_torch yet ({SESSIONS_SLICE})")
     return False
 
 

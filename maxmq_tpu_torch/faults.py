@@ -8,11 +8,12 @@ fails, a client writer that stalls, a connection accept that is refused,
 a content-plane evaluation or window emission that fails, a stored
 record that fails to restore, a journal write or group commit that
 fails, a disk that errors, fills, fails its fsync or stalls under the
-journal (``hooks/faultstore.py``), and the named crash points. The broker's
-cluster inbound path reads the directed ``cluster.partition`` and
-``cluster.shape`` sites (``partition_key``, ``get_shape``); the shapes
-themselves and the partition helpers come with cluster mode. Sites cost
-one dict lookup on an (almost always) empty dict when nothing is armed.
+journal (``hooks/faultstore.py``), the named crash points, and the
+cluster federation's sites: a bridge link that fails to connect, a route
+apply that fails, and the directed network partitions (``partition``,
+``heal``) and WAN link shapes (``ShapeSpec``, ``shape``, ``unshape``)
+between nodes. Sites cost one dict lookup on an (almost always) empty
+dict when nothing is armed.
 
 ``arm(site, mode, count)`` fires the fault for exactly the next
 ``count`` hits of that site (``count=-1`` = until disarmed), then
@@ -41,6 +42,7 @@ import os
 import signal
 import threading
 import time
+import zlib
 
 
 class DeviceMatchError(RuntimeError):
@@ -66,7 +68,10 @@ CLUSTER_PARTITION = "cluster.partition"  # directed inter-node network
                                        # partition (keyed per link
                                        # direction "src->dst")
 CLUSTER_SHAPE = "cluster.shape"        # directed inter-node WAN link
-                                       # shape (keyed "src->dst")
+                                       # shape (keyed "src->dst": delay/
+                                       # jitter/rate/loss, not binary)
+CLUSTER_LINK = "cluster.link"          # bridge link connect/pump
+CLUSTER_ROUTE_APPLY = "cluster.route_apply"  # route snapshot/delta apply
 FILTER_EVAL = "filter.eval"            # content-plane batch evaluation
                                        # (trips fail OPEN: the flush
                                        # delivers unfiltered)
@@ -121,6 +126,118 @@ def _sigkill_self() -> None:
     os.kill(os.getpid(), signal.SIGKILL)
 
 
+class ShapeSpec:
+    """One directed link's WAN shape (ADR 022): fixed one-way delay,
+    uniform jitter, a token-bucket rate limit, and probabilistic loss.
+
+    Everything here is pure integer-ns arithmetic over clocks the CALL
+    SITE reads (through ``REGISTRY.clock_ns``), and the only randomness
+    is a private xorshift64* stream seeded from the link key — so a
+    scripted-clock test replays the exact same jitter/loss sequence
+    every run. The spec never sleeps; :meth:`depart_ns` answers "when
+    may this item hit the far end", and the bridge's deferral queue
+    does the (non-blocking) waiting.
+
+    Reorder preservation: a jitter draw that would land an item before
+    its predecessor is clamped to the predecessor's departure — a
+    shaped link is a slow FIFO pipe, never a packet shuffler (the blip
+    audit's FIFO claim, ADR 020, must keep holding on shaped links).
+    """
+
+    __slots__ = ("delay_ns", "jitter_ns", "rate_bps", "loss",
+                 "burst_bytes", "deferrals", "losses", "_rng",
+                 "_last_depart_ns", "_tokens", "_tb_stamp_ns")
+
+    def __init__(self, delay_ms: float = 0.0, jitter_ms: float = 0.0,
+                 rate_bps: int = 0, loss: float = 0.0,
+                 burst_bytes: int = 16384, seed: int = 0) -> None:
+        if delay_ms < 0 or jitter_ms < 0 or rate_bps < 0 \
+                or not 0.0 <= loss <= 1.0:
+            raise ValueError("bad shape (want delay_ms/jitter_ms/"
+                             "rate_bps >= 0, 0 <= loss <= 1)")
+        self.delay_ns = int(delay_ms * 1e6)
+        self.jitter_ns = int(jitter_ms * 1e6)
+        self.rate_bps = int(rate_bps)
+        self.loss = float(loss)
+        self.burst_bytes = max(int(burst_bytes), 1)
+        self.deferrals = 0          # items that actually waited
+        self.losses = 0             # items the loss draw ate
+        self._rng = (seed & 0xFFFFFFFFFFFFFFFF) or 0x9E3779B97F4A7C15
+        self._last_depart_ns = 0    # FIFO fence (reorder preservation)
+        self._tokens: float | None = None   # bucket starts full
+        self._tb_stamp_ns = 0
+
+    # -- deterministic randomness --------------------------------------
+
+    def rand(self) -> float:
+        """Next [0, 1) draw from the spec's private xorshift64* stream
+        (no ``random`` module state: two shaped links never perturb
+        each other's sequences, and a fixed seed replays exactly)."""
+        x = self._rng
+        x ^= (x << 13) & 0xFFFFFFFFFFFFFFFF
+        x ^= x >> 7
+        x ^= (x << 17) & 0xFFFFFFFFFFFFFFFF
+        self._rng = x
+        return ((x * 0x2545F4914F6CDD1D) & 0xFFFFFFFFFFFFFFFF) \
+            / float(1 << 64)
+
+    def lose(self) -> bool:
+        """One loss draw; counted."""
+        if self.loss <= 0.0:
+            return False
+        if self.rand() >= self.loss:
+            return False
+        self.losses += 1
+        return True
+
+    # -- timing math (all ns, caller supplies now) ---------------------
+
+    def _rate_wait_ns(self, now_ns: int, nbytes: int) -> int:
+        """Token bucket: ``burst_bytes`` of credit refilled at
+        ``rate_bps``; a send overdraws the bucket and the debt converts
+        to wait time — burst passes at line rate, sustained traffic
+        paces to the configured bandwidth."""
+        if not self.rate_bps:
+            return 0
+        per_ns = self.rate_bps / 8 / 1e9        # bytes per ns
+        if self._tokens is None:
+            self._tokens = float(self.burst_bytes)
+        else:
+            self._tokens = min(
+                float(self.burst_bytes),
+                self._tokens + (now_ns - self._tb_stamp_ns) * per_ns)
+        self._tb_stamp_ns = now_ns
+        self._tokens -= nbytes
+        if self._tokens >= 0:
+            return 0
+        return int(-self._tokens / per_ns)
+
+    def depart_ns(self, now_ns: int, nbytes: int) -> int:
+        """The instant this item may be released to the wire: now +
+        delay + jitter draw + token-bucket wait, clamped to never
+        precede the previous item's departure (FIFO)."""
+        t = now_ns + self.delay_ns
+        if self.jitter_ns:
+            t += int(self.rand() * self.jitter_ns)
+        t += self._rate_wait_ns(now_ns, nbytes)
+        if t < self._last_depart_ns:
+            t = self._last_depart_ns
+        self._last_depart_ns = t
+        if t > now_ns:
+            self.deferrals += 1
+        return t
+
+    @property
+    def oneway_s(self) -> float:
+        """Expected one-way propagation (delay + mean jitter), seconds
+        — the liveness sites' sleep when emulating a ping round trip."""
+        return (self.delay_ns + self.jitter_ns / 2) / 1e9
+
+
+def _sigkill_self() -> None:
+    os.kill(os.getpid(), signal.SIGKILL)
+
+
 class FaultRegistry:
     """Thread-safe armed-fault table. One global instance (``REGISTRY``)
     serves the whole process."""
@@ -129,9 +246,10 @@ class FaultRegistry:
         self._lock = threading.Lock()
         # site -> FIFO of specs (so "raise twice then hang once" scripts)
         self._specs: dict[str, list[_Spec]] = {}
-        # directed link key "src->dst" -> link shape (continuous state,
-        # not a countdown of discrete trips)
-        self._shapes: dict = {}
+        # directed link key "src->dst" -> ShapeSpec; separate from _specs
+        # because a shape is continuous state (bucket fill, FIFO fence,
+        # PRNG stream), not a countdown of discrete trips
+        self._shapes: dict[str, ShapeSpec] = {}
         self.fired: dict[str, int] = {}
         # swappable monotonic-ns clock: the service's trace stamps read
         # through this indirection so a test can script time
@@ -169,16 +287,23 @@ class FaultRegistry:
 
     # -- directed link shapes -------------------------------------------
 
-    def set_shape(self, key: str, spec) -> None:
+    def set_shape(self, key: str, spec: ShapeSpec) -> None:
         with self._lock:
             self._shapes[key] = spec
 
-    def get_shape(self, key: str):
+    def get_shape(self, key: str) -> ShapeSpec | None:
         """Racy-but-safe hot-path lookup (one dict get on an almost
         always empty dict), mirroring the ``fire`` fast path."""
         if not self._shapes:
             return None
         return self._shapes.get(key)
+
+    def del_shape(self, key: str) -> None:
+        with self._lock:
+            self._shapes.pop(key, None)
+
+    def any_shaped(self) -> bool:
+        return bool(self._shapes)
 
     def count_fired(self, site_key: str) -> None:
         """Count one shape action under ``fired``."""
@@ -270,6 +395,81 @@ def partition_key(src: str, dst: str) -> str:
     return f"{src}->{dst}"
 
 
+def partition(a: str, b: str, mode: str = "drop",
+              delay_s: float = 0.05) -> None:
+    """Arm a network partition between nodes ``a`` and ``b``: the
+    ``cluster.partition`` site keyed per direction, fired wherever bytes
+    cross a node boundary (bridge connect, keepalive ping, the bridge
+    writer, the receiving broker's ``$cluster`` inbound). ``drop`` makes
+    the bytes vanish, ``hang`` delays them ``delay_s``; both arm both
+    directions, ``mode="asym"`` arms a->b only (drop). Stays armed until
+    :func:`heal`."""
+    if mode == "asym":
+        dirs, armed_mode = [(a, b)], "drop"
+    elif mode in ("drop", "hang"):
+        dirs, armed_mode = [(a, b), (b, a)], mode
+    else:
+        raise ValueError(f"unknown partition mode {mode!r} "
+                         "(want drop/hang/asym)")
+    for src, dst in dirs:
+        REGISTRY.arm(f"{CLUSTER_PARTITION}#{partition_key(src, dst)}",
+                     armed_mode, -1, delay_s)
+
+
+def heal(a: str, b: str) -> None:
+    """Disarm a partition between ``a`` and ``b`` (both directions)."""
+    for src, dst in ((a, b), (b, a)):
+        REGISTRY.disarm(f"{CLUSTER_PARTITION}#{partition_key(src, dst)}")
+
+
+# ----------------------------------------------------------------------
+# WAN link shaping (ADR 022): the ``cluster.shape`` site family
+# ----------------------------------------------------------------------
+#
+# Like ``cluster.partition`` the site is keyed per DIRECTED link
+# (``cluster.shape#A->B``), but a shape is continuous degradation, not
+# a binary fault: one-way delay, jitter, a token-bucket rate limit,
+# and probabilistic loss. The production code consults it at the same
+# three boundaries the partition plumbing hooks, with the aspects
+# split so the in-process harness (one registry serving both ends of
+# every link) never double-applies a direction:
+#
+# * bridge connect / keepalive (liveness, sender side) — the emulated
+#   ping round trip sleeps both directions' one-way delay and a loss
+#   draw fails the probe, so liveness sees the WAN the data sees;
+# * the bridge writer (data, sender side) — delay + jitter + rate,
+#   via a non-blocking reorder-preserving deferral queue;
+# * the receiving broker's ``$cluster`` inbound (data, receiver side)
+#   — the loss draw: a dropped message is in-flight loss (no ack, no
+#   apply), which is what arms the ADR-020 blip audit + parked-retry
+#   machinery rather than a link flap.
+#
+# ``shape(a, b, ...)`` arms ONE direction (asymmetric bandwidth is the
+# point of per-direction arming); ``unshape(a, b)`` clears both.
+
+
+def shape(a: str, b: str, *, delay_ms: float = 0.0,
+          jitter_ms: float = 0.0, rate_bps: int = 0, loss: float = 0.0,
+          burst_bytes: int = 16384, seed: int | None = None) -> ShapeSpec:
+    """Arm the directed WAN shape ``a -> b`` (ADR 022) and return its
+    spec. The PRNG seed defaults to a CRC of the link key — stable
+    across runs, distinct per direction."""
+    key = partition_key(a, b)
+    if seed is None:
+        seed = zlib.crc32(key.encode())
+    spec = ShapeSpec(delay_ms=delay_ms, jitter_ms=jitter_ms,
+                     rate_bps=rate_bps, loss=loss,
+                     burst_bytes=burst_bytes, seed=seed)
+    REGISTRY.set_shape(key, spec)
+    return spec
+
+
+def unshape(a: str, b: str) -> None:
+    """Disarm the WAN shape between ``a`` and ``b`` (both directions)."""
+    for src, dst in ((a, b), (b, a)):
+        REGISTRY.del_shape(partition_key(src, dst))
+
+
 def crash_point(point: str) -> None:
     """Die here if the named crash point (``CRASH_POINTS``) is armed:
     ``crash.at#<point>`` fires the registry's ``kill_fn`` (SIGKILL to
@@ -290,8 +490,10 @@ disarm = REGISTRY.disarm
 clear = REGISTRY.clear
 armed = REGISTRY.armed
 fire = REGISTRY.fire
+any_armed = REGISTRY.any_armed
 fire_detail = REGISTRY.fire_detail
 get_shape = REGISTRY.get_shape
+any_shaped = REGISTRY.any_shaped
 arm_from_spec = REGISTRY.arm_from_spec
 fired = REGISTRY.fired
 

@@ -100,6 +100,8 @@ class MicroBatcher:
         self.batched_topics = 0
         self.largest_batch = 0
         self.bypasses = 0                 # topics served by the bypass
+        self.shadow_probes = 0            # bypassed batches duplicated to
+                                          # the device (answers dropped)
         self.errors = 0                   # batches whose engine call
                                           # raised (ADR 011 observability)
         # ADR 015: when the broker's PipelineTracer is attached (see
@@ -380,6 +382,7 @@ class MicroBatcher:
         if self._probe_task is not None and not self._probe_task.done():
             return
         self._since_probe = 0
+        self.shadow_probes += 1
 
         async def probe() -> None:
             loop = asyncio.get_running_loop()

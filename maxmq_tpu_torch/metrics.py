@@ -19,10 +19,10 @@ every registration that reads a broker (its storage pipeline, overload
 ladder, fan-out ledger, content plane, matcher and tracer) and the
 matcher-side registrations (the supervisor's fallbacks and breaker, the
 service client's transport, the pool, the signature engine's kernel
-widths). The cluster manager's registrations come with cluster mode:
-``register_broker_metrics`` raises for a broker with a cluster attached.
-The cluster peer-series bound (``CLUSTER_PEER_SERIES``) is here, read by
-the broker's $SYS cluster entries.
+widths), and the cluster manager's registrations (the federation's
+routes, forwards, links and peers, and its telemetry plane). The
+federated sessions' registrations come with the port's federated
+sessions.
 """
 
 from __future__ import annotations
@@ -515,15 +515,179 @@ def _register_trace_metrics(registry: Registry, broker) -> None:
 
 
 def _register_cluster_metrics(registry: Registry, broker) -> None:
-    """The cluster manager's registrations (ADR 013) come with cluster
-    mode. With no manager attached this adds nothing, as the JAX
-    package's early return does; with one it raises."""
+    """ADR-013 federation observability: route-table size, delta/
+    snapshot churn, forward/loop counters, and per-peer link health
+    (bounded to CLUSTER_PEER_SERIES series, label values escaped by
+    the shared exposition path — peer ids are operator config, but the
+    page must survive a hostile one)."""
     mgr = getattr(broker, "cluster", None)
     if mgr is None:
         return
-    raise NotImplementedError(
-        "cluster mode is not ported to maxmq_tpu_torch yet (port slice "
-        "13, cluster): no cluster metrics")
+    registry.gauge_func(
+        "maxmq_cluster_routes_held",
+        "Remote topic filters currently held in the route table",
+        lambda: mgr.routes.remote_route_count)
+    registry.gauge_func(
+        "maxmq_cluster_links_up",
+        "Bridge links currently connected", lambda: mgr.links_up)
+    for name, help_ in (
+            ("snapshots_applied", "Route snapshots applied"),
+            ("deltas_applied", "Route deltas applied"),
+            ("route_desyncs",
+             "Delta gaps/epoch mismatches that flushed a peer's routes "
+             "and requested a fresh snapshot"),
+            ("route_apply_failures",
+             "Route payloads that failed to decode/apply"),
+            ("forwards_sent", "Publishes forwarded to peers"),
+            ("forwards_delivered",
+             "Remote publishes fanned out to local subscribers"),
+            ("forwards_refused",
+             "Forwards refused by a link's byte budget/queue "
+             "(QoS1 entries rolled back)"),
+            ("forwards_skipped_down",
+             "Forward targets skipped because the link was down "
+             "(local-only degradation)"),
+            ("loops_dropped",
+             "Forwards dropped by the origin-echo/dedup loop guards"),
+            ("hops_dropped", "Onward forwards dropped by the hop cap"),
+            ("link_flaps", "Bridge link up->down transitions"),
+            ("connect_attempts",
+             "Bridge connect attempts (incl. backoff retries)"),
+            ("forwards_parked",
+             "QoS1 forwards parked for retry-after-heal (ADR 018: "
+             "stranded by a down/partitioned link)"),
+            ("fwd_parked_resent",
+             "Parked forwards re-sent on link-up (receiver dedups "
+             "any copy that landed before the partition)"),
+            ("fwd_parked_dropped",
+             "Parked forwards shed past the park bound (the bounded-"
+             "staleness cap; counted loss)"),
+            ("fwd_barrier_waits",
+             "Publisher acks that waited on the ADR-018 cross-node "
+             "forward-durability barrier"),
+            ("fwd_barrier_timeouts",
+             "Forward-durability barriers released by the timeout"),
+            ("fwd_barrier_degraded",
+             "Forward-durability barriers released without full peer "
+             "coverage (timeout/parked/link down)"),
+            ("fwd_restore_errors",
+             "Parked-forward journal rows that failed to parse at "
+             "restore"),
+            ("partition_drops_in",
+             "Inbound $cluster messages the cluster.partition fault "
+             "dropped in flight (ADR 018 chaos harness)"),
+            ("partition_drops_out",
+             "Outbound bridge wire items the cluster.partition fault "
+             "blackholed (ADR 018 chaos harness)"),
+            ("relay_chain_waits",
+             "Relayed forwards whose upstream PUBACK waited on the "
+             "ADR-020 hop-chained downstream barrier"),
+            ("relay_chain_timeouts",
+             "Relay-chain waits released degraded by the bounded "
+             "timeout"),
+            ("blips_detected",
+             "Sub-keepalive loss blips detected on inbound links "
+             "(ADR 020 heartbeat seq gap / item deficit)"),
+            ("blip_resyncs",
+             "Debounced link resyncs triggered by a peer's blip "
+             "notice (routes + sessions resync, parked-forward "
+             "resend)"),
+            ("route_sync_waits",
+             "Inbound forwards held for this node's initial route "
+             "convergence (ADR 020 restarted-relay gate)"),
+            ("route_sync_timeouts",
+             "Route-sync holds released degraded by the bounded "
+             "timeout (a configured peer never advertised)"),
+            ("shape_deferrals",
+             "Outbound bridge items held by the ADR-022 WAN shape's "
+             "deferral queue before release"),
+            ("shape_drops_in",
+             "Inbound $cluster messages the cluster.shape loss draw "
+             "ate in flight (ADR 022 WAN chaos harness)"),
+            ("rtt_adaptive_extended",
+             "Liveness/barrier deadlines stretched past their floor "
+             "by the ADR-022 k x measured-RTT term"),
+            ("fwd_parked_rehomed",
+             "Parked forwards re-routed off a dead owner's link after "
+             "a takeover moved the subscription (ADR 022, closes the "
+             "ADR-021 dead-owner blackhole)"),
+            ("content_route_skips",
+             "Forwards skipped because the peer's every matching "
+             "route carried ADR-023 predicate annotations none of "
+             "which passed the payload")):
+        registry.counter_func(f"maxmq_cluster_{name}_total", help_,
+                              lambda n=name: getattr(mgr, n))
+    registry.gauge_func(
+        "maxmq_cluster_fwd_parked",
+        "QoS1 forwards currently parked awaiting retry-after-heal "
+        "(ADR 018)", lambda: mgr.fwd_parked_now)
+
+    def _peer_series(attr):
+        links = sorted(mgr.links.items())[:CLUSTER_PEER_SERIES]
+        return [({"peer": peer}, attr(link)) for peer, link in links]
+
+    registry.multi_func(
+        "maxmq_cluster_link_state", "gauge",
+        "Per-peer bridge link state (1 connected, 0 down); cardinality "
+        "bounded to the first CLUSTER_PEER_SERIES peers",
+        lambda: _peer_series(lambda lk: 1.0 if lk.connected else 0.0))
+    registry.multi_func(
+        "maxmq_cluster_link_queued_bytes", "gauge",
+        "Per-peer bridge outbound queued bytes (accounted on the "
+        "ADR-012 ledger); same cardinality bound",
+        lambda: _peer_series(lambda lk: lk.outbound.bytes))
+    registry.multi_func(
+        "maxmq_cluster_link_forwards_total", "counter",
+        "Per-peer forwards enqueued; same cardinality bound",
+        lambda: _peer_series(lambda lk: lk.forwards_sent))
+
+    def _member_series(attr):
+        peers = sorted(mgr.membership.peers.items())[:CLUSTER_PEER_SERIES]
+        return [({"peer": peer}, attr(st)) for peer, st in peers]
+
+    registry.multi_func(
+        "maxmq_cluster_peer_clock_skew_ms", "gauge",
+        "Per-peer monotonic-clock skew estimate from keepalive-driven "
+        "probes (ADR 017: peer clock minus ours at the RTT midpoint, "
+        "EWMA); same cardinality bound",
+        lambda: _member_series(lambda st: st.skew_ns / 1e6))
+    registry.multi_func(
+        "maxmq_cluster_peer_rtt_ms", "gauge",
+        "Per-peer clock-probe round-trip estimate (EWMA); same "
+        "cardinality bound",
+        lambda: _member_series(lambda st: st.rtt_ns / 1e6))
+    _register_telemetry_metrics(registry, mgr)
+
+
+def _register_telemetry_metrics(registry: Registry, mgr) -> None:
+    """ADR-017 observability-plane health: gossip and span-return
+    traffic counters, and how many peers' snapshots this node holds."""
+    tel = getattr(mgr, "telemetry", None)
+    if tel is None:
+        return
+    registry.gauge_func(
+        "maxmq_cluster_telemetry_peers_held",
+        "Peer metric snapshots currently held (serves /cluster/metrics)",
+        lambda: len(tel.peers))
+    for name, help_ in (
+            ("snapshots_sent", "Telemetry snapshots/deltas broadcast"),
+            ("snapshots_applied", "Peer telemetry snapshots applied"),
+            ("snapshots_stale", "Out-of-order snapshots ignored"),
+            ("snapshot_relays", "Snapshots relayed onward (transitive "
+             "gossip)"),
+            ("probes_sent", "Clock-skew probes sent"),
+            ("probe_replies", "Clock-skew probes answered for peers"),
+            ("skew_updates", "Skew estimate updates applied"),
+            ("trace_reports_sent", "Cross-node span reports sent "
+             "toward an origin"),
+            ("trace_reports_received", "Span reports received as the "
+             "origin (post-dedup)"),
+            ("trace_reports_relayed", "Span reports relayed toward "
+             "their origin"),
+            ("inbound_rejected", "Malformed observability-plane wire "
+             "messages rejected")):
+        registry.counter_func(f"maxmq_cluster_telemetry_{name}_total",
+                              help_, lambda n=name: getattr(tel, n))
 
 
 def _register_storage_metrics(registry: Registry, broker) -> None:

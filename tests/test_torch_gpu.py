@@ -536,3 +536,36 @@ def test_start_on_card_serves_publishes(cuda_card, tmp_path):
                              kernel="sig_match_fixed") >= 1, err[-3000:]
     assert chip_smoke.metric(series,
                              "maxmq_storage_barrier_waits_total") >= 1
+
+
+@pytest.mark.gpu
+def test_federation_sig_on_card_matches_trie_federation(cuda_card):
+    """Two port brokers federated in process over TCP (federated sessions
+    off): every node's ``build_matcher`` sig stack on the card, its host
+    bypass off, against the same pair on its tries; each subscriber's
+    frames, each node's forward counters and retained set equal; every
+    card node matched in batches with nothing bypassed, and K1 launched
+    at least once for each batch, so K1 answered the forwarded publishes
+    the frames hold."""
+    import asyncio
+
+    from maxmq_tpu_torch import cluster
+
+    pair = {"A": ("B",), "B": ("A",)}
+    bk = chip_smoke.broker_kit()
+
+    def run(matcher):
+        return asyncio.run(chip_smoke.fed_in_process(
+            pair, dict.fromkeys(pair, (bk, cluster, matcher, None)), 41,
+            ("A", "B"), n_subs=3_000, publishes=1_024, burst=256))
+
+    got, want = run("sig"), run(None)
+    for key in ("frames", "forwards", "retained", "expected_routes"):
+        assert got[key] == want[key], key
+    assert sum(len(v) for v in got["frames"].values()) > 200
+    for node, counts in got["matchers"].items():
+        assert counts["batches"] > 0 and not counts["bypassed_topics"], node
+        assert not any(v for k, v in counts.items()
+                       if k.startswith("hedges_")), (node, counts)
+    assert got["k1_launches"] >= sum(c["batches"] for c in
+                                     got["matchers"].values()), got

@@ -422,3 +422,69 @@ def test_start_path_stands_alone(tmp_path):
             proc.communicate(timeout=30)
     assert proc.returncode == 0, err[-2000:]
     assert "FORBIDDEN []" in out, (out, err[-2000:])
+
+
+CLUSTER_MODULES = ("__init__", "membership", "routes", "bridge", "telemetry",
+                   "manager")
+
+
+def test_cluster_package_stands_alone():
+    """The cluster federation's modules exist in the port, are in the AST
+    scan's reach, and two port brokers federate in a fresh interpreter
+    (a publish crosses the bridge link) without JAX or the JAX package
+    being imported."""
+    for m in CLUSTER_MODULES:
+        path = PACKAGE / "cluster" / f"{m}.py"
+        assert path.is_file(), m
+        assert not [i for i in _imports(path) if _forbidden(i)], m
+    script = textwrap.dedent("""
+        import asyncio, sys
+        from maxmq_tpu_torch.broker import (Broker, BrokerOptions,
+                                            Capabilities, TCPListener)
+        from maxmq_tpu_torch.cluster import ClusterManager, PeerSpec
+        from maxmq_tpu_torch.hooks import AllowHook
+        from maxmq_tpu_torch.mqtt_client import MQTTClient
+
+        async def main():
+            brokers, ports = {}, {}
+            for n in "AB":
+                b = Broker(BrokerOptions(
+                    capabilities=Capabilities(sys_topic_interval=0),
+                    device="cpu"))
+                b.add_hook(AllowHook())
+                lst = b.add_listener(TCPListener("t", "127.0.0.1:0"))
+                await b.serve()
+                brokers[n] = b
+                ports[n] = lst._server.sockets[0].getsockname()[1]
+            for n, p in (("A", "B"), ("B", "A")):
+                mgr = ClusterManager(
+                    brokers[n], n, [PeerSpec(p, "127.0.0.1", ports[p])],
+                    session_replication=False, backoff_initial_s=0.05)
+                brokers[n].attach_cluster(mgr)
+                await mgr.start()
+            sub = MQTTClient(client_id="s")
+            await sub.connect("127.0.0.1", ports["B"])
+            await sub.subscribe("iso/#")
+            for _ in range(400):
+                if brokers["A"].cluster.routes.nodes_for("iso/x"):
+                    break
+                await asyncio.sleep(0.025)
+            pub = MQTTClient(client_id="p")
+            await pub.connect("127.0.0.1", ports["A"])
+            await pub.publish("iso/x", b"ok")
+            print("GOT", (await sub.next_message(timeout=10)).payload)
+            for b in brokers.values():
+                await b.close()
+
+        asyncio.run(main())
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib")
+                     or m == "maxmq_tpu" or m.startswith("maxmq_tpu."))
+        print("FORBIDDEN", bad)
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "GOT b'ok'" in proc.stdout, proc.stdout
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout

@@ -184,12 +184,10 @@ def test_fault_sites_equal_the_reference():
 
 # -- the reference's scenarios -----------------------------------------------
 
-DISK = port_module(
-    "test_disk_faults.py", "torch_port_disk_faults",
-    replace=(("from maxmq_tpu_torch.cluster import ClusterManager, PeerSpec\n",
-              "ClusterManager = PeerSpec = None   # cluster: not ported\n"),))
-# the mesh case needs cluster mode; the registry-versus-call-sites case is
-# held below against the port's own call sites
+DISK = port_module("test_disk_faults.py", "torch_port_disk_faults")
+# the mesh case needs federated sessions (the next port slice); the
+# registry-versus-call-sites case is held below against the port's own
+# call sites
 DISK_CASES = scenario_cases(
     DISK, 1, 455, skip=("test_replica_flush_crash_point_trips_on_mesh",
                         "test_crash_point_registry_matches_call_sites"))
@@ -240,8 +238,9 @@ async def test_storage_journal_scenario_on_the_port(name, kwargs, tmp_path,
 
 def test_crash_points_have_call_sites_in_the_port():
     """The reference's registry-versus-call-sites check on the port: every
-    crash point but the cluster's session-replication flush (cluster mode
-    is not ported) has a call site, and every call site is registered."""
+    crash point but the cluster's session-replication flush (federated
+    sessions are not ported yet) has a call site, and every call site is
+    registered."""
     called = set()
     for py in Path(port_faults.__file__).parent.rglob("*.py"):
         if py.name != "faults.py":

@@ -207,7 +207,7 @@ async def test_worker_pool_fails_at_start(monkeypatch):
     for env, kw in ((None, {"workers": 2}), ("3", {})):
         if env is not None:
             monkeypatch.setenv("MAXMQ_WORKER_ID", env)
-        with pytest.raises(NotImplementedError, match="slice 12"):
+        with pytest.raises(NotImplementedError, match="slice 13"):
             await t_boot.run_server(conf_of("port", **kw), quiet("port"),
                                     device="cpu")
 
@@ -288,7 +288,8 @@ test_start_session_on_the_port._async_timeout = 150
 async def test_server_started_line_names_the_device(tmp_path):
     """The start line names where matching runs and the boot's restore and
     compile seconds; a broker built for the CPU registers the kernel
-    launch counters beside the reference's families."""
+    launch counters and the batcher's batched topics and shadow probes
+    beside the reference's families."""
     import io
 
     buf = io.StringIO()
@@ -310,7 +311,9 @@ async def test_server_started_line_names_the_device(tmp_path):
     base = {n for n, _l in chip_smoke.metric_series(reg.expose())}
     full = t_boot.build_metrics(conf, out[0], Logger(out=io.StringIO()))
     names = {n for n, _l in chip_smoke.metric_series(full.registry.expose())}
-    assert names - base == {"maxmq_matcher_kernel_launches_total"}
+    assert names - base == {"maxmq_matcher_kernel_launches_total",
+                            "maxmq_matcher_batched_topics_total",
+                            "maxmq_matcher_shadow_probes_total"}
     assert t_boot.matcher_device(out[0]) == "cpu"
 
 
@@ -761,8 +764,8 @@ async def test_service_attach_frames_equal_the_reference(tmp_path):
 # -- python -m maxmq_tpu_torch start, as a child process ----------------------
 
 def start_child(tmp_path, extra: str = "", args=("--device", "cpu"),
-                env=None):
-    port, mport = chip_smoke.free_port(), chip_smoke.free_port()
+                env=None, port: int | None = None):
+    port, mport = port or chip_smoke.free_port(), chip_smoke.free_port()
     conf = tmp_path / "c.toml"
     conf.write_text(f'mqtt_tcp_address = "127.0.0.1:{port}"\n'
                     f'metrics_address = "127.0.0.1:{mport}"\n'
@@ -776,6 +779,7 @@ def start_child(tmp_path, extra: str = "", args=("--device", "cpu"),
         [sys.executable, "-m", "maxmq_tpu_torch", "start", "-c", str(conf),
          "--no-banner", *args], cwd=ROOT, env=full_env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    proc.metrics_port = mport
     return proc, port
 
 
@@ -816,6 +820,159 @@ async def test_start_child_answers_and_stops_on_sigterm(tmp_path):
 test_start_child_answers_and_stops_on_sigterm._async_timeout = 150
 
 
+async def wait_until(pred, timeout: float, what: str) -> None:
+    deadline = time.monotonic() + timeout
+    while not pred():
+        assert time.monotonic() < deadline, what
+        await asyncio.sleep(0.05)
+
+
+async def test_start_children_run_a_federation(tmp_path):
+    """Two ``start --device cpu`` children peered over TCP with
+    ``cluster_session_replication = false``: each builds its manager
+    (the reference's ``test_bootstrap_builds_cluster_from_config``, as a
+    process), a publish on A reaches a subscriber on B, each serves
+    ``/cluster/metrics`` with both nodes' series after a telemetry
+    interval, and both exit 0 on SIGTERM."""
+    import urllib.request
+
+    from maxmq_tpu_torch.mqtt_client import MQTTClient
+
+    ports = {n: chip_smoke.free_port() for n in "AB"}
+    procs, mports = {}, {}
+    try:
+        for node, peer in (("A", "B"), ("B", "A")):
+            d = tmp_path / node
+            d.mkdir()
+            procs[node], _p = start_child(
+                d, f'cluster_node_id = "{node}"\n'
+                   f'cluster_peers = "{peer}@127.0.0.1:{ports[peer]}"\n'
+                   "cluster_session_replication = false\n"
+                   "cluster_telemetry_interval_s = 0.5\n"
+                   "cluster_link_keepalive = 0.5\n",
+                port=ports[node])
+            mports[node] = procs[node].metrics_port
+
+        def page(node: str, path: str) -> str:
+            url = f"http://127.0.0.1:{mports[node]}{path}"
+            try:
+                with urllib.request.urlopen(url, timeout=10) as r:
+                    return r.read().decode()
+            except OSError:
+                return ""
+
+        for node in "AB":
+            await wait_until(lambda n=node: "maxmq_cluster_links_up 1"
+                             in page(n, "/metrics"), 90, f"{node} links")
+        sub = MQTTClient(client_id="fed-sub")
+        await sub.connect("127.0.0.1", ports["B"])
+        await sub.subscribe(("fed/#", 1))
+        await wait_until(lambda: "maxmq_cluster_routes_held 1"
+                         in page("A", "/metrics"), 30, "A's routes")
+        pub = MQTTClient(client_id="fed-pub")
+        await pub.connect("127.0.0.1", ports["A"])
+        await pub.publish("fed/x", b"across", qos=1)
+        assert (await sub.next_message(timeout=10)).payload == b"across"
+        for node in "AB":
+            await wait_until(
+                lambda n=node: all(f'node="{m}"' in page(n, "/cluster/metrics")
+                                   for m in "AB"), 30, f"{node} telemetry")
+        assert "maxmq_cluster_forwards_sent_total 1" in page("A", "/metrics")
+        await pub.disconnect()
+        await sub.disconnect()
+        for node in "AB":
+            procs[node].send_signal(signal.SIGTERM)
+        for node in "AB":
+            _out, err = procs[node].communicate(timeout=60)
+            assert procs[node].returncode == 0, err[-2000:]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate(timeout=30)
+
+
+test_start_children_run_a_federation._async_timeout = 200
+
+# the cluster series whose values do not depend on timing (connect
+# attempts, snapshot/delta splits, telemetry and clock probes do)
+CLUSTER_DETERMINISTIC = (
+    "maxmq_cluster_routes_held", "maxmq_cluster_links_up",
+    "maxmq_cluster_forwards_sent_total",
+    "maxmq_cluster_forwards_delivered_total",
+    "maxmq_cluster_forwards_refused_total",
+    "maxmq_cluster_forwards_skipped_down_total",
+    "maxmq_cluster_loops_dropped_total", "maxmq_cluster_hops_dropped_total",
+    "maxmq_cluster_forwards_parked_total", "maxmq_cluster_fwd_parked",
+    "maxmq_cluster_route_apply_failures_total",
+    "maxmq_cluster_fwd_barrier_waits_total",
+    "maxmq_cluster_fwd_barrier_degraded_total",
+    "maxmq_cluster_partition_drops_in_total",
+    "maxmq_cluster_content_route_skips_total", "maxmq_cluster_link_state",
+    "maxmq_cluster_link_forwards_total")
+
+
+async def test_federated_exposition_equals_the_reference():
+    """A pair built from a cluster config by each package (``build_broker``
+    runs ``build_cluster``), the same traffic through both: every node's
+    ``register_broker_metrics`` page has the reference's series (the
+    ``maxmq_cluster_*`` families and their labels), and the counters that
+    do not depend on timing hold the reference's values."""
+    from maxmq_tpu.mqtt_client import MQTTClient as JClient
+
+    series = {}
+    for pkg in PKGS:
+        ports = {n: chip_smoke.free_port() for n in "AB"}
+        nodes = {}
+        try:
+            for node, peer in (("A", "B"), ("B", "A")):
+                conf = conf_of(
+                    pkg, mqtt_tcp_address=f"127.0.0.1:{ports[node]}",
+                    matcher="trie", cluster_node_id=node,
+                    cluster_peers=f"{peer}@127.0.0.1:{ports[peer]}",
+                    cluster_session_replication=False,
+                    cluster_link_keepalive=0.5)
+                nodes[node] = build(pkg, conf)
+                assert nodes[node].cluster.node_id == node
+                await nodes[node].serve()
+            mgr_a = nodes["A"].cluster
+            await wait_until(lambda: all(b.cluster.links_up == 1
+                                         for b in nodes.values()), 30, "links")
+            sub = JClient(client_id="sub")
+            await sub.connect("127.0.0.1", ports["B"])
+            await sub.subscribe(("m/#", 1))
+            await wait_until(lambda: mgr_a.routes.nodes_for("m/x"), 30,
+                             "routes")
+            pub = JClient(client_id="pub")
+            await pub.connect("127.0.0.1", ports["A"])
+            for i in range(6):
+                await pub.publish(f"m/{i}", b"p%d" % i, qos=i % 2)
+            for i in range(6):
+                assert (await sub.next_message(timeout=10)).payload == \
+                    b"p%d" % i
+            await pub.disconnect()
+            await sub.disconnect()
+            for node, b in nodes.items():
+                reg = PKGS[pkg].metrics.Registry()
+                PKGS[pkg].metrics.register_broker_metrics(reg, b)
+                series[pkg, node] = chip_smoke.metric_series(reg.expose())
+        finally:
+            for b in nodes.values():
+                await b.close()
+    for node in "AB":
+        port, ref = series["port", node], series["ref", node]
+        assert set(port) == set(ref)
+        assert sum(n.startswith("maxmq_cluster_") for n, _l in port) > 40
+        det = {k: v for k, v in port.items()
+               if k[0] in CLUSTER_DETERMINISTIC}
+        assert det == {k: v for k, v in ref.items()
+                       if k[0] in CLUSTER_DETERMINISTIC}
+    assert series["port", "A"][("maxmq_cluster_forwards_sent_total", "")] == 6
+
+
+test_federated_exposition_equals_the_reference._async_timeout = 120
+
+
 @pytest.mark.parametrize("case", ["no_device", "cluster", "workers"])
 def test_start_child_refuses(case, tmp_path):
     import torch
@@ -830,7 +987,7 @@ def test_start_child_refuses(case, tmp_path):
         want_rc, want = 1, "slice 13"
     else:
         proc, _p = start_child(tmp_path, "workers = 2\n")
-        want_rc, want = 1, "slice 12"
+        want_rc, want = 1, "slice 13"
     try:
         _out, err = proc.communicate(timeout=90)
     finally:
