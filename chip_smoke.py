@@ -190,37 +190,55 @@ Phases, each of which raises on failure:
    session the CPU trie names for its topic, and a corpus session and a
    compared subscriber resumed, each given its queued messages in the
    store's order;
-16. the cluster federation (run right after phase 15): ``mixed_100k``'s
+16. the cluster federation (run right after phase 15) at the default
+   cluster configuration, federated sessions on: ``mixed_100k``'s
    persistent v5 sessions split by index mod 3 into three SQLite stores,
    each with a third of the compared subscribers (phase 12's plan round
-   robin over the nodes, a '#' probe on each), copied for two
-   federations of three ``start`` children on a line A - B - C
-   (symmetric ``cluster_peers``, ``cluster_session_replication = false``,
-   phase 15's other settings): the card federation (``sig``, no
-   ``--device``) and the trie federation (``--device cpu``), booted in
-   parallel; each node's ``maxmq_cluster_routes_held`` awaited until it
-   equals what its peers advertise (computed from the stores) with every
-   link up; the subscribers resume; phase 12's PUBLISH frames from
-   publishers on A and C (so C's reach A over two hops through B) in
-   fenced bursts of 512, trie federation first, every subscriber's frames
-   equal; then B restarted in both federations (SIGTERM, ``start`` on
-   its store: the stale epoch flushed, the routes converged again) and
-   more bursts, equal again. The tracer samples every 32nd inbound
-   publish in both federations, so frames and stores are compared
-   without the ``mq-trace`` property it stamps. Each node's forward
-   counters equal its twin's; on every card node no hedge, trip or
-   degrade and ``sig_match_fixed`` launched during the traffic (B, which
+   robin over the nodes, a '#' probe on each) and each session's row in
+   its node's session ledger journal, copied for two federations of
+   three ``start`` children on a line A - B - C (symmetric
+   ``cluster_peers``, phase 15's other settings): the card federation
+   (``sig``, no ``--device``) and the trie federation (``--device
+   cpu``), booted in parallel; each node's routes and session ledger
+   awaited on its ``/metrics`` (the routes its peers advertise, computed
+   from the stores, every link up, every session of the line in the
+   ledger, the peers' acks of its resync); the subscribers resume;
+   phase 12's PUBLISH frames from publishers on A and C (so C's reach A
+   over two hops through B) in fenced bursts of 512, trie federation
+   first, every subscriber's frames equal. Then the live takeover: 16 of
+   B's compared subscribers leave, 128 publishes park for them at B, they
+   reconnect at C with their session present and their parked window
+   resent (the frames equal), the routes follow, 128 more publishes; and
+   the restart rung: once A's and C's replicas of 16 of B's corpus
+   sessions match B's window in the stores, B stops, those sessions
+   reconnect at A from the dead owner, B restarts on its store (the stale
+   epoch flushed, the routes and ledgers converged again, the sessions
+   taken over evicted from B) and 512 publishes in fenced bursts of 8,
+   equal again. Before each takeover rung's traffic the card engines
+   refresh over the moved subscriptions with no traffic. The tracer
+   samples every 32nd inbound publish in both federations, so frames and
+   stores are compared without the ``mq-trace`` property it stamps. Each
+   node's forward and takeover counters equal its twin's, 32 takeovers in
+   all, none degraded, no digest mismatch, restore error or sync fault;
+   on every card node no hedge, trip or degrade and ``sig_match_fixed``
+   launched during the first traffic and after B's restart (B, which
    relays and serves forwarded publishes, included); every card node's
    ``/cluster/metrics`` holds every node's series; after SIGTERM every
-   node's store equals its twin's. Printed beside them: each card node's
+   node's store equals its twin's, the session ledger's and the
+   replicas' rows included. Printed beside them: each node's boot split
+   (restore, compile + prewarm, replica restore, the rest), the ledgers'
+   convergence after the boots and after B's restart, sync ops, flushes
+   and acks, the ``takeover`` stage's p50 and max, each card node's
    launches that served publishes (shadow probes left out), the share of
    its topics the card answered (the host bypass serves the rest: a
    forward reaches a node's batcher one or two at a time), and each
    node's match and cross-node latencies. Then the same line in this
    process with the batchers' host bypass off, card against tries, so
-   K1 answers every forwarded publish the frames hold: frames, forward
-   counters and retained sets equal, every card node at least half its
-   topics on the device and K1 launched once a batch or more;
+   K1 answers every forwarded publish the frames hold, and 8 of B's
+   subscribers taken over live at C: frames (the taken-over sessions'
+   at C included), forward counters and retained sets equal, every card
+   node at least half its topics on the device and K1 launched once a
+   batch or more, before the takeover and after it;
 17. each kernel's SASS opcode counts (``cuobjdump -sass``, where the
    toolkit has it), the kernels line (JSON), the card line, and the
    result line.
@@ -238,8 +256,9 @@ and reads them after; its launches ride the kernels line under
 ``tracing_launches``, phase 14's (counts set to 0 before it) under
 ``surfaces_launches`` and phase 15's card broker's (its child process's
 count over the traffic, from its ``/metrics``) under ``started_launches``,
-and phase 16's card nodes' (each child's count over both traffic runs)
-under ``federation_launches``. The dense and NFA decodes are Python, as the
+and phase 16's card nodes' (each child's count over its four traffic
+runs) under ``federation_launches``, with the takeover rungs' served
+launches and the in-process takeover's under ``takeover_launches``. The dense and NFA decodes are Python, as the
 reference's.
 The corpora are made here from seed 42 (a copy of the benchmark's corpus
 generator, and the ``dense_2k`` generator); the script imports nothing
@@ -307,13 +326,17 @@ WATCHDOG_S = 1_100
 # card), the least share of the card broker's topics its card must answer
 # (checked on the card), crash publishes, the group commits past the
 # boot's at which the crash point kills, and its waits for a boot and for
-# a stop; phase 16's corpus, compared subscribers, publishes before and
-# after B's restart, burst (below the '#' probes' 1,024-item queue), the
-# nodes' ``matcher_max_batch`` (phase 15's), and its waits for a boot, a
-# stop, the routes' convergence and the telemetry. The service requests,
-# the headline batches, the decode batch, the cluster batches, the broker
-# phase's publishes and phase 15's publishes are the depth that was cut
-# to keep the whole run under 800 s (the host side of
+# a stop; phase 16's corpus, compared subscribers, publishes before the
+# takeovers, around the live takeover and after B's restart, sessions
+# taken over in each takeover rung, burst (below the '#' probes' 1,024-item
+# queue) and the burst after B's restart (64 fenced bursts: each card
+# node forms 64 batches at least, so its shadow probe launches K1), the
+# nodes' ``matcher_max_batch`` (phase 15's), and its waits for
+# a boot, a stop, the routes' and ledgers' convergence and the telemetry.
+# The service requests, the headline batches, the decode batch, the
+# cluster batches, the broker phase's publishes, phase 15's publishes and
+# phase 16's are the depth that was cut to keep the whole run under 800 s
+# (the host side of
 # the service phases, and full collections of the heap there, grow with
 # the topics sent; the signature and dense headlines' host decodes ran
 # ~10,000 and ~6,000 topics/s on an H100 host).
@@ -337,24 +360,27 @@ SIZES = {"subs": {"mixed_100k": 100_000, "hash_plus_100k": 100_000,
          "frames": 4_000,
          "pipeline": {"burst": 1_024},
          "broker": {"corpora": ("mixed_100k", "iot_1m_share"),
-                    "clients": 64, "mixed_100k": 1_024,
+                    "clients": 64, "mixed_100k": 512,
                     "iot_1m_share": 512,
                     "faults": 279, "bypass_on": ("mixed_100k",),
                     "fleet": {}},
          "content": {"shapes": ((64, 4_096), (10_000, 256)), "reps": 3},
          "tracing": {"bursts": 4, "service_topics": 4_096},
          "started": {"corpus": "mixed_100k", "clients": 64,
-                     "publishes": 2_048, "burst": 768, "max_batch": 4_096,
+                     "publishes": 1_024, "burst": 768, "max_batch": 4_096,
                      "device_share": 0.5,
                      "crash_publishes": 512, "crash_after": 64,
                      "boot_s": 600.0, "stop_s": 30.0},
          "federation": {"corpus": "mixed_100k", "clients": 64,
-                        "publishes": 2_048, "rung_publishes": 512,
+                        "publishes": 1_024, "takeover_publishes": 256,
+                        "rung_publishes": 512, "rung_burst": 8,
+                        "takeovers": 16,
                         "burst": 512, "max_batch": 4_096, "boot_s": 600.0,
                         "stop_s": 30.0, "converge_s": 120.0,
                         "telemetry_s": 15.0,
                         "in_process": {"subs": 100_000, "clients": 64,
-                                       "publishes": 512, "burst": 512},
+                                       "publishes": 256, "burst": 512,
+                                       "takeovers": 8},
                         "device_share": 0.5}}
 # engine counters of topics NOT served by the device path, per engine
 SIG_COUNTERS = ("host_matches", "fallbacks", "trie_routed")
@@ -1423,13 +1449,17 @@ def subscriber_plan(kit, n: int, topics: list[str], answer, seed: int = 7):
     return plan
 
 
-async def connect_subscribers(kit, side: BrokerSide, plan) -> None:
+async def connect_subscribers(kit, side: BrokerSide, plan,
+                              persistent=()) -> None:
     """The plan's clients connected and subscribed (plus the fence topic);
-    the offline ones leave with their sessions kept."""
+    the offline ones leave with their sessions kept. The clients of
+    ``persistent`` (client ids) stay online on a kept session too (clean
+    start off, a v5 one with a session expiry of an hour)."""
     for cid, version, alias_max, offline, subs in plan:
+        keep = offline or cid in persistent
         c = side.subs[cid] = WireClient(
-            kit, cid, version, alias_max, clean=not offline,
-            expiry=3600 if offline else None)
+            kit, cid, version, alias_max, clean=not keep,
+            expiry=3600 if keep else None)
         await c.open(side.port)
         for sub in (*subs, kit.Subscription(filter=FENCE_TOPIC)):
             await c.subscribe(sub)
@@ -1550,14 +1580,38 @@ MATCHER_ONLY = ("maxmq_broker_publish_pipeline_depth",
 # the wall-clock fields of the stored records, left out when two stores
 # are compared: a client's disconnect time, a message's receipt time
 WALL_CLOCK_FIELDS = {"clients": ("disconnected_at",),
-                     "retained": ("created",), "inflight": ("created",)}
+                     "retained": ("created",), "inflight": ("created",),
+                     "cluster_inflight": ("created",)}
 STORE_BUCKETS = ("clients", "subscriptions", "retained", "inflight")
+# the federated sessions' journal buckets (the ledger's rows, the replicas'
+# inflight and PUBREC-pending rows), compared as well in phase 16
+SESSION_BUCKETS = ("cluster_sessions", "cluster_inflight")
 
 
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+def listen_port() -> int:
+    """A free TCP port below the kernel's ephemeral range, for a broker
+    that its peers dial before it listens: a connect to a closed port in
+    that range can take the very port as its source and connect to
+    itself (a TCP self-connect), and then hold the port."""
+    low = 32768
+    with contextlib.suppress(OSError, ValueError):
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    rng = random.Random()
+    while True:
+        port = rng.randrange(10_000, low)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
 
 
 def started_subscription(kit, k: int, sub):
@@ -1582,15 +1636,25 @@ def started_sessions(kit, corpus, plan) -> list:
                for cid, version, _a, _o, subs in plan])
 
 
-def write_corpus_store(path: str, sessions) -> None:
+def write_corpus_store(path: str, sessions, owner: str = "") -> None:
     """``sessions`` [(client id, protocol version, [Subscription, ...])]
     as one SQLite file, written with the port's ``SQLiteStore`` and
     record classes as its ``StorageHook`` writes them (one transaction):
     every client a persistent session of the ``tcp`` listener,
     disconnected (a v5 one with a session expiry of ``STARTED_EXPIRY``),
-    each subscription with its options."""
+    each subscription with its options. Where ``owner`` (a cluster node
+    id) is given, each session also has its row in the cluster session
+    ledger's journal (``cluster_sessions``) as that node's federation
+    writes it for a session it owns (``SessionEntry``, first epoch,
+    disconnected, no inflight): the store of a node whose sessions its
+    peers replicate, with its boot epoch (``FED_BOOT_EPOCH``) persisted
+    as that node's store holds it, so the epochs its boots take, and the
+    session tokens its ledger rows carry, are the same in every copy of
+    the store."""
+    from maxmq_tpu_torch.cluster.sessions import SESS_BUCKET, SessionEntry
     from maxmq_tpu_torch.hooks.storage import (ClientRecord, SQLiteStore,
                                                SubscriptionRecord)
+    from maxmq_tpu_torch.matching.topics import parse_share
 
     ops = []
     for cid, version, subs in sessions:
@@ -1598,6 +1662,15 @@ def write_corpus_store(path: str, sessions) -> None:
             client_id=cid, listener="tcp", protocol_version=version,
             session_expiry=STARTED_EXPIRY if version >= 5 else 0,
             session_expiry_set=version >= 5).to_json()))
+        if owner:
+            rows = [[sub.filter, sub.qos, int(sub.no_local),
+                     int(sub.retain_as_published), sub.retain_handling,
+                     sub.identifier or 0] for sub in subs]
+            shares = [[parse_share(sub.filter)[0], sub.filter]
+                      for sub in subs if parse_share(sub.filter)[0]]
+            ops.append(("put", SESS_BUCKET, cid, SessionEntry(
+                cid, owner, 1, 0, STARTED_EXPIRY if version >= 5 else 0,
+                version >= 5, version, False, rows, shares).meta_json()))
         for sub in subs:
             ops.append(("put", "subscriptions", f"{cid}|{sub.filter}",
                         SubscriptionRecord(
@@ -1606,6 +1679,8 @@ def write_corpus_store(path: str, sessions) -> None:
                             retain_as_published=sub.retain_as_published,
                             retain_handling=sub.retain_handling,
                             identifier=sub.identifier).to_json()))
+    if owner:
+        ops.append(("put", "meta", "boot_epoch", str(FED_BOOT_EPOCH)))
     store = SQLiteStore(path, synchronous="OFF")
     store.apply_batch(ops)
     store.close()
@@ -1645,17 +1720,21 @@ def read_store(path: str, bucket: str) -> dict:
     return {k: json.loads(v) for k, v in rows}
 
 
-def stores_equal(a: str, b: str, normal=None) -> dict:
-    """Two store files equal bucket by bucket, record for record, each
-    record's wall-clock fields (``WALL_CLOCK_FIELDS``) left out and each
-    record passed through ``normal`` where given; returns each bucket's
-    records compared."""
+def stores_equal(a: str, b: str, normal=None,
+                 buckets=STORE_BUCKETS) -> dict:
+    """Two store files equal bucket by bucket (``buckets``), record for
+    record, each record's wall-clock fields (``WALL_CLOCK_FIELDS``) left
+    out and each record passed through ``normal`` where given (records
+    that are no JSON object, as a PUBREC-pending row's ``1``, as they
+    are); returns each bucket's records compared."""
     out = {}
-    for bucket in STORE_BUCKETS:
+    for bucket in buckets:
         recs = []
         for path in (a, b):
             rows = read_store(path, bucket)
             for key, rec in rows.items():
+                if not isinstance(rec, dict):
+                    continue
                 for field in WALL_CLOCK_FIELDS.get(bucket, ()):
                     rec.pop(field, None)
                 if normal is not None:
@@ -1666,7 +1745,8 @@ def stores_equal(a: str, b: str, normal=None) -> dict:
                          if recs[0].get(k) != recs[1].get(k))
             k = bad[0]
             raise AssertionError(
-                f"stores differ in {bucket}: {len(bad)} records, first "
+                f"stores {os.path.basename(a)} and {os.path.basename(b)} "
+                f"differ in {bucket}: {len(bad)} records, first "
                 f"{k!r}: {recs[0].get(k)} vs {recs[1].get(k)}")
         out[bucket] = len(recs[0])
     return out
@@ -1761,7 +1841,7 @@ class StartedBroker:
                  max_batch: int | None = None) -> None:
         self.name, self.workdir, self.db = name, workdir, db
         self.device = device
-        self.port, self.metrics_port = free_port(), free_port()
+        self.port, self.metrics_port = listen_port(), free_port()
         self.conf = os.path.join(workdir, f"{name}.toml")
         with open(self.conf, "w") as f:
             f.write(f'mqtt_tcp_address = "127.0.0.1:{self.port}"\n'
@@ -1824,9 +1904,10 @@ class StartedBroker:
         """Wait for the ``server started`` line and the listener; returns
         the boot: seconds from the start to that line, split into the
         restore, the matcher's compile + prewarm (``serve()``'s own
-        clock) and the rest (interpreter, imports, CUDA, config, engine
-        build), the matcher's device, the event loop, and every warning
-        or error logged meanwhile."""
+        clock), a cluster node's rebuild of its session ledger from the
+        journal (the replica restore) and the rest (interpreter, imports,
+        CUDA, config, engine build), the matcher's device, the event
+        loop, and every warning or error logged meanwhile."""
         deadline = time.monotonic() + timeout
         while True:
             if self.proc.poll() is not None:
@@ -1848,10 +1929,12 @@ class StartedBroker:
         w.close()
         loop = next((x.get("loop") for x in lines
                      if x.get("message") == "event loop installed"), None)
+        replica_s = started.get("replica_restore_s", 0.0)
         return {"boot_s": boot_s, "restore_s": started["restore_s"],
                 "compile_prewarm_s": started["compile_s"],
+                "replica_restore_s": replica_s,
                 "rest_s": boot_s - started["restore_s"]
-                - started["compile_s"],
+                - started["compile_s"] - replica_s,
                 "device": started["device"], "event_loop": loop,
                 "warnings": [x for x in lines if x.get("level")
                              in ("warn", "error", "fatal")]}
@@ -1962,13 +2045,25 @@ FED_FORWARDS = ("forwards_sent", "forwards_delivered", "forwards_refused",
                 "forwards_parked", "loops_dropped")
 # phase 16's tracer stride (phase 12's)
 FED_TRACE_STRIDE = 32
+# the boot epoch each phase 16 store holds when written (a fresh store
+# seeds its first epoch from the wall clock, which would differ between
+# the two federations' copies and so between their session tokens)
+FED_BOOT_EPOCH = 1_000
+# a node's session federation counters (``maxmq_cluster_session_<name>``
+# and ``fed_session_counts``): the takeovers, the takeovers that degraded
+# to a fresh session or went stale on a pull, replicated windows that
+# disagreed with their digest, journal rows that failed to parse,
+# injected sync faults, refused sends and their resyncs
+FED_SESSION_COUNTERS = ("takeovers", "takeovers_degraded", "takeovers_stale",
+                        "digest_mismatches", "restore_errors", "sync_faults",
+                        "sync_send_failures", "sync_resyncs")
 
 
 def fed_config(node: str, ports: dict) -> str:
     """The config lines that make a started broker node ``node`` of
-    phase 16's line (``ports``: each node's MQTT port): its id, its
-    peers and federated sessions off (the one cluster setting off the
-    default; they come with the next port slice), and the tracer on,
+    phase 16's line (``ports``: each node's MQTT port): its id and its
+    peers (every other cluster setting the default: federated sessions
+    on, ``cluster_session_sync = "batched"``), and the tracer on,
     sampling every ``FED_TRACE_STRIDE``-th inbound publish, for the
     match and cross-node latency histograms. Its stride counts the
     federation's timed control traffic (heartbeats, telemetry, clock
@@ -1979,7 +2074,6 @@ def fed_config(node: str, ports: dict) -> str:
     peers = ",".join(f"{p}@127.0.0.1:{ports[p]}" for p in FED_LINE[node])
     return (f'cluster_node_id = "{node}"\n'
             f'cluster_peers = "{peers}"\n'
-            "cluster_session_replication = false\n"
             f"trace_sample_n = {FED_TRACE_STRIDE}\n")
 
 
@@ -2042,6 +2136,23 @@ def fed_routes(local: dict, line=FED_LINE) -> dict:
     return {x: sum(len(advertised(p, x)) for p in line[x]) for x in line}
 
 
+def fed_runs(federation: dict) -> list:
+    """Phase 16's traffic runs (``Smoke.fed_traffic``'s records): before
+    the takeovers, while B's subscribers are away, after the live
+    takeover, and after B's restart."""
+    return [federation["traffic"], federation["takeover"]["parked"],
+            federation["takeover"]["traffic"], federation["rung"]["traffic"]]
+
+
+def fed_local_routes(kit, corpus: dict, plan) -> dict:
+    """``fed_routes`` of the sessions each node of ``FED_LINE`` holds: its
+    corpus sessions (``corpus``: node -> [(client id, Subscription)]) and
+    the compared subscribers ``plan`` puts on it (``started_sessions``)."""
+    return fed_routes({node: fed_local_filters(started_sessions(
+        kit, corpus[node], [e for n, *e in plan if n == node]))
+        for node in FED_LINE})
+
+
 class Federation:
     """One federation of phase 16 as its clients see it: each node's
     ``BrokerSide`` (its compared subscribers and publishers, by node) and
@@ -2065,15 +2176,51 @@ class Federation:
             if nodes is None or node in nodes:
                 await resume_subscribers(kit, self.sides[node], [entry])
 
-    async def connect(self, kit, plan) -> None:
+    async def connect(self, kit, plan, persistent=()) -> None:
         """The plan's subscribers connected fresh and subscribed, each on
-        its node (the offline ones leave with their sessions kept)."""
+        its node (the offline ones leave with their sessions kept; those
+        of ``persistent`` stay on kept sessions)."""
         for node, *entry in plan:
-            await connect_subscribers(kit, self.sides[node], [entry])
+            await connect_subscribers(kit, self.sides[node], [entry],
+                                      persistent)
 
     def side_of(self, owner: str) -> BrokerSide:
         return self.sides[self.publishers[int(owner.rsplit("-", 1)[1])
                                           % len(self.publishers)]]
+
+    async def leave(self, entries) -> None:
+        """The clients of the plan ``entries`` off their nodes, each with
+        a DISCONNECT (its session kept)."""
+        for node, cid, *_rest in entries:
+            c = self.sides[node].subs.get(cid)
+            if c is not None:
+                await c.close(disconnect=True)
+
+    async def arrive(self, kit, entries, dst: str, expiry: int,
+                     subscribe=()) -> dict:
+        """A session takeover: the clients of the plan ``entries`` (their
+        nodes' sessions) connect at node ``dst`` at once, clean start off
+        (a v5 one with ``expiry``), each then subscribing ``subscribe``;
+        fails unless every CONNACK says the session is present. Each
+        client moves to ``dst``'s side; returns each one's frames on its
+        old node."""
+        old = {}
+
+        async def one(node, cid, version, alias_max, _offline, _subs):
+            gone = self.sides[node].subs.pop(cid, None)
+            old[cid] = gone.frames if gone is not None else []
+            c = self.sides[dst].subs[cid] = WireClient(
+                kit, cid, version, alias_max, clean=False,
+                expiry=expiry if version >= 5 else None)
+            connack = await c.open(self.sides[dst].port)
+            if not connack[2] & 1:
+                raise AssertionError(f"{cid}: no session present at {dst} "
+                                     f"after the takeover from {node}")
+            for sub in subscribe:
+                await c.subscribe(sub)
+
+        await asyncio.gather(*(one(*e) for e in entries))
+        return old
 
     async def bursts(self, kit, traffic, chunk: int) -> None:
         """``BrokerSide.bursts`` of ``traffic`` in bursts of ``chunk``,
@@ -2140,26 +2287,46 @@ def fed_matcher_counts(broker) -> dict:
             "breaker_trips": sup.breaker_trips}
 
 
+def fed_session_counts(mgr) -> dict:
+    """A node's session federation's takeover and replication health
+    counters."""
+    sess = mgr.sessions
+    return {k: getattr(sess, k) for k in FED_SESSION_COUNTERS}
+
+
 async def fed_in_process(line, specs: dict, seed: int, publishers,
                          n_subs: int = 600, publishes: int = 384,
-                         burst: int = 64, clients: int = 12) -> dict:
+                         burst: int = 64, clients: int = 12,
+                         takeover=None) -> dict:
     """One federation over the tree ``line`` in this process (the port's
     CPU tests and card test run it): node ``n`` a broker of
     ``specs[n]`` = (broker kit, cluster package, matcher or None, device)
     holding its corpus slice (``fed_corpus_slices``), a
-    ``ClusterManager`` with federated sessions off (the default keepalive:
-    a shorter one declares a link dead while a full-size node holds the
-    loop; a fast reconnect backoff), the compared subscribers
-    (``fed_plan`` without probes, so the routes are real covers)
-    connected and subscribed, the routes converged
-    (``fed_routes``), each engine caught up with its index
+    ``ClusterManager`` with its federated sessions at the default
+    configuration (the default keepalive too: a shorter one declares a
+    link dead while a full-size node holds the loop; a fast reconnect
+    backoff), the compared subscribers (``fed_plan`` without probes, so
+    the routes are real covers) connected and subscribed, the routes
+    converged (``fed_routes``), each engine caught up with its index
     (``catch_up``), then ``publish_frames`` in fenced bursts from
     ``publishers``. Every node with a matcher has its batcher's host
     bypass off (as phase 12's), so its engine answers every topic it
-    matches, forwarded ones included. Returns the subscribers' frames,
-    each node's forward counters and retained (topic, payload) pairs, the
-    routes expected, ``sig_match_fixed``'s launches during the traffic
-    and each matcher node's counts over it (``fed_matcher_counts``)."""
+    matches, forwarded ones included.
+
+    ``takeover`` = (source node, new owner, n): the source's first ``n``
+    compared subscribers are on kept sessions throughout; after the
+    traffic they leave, half of ``publishes // 2`` more publishes parks
+    their deliveries at the source, they reconnect at the new owner (a
+    live owner's session takeover: session present, the parked window
+    resent), the routes converge again and the other half follows.
+
+    Returns the subscribers' frames (a taken-over client's frames at its
+    old node under ``<cid>@<node>``), each node's forward counters and
+    retained (topic, payload) pairs, the routes expected,
+    ``sig_match_fixed``'s launches during the traffic, each matcher
+    node's counts over it (``fed_matcher_counts``), and for a takeover
+    each node's session counters (``fed_session_counts``), with the
+    launches and matcher counts of the traffic after it."""
     from maxmq_tpu_torch.matching import sig_kernel
 
     kit = port_kit()
@@ -2173,34 +2340,21 @@ async def fed_in_process(line, specs: dict, seed: int, publishers,
     plan = fed_plan(kit, subscriber_plan(kit, clients, topics,
                                          index.subscribers, seed=seed),
                     nodes, probes=False)
+    moved = ([e for e in plan if e[0] == takeover[0]][:takeover[2]]
+             if takeover else [])
     sides, mgrs = {}, {}
-    try:
-        for node in nodes:
-            bk, _cl, matcher, device = specs[node]
-            sides[node] = await start_broker(
-                bk, broker_config(bk, matcher or ""), slices[node],
-                matcher is not None, device=device)
-            if matcher is not None:
-                sides[node].broker.matcher.inner.cpu_bypass = False
-        for node, peers in line.items():
-            cl = specs[node][1]
-            mgr = cl.ClusterManager(
-                sides[node].broker, node,
-                [cl.PeerSpec(p, "127.0.0.1", sides[p].port) for p in peers],
-                session_replication=False,
-                backoff_initial_s=0.05, backoff_max_s=0.5)
-            sides[node].broker.attach_cluster(mgr)
-            await mgr.start()
-            mgrs[node] = mgr
-        fed = Federation({n: sides[n].port for n in nodes}, publishers)
-        await fed.connect(kit, plan)
+
+    def routes_expected(plan) -> dict:
         local = {}
         for node in nodes:
             sessions = [(cid, 0, [sub]) for cid, sub in slices[node]]
-            sessions += [(cid, v, [*subs, kit.Subscription(filter=FENCE_TOPIC)])
-                         for n, cid, v, _a, _o, subs in plan if n == node]
+            sessions += [(cid, v, [*subs, kit.Subscription(
+                filter=FENCE_TOPIC)]) for n, cid, v, _a, _o, subs in plan
+                if n == node]
             local[node] = fed_local_filters(sessions)
-        expected = fed_routes(local, line)
+        return fed_routes(local, line)
+
+    async def converge(expected) -> None:
         deadline = time.monotonic() + 30
         while not fed_converged(
                 {n: [m.routes.remote_route_count, m.links_up]
@@ -2218,23 +2372,69 @@ async def fed_in_process(line, specs: dict, seed: int, publishers,
                 # (as phase 12's): a refresh under way holds the matches
                 await asyncio.get_running_loop().run_in_executor(
                     None, catch_up, engine)
+
+    async def traffic(frames_owners) -> tuple:
         counts0 = {n: fed_matcher_counts(sides[n].broker) for n in nodes}
         launches = sig_kernel.sig_match_fixed.launches
-        await fed.bursts(kit, publish_frames(kit, topics, seed + 2,
-                                             publishers=len(publishers)),
-                         burst)
-        k1 = sig_kernel.sig_match_fixed.launches - launches
-        out = {"frames": fed.streams({}),
-               "forwards": {n: {f: getattr(m, f) for f in FED_FORWARDS}
-                            for n, m in mgrs.items()},
-               "retained": {n: sorted((p.topic, p.payload) for p in
-                                      sides[n].broker.topics.retained_for("#"))
-                            for n in nodes},
-               "expected_routes": expected,
-               "k1_launches": k1,
-               "matchers": {n: {k: v - counts0[n][k] for k, v in
-                                fed_matcher_counts(sides[n].broker).items()}
-                            for n in nodes if counts0[n]}}
+        await fed.bursts(kit, frames_owners, burst)
+        return (sig_kernel.sig_match_fixed.launches - launches,
+                {n: {k: v - counts0[n][k] for k, v in
+                     fed_matcher_counts(sides[n].broker).items()}
+                 for n in nodes if counts0[n]})
+
+    try:
+        for node in nodes:
+            bk, _cl, matcher, device = specs[node]
+            sides[node] = await start_broker(
+                bk, broker_config(bk, matcher or ""), slices[node],
+                matcher is not None, device=device)
+            if matcher is not None:
+                sides[node].broker.matcher.inner.cpu_bypass = False
+        for node, peers in line.items():
+            cl = specs[node][1]
+            mgr = cl.ClusterManager(
+                sides[node].broker, node,
+                [cl.PeerSpec(p, "127.0.0.1", sides[p].port) for p in peers],
+                backoff_initial_s=0.05, backoff_max_s=0.5)
+            sides[node].broker.attach_cluster(mgr)
+            await mgr.start()
+            mgrs[node] = mgr
+        fed = Federation({n: sides[n].port for n in nodes}, publishers)
+        await fed.connect(kit, plan, persistent={e[1] for e in moved})
+        expected = routes_expected(plan)
+        await converge(expected)
+        k1, matchers = await traffic(publish_frames(
+            kit, topics, seed + 2, publishers=len(publishers)))
+        out = {"expected_routes": expected, "k1_launches": k1,
+               "matchers": matchers}
+        if takeover:
+            src, dst, _n = takeover
+            frames, owners = publish_frames(
+                kit, gen(publishes // 2, seed2=seed + 3), seed + 4,
+                publishers=len(publishers))
+            half = len(frames) // 2
+            await fed.leave(moved)
+            await fed.bursts(kit, (frames[:half], owners[:half]), burst)
+            old = await fed.arrive(kit, moved, dst, 3600)
+            plan = [(dst if e in moved else e[0], *e[1:]) for e in plan]
+            await converge(routes_expected(plan))
+            k1_after, matchers_after = await traffic(
+                (frames[half:], owners[half:]))
+            out["takeover"] = {
+                "moved": len(moved), "to": dst,
+                "sessions": {n: fed_session_counts(m)
+                             for n, m in mgrs.items()},
+                "k1_launches": k1_after, "matchers": matchers_after}
+        out.update(
+            frames=fed.streams({}),
+            forwards={n: {f: getattr(m, f) for f in FED_FORWARDS}
+                      for n, m in mgrs.items()},
+            retained={n: sorted((p.topic, p.payload) for p in
+                                sides[n].broker.topics.retained_for("#"))
+                      for n in nodes})
+        if takeover:
+            out["frames"].update({f"{cid}@{takeover[0]}": f
+                                  for cid, f in old.items()})
         await fed.close()
         return out
     finally:
@@ -3871,26 +4071,32 @@ class Smoke:
 
     async def federation(self) -> dict:
         """Phase 16: two federations of three started brokers on a line
-        A - B - C (``FED_LINE``): the card federation (``matcher =
-        "sig"``, no ``--device``) and the trie federation (``--device
-        cpu``). ``mixed_100k``'s persistent v5 sessions (QoS ``k % 2 +
-        1``) split by index mod 3 into three SQLite stores with the
-        compared subscribers of each node (``fed_plan``: phase 12's
-        plan round robin over the nodes, a '#' probe on each), each
-        store copied for both federations; ``fed_config`` the only
-        settings off phase 15's. The six children boot in parallel; the
-        route convergence is awaited on each node's ``/metrics``
-        (``maxmq_cluster_routes_held`` equal to ``fed_routes`` of the
-        stores, every link up); the compared subscribers resume; the
-        PUBLISH frames in fenced bursts from A and C, trie federation
-        first, every subscriber's frames equal; then B restarted in both
-        (SIGTERM, ``start`` again on its store), the stale epoch flushed
-        and the routes converged again, and more bursts, equal again.
-        On every card node: no hedge, trip or degrade, ``sig_match_fixed``
-        launched during the traffic (B included), ``/cluster/metrics``
-        with every node's series; each node's forward counters equal to
-        its twin's; after SIGTERM every node's store equal to its twin's
-        (its retained and inflight records included)."""
+        A - B - C (``FED_LINE``) at the default cluster configuration,
+        federated sessions on: the card federation (``matcher = "sig"``,
+        no ``--device``) and the trie federation (``--device cpu``).
+        ``mixed_100k``'s persistent v5 sessions (QoS ``k % 2 + 1``) split
+        by index mod 3 into three SQLite stores with the compared
+        subscribers of each node (``fed_plan``: phase 12's plan round
+        robin over the nodes, a '#' probe on each), each session with
+        its row in its node's session ledger journal, each store copied
+        for both federations; ``fed_config`` the only settings off phase
+        15's. The six children boot in parallel; the routes and the
+        session ledgers' convergence is awaited on each node's
+        ``/metrics`` (``fed_converge``); the compared subscribers resume;
+        the PUBLISH frames in fenced bursts from A and C, trie federation
+        first, every subscriber's frames equal. Then the live takeover
+        (``fed_live_takeover``: ``takeovers`` of B's compared subscribers
+        to C while B is up) and the restart rung (``federation_run``: B
+        stopped, ``takeovers`` of B's corpus sessions taken over at A
+        from the dead owner, B restarted on its store, the stale epoch
+        flushed, the routes and the ledgers converged again, more
+        bursts). On every card node: no hedge, trip or degrade,
+        ``sig_match_fixed`` launched during the traffic (B included),
+        ``/cluster/metrics`` with every node's series; each node's
+        forward and takeover counters equal to its twin's, no takeover
+        degraded; after SIGTERM every node's store equal to its twin's
+        (its retained and inflight records and its session ledger's
+        journal included)."""
         from maxmq_tpu_torch.matching.trie import TopicIndex
 
         if self.device.type == "cuda":
@@ -3911,22 +4117,41 @@ class Smoke:
             index = TopicIndex()
             for cid, sub in subs:
                 index.subscribe(cid, sub)
-            topics = gen(sz["publishes"] + sz["rung_publishes"], seed2=4700)
+            n, tk = sz["publishes"], sz["takeover_publishes"]
+            topics = gen(n + tk + sz["rung_publishes"], seed2=4700)
             plan = fed_plan(kit, subscriber_plan(kit, sz["clients"], topics,
                                                  index.subscribers))
-            dbs, local = {}, {}
-            for i, node in enumerate(nodes):
+            corpus = {node: subs[i::len(nodes)]
+                      for i, node in enumerate(nodes)}
+            dbs, n_sessions = {}, 0
+            for node in nodes:
                 sessions = started_sessions(
-                    kit, subs[i::len(nodes)],
-                    [entry for n, *entry in plan if n == node])
-                local[node] = fed_local_filters(sessions)
+                    kit, corpus[node],
+                    [entry for n_, *entry in plan if n_ == node])
+                n_sessions += len(sessions)
                 base = os.path.join(work, f"{node}.db")
-                write_corpus_store(base, sessions)
+                write_corpus_store(base, sessions, owner=node)
                 for fed in ("trie", "card"):
                     dbs[fed, node] = os.path.join(work, f"{fed}-{node}.db")
                     shutil.copyfile(base, dbs[fed, node])
-            out["routes_expected"] = fed_routes(local)
+            out["routes_expected"] = fed_local_routes(kit, corpus, plan)
+            out["ledger_sessions"] = n_sessions
             out["store_write_s"] = time.perf_counter() - t0
+            # the takeovers' sessions: B's first compared subscribers (live,
+            # to C), and B's corpus sessions that the traffic before the
+            # rung and the rung's both reach (from the dead owner, to A)
+            live = [e for e in plan if e[0] == "B"
+                    and not e[1].startswith("tcp-probe")][:sz["takeovers"]]
+            before, after = set(), set()
+            for t in topics[:n + tk]:
+                before.update(index.subscribers(t).subscriptions)
+            for t in topics[n + tk:]:
+                after.update(index.subscribers(t).subscriptions)
+            dead = [("B", cid, 5, 0, False, [sub]) for cid, sub in corpus["B"]
+                    if cid in before and cid in after][:sz["takeovers"]]
+            if len(live) < sz["takeovers"] or len(dead) < sz["takeovers"]:
+                raise AssertionError(f"{len(live)} and {len(dead)} sessions "
+                                     "to take over from B")
             device = None if self.device.type == "cuda" else "cpu"
             brokers = {}
             for fed in ("trie", "card"):
@@ -3935,19 +4160,22 @@ class Smoke:
                         f"{fed}-{node}", work, dbs[fed, node],
                         "sig" if fed == "card" else "trie",
                         device if fed == "card" else "cpu", sz["max_batch"])
-                ports = {n: brokers[fed, n].port for n in nodes}
+                ports = {n_: brokers[fed, n_].port for n_ in nodes}
                 for node in nodes:
                     brokers[fed, node].add_config(fed_config(node, ports))
-            feds = {fed: Federation({n: brokers[fed, n].port for n in nodes})
+            feds = {fed: Federation({n_: brokers[fed, n_].port
+                                     for n_ in nodes})
                     for fed in ("trie", "card")}
             try:
                 out.update(await self.federation_run(
-                    kit, topics, plan, brokers, feds, out["routes_expected"]))
+                    kit, topics, plan, corpus, brokers, feds, dbs,
+                    n_sessions, live, dead))
                 out["stores"] = {node: stores_equal(
-                    dbs["card", node], dbs["trie", node], drop_trace)
-                    for node in nodes}
+                    dbs["card", node], dbs["trie", node], drop_trace,
+                    STORE_BUCKETS + SESSION_BUCKETS) for node in nodes}
                 log(f"[federation] stores equal: {json.dumps(out['stores'])}"
-                    " (clients, subscriptions, retained, inflight)")
+                    " (clients, subscriptions, retained, inflight, the "
+                    "session ledger's and the replicas' rows)")
             except BaseException:
                 for b in brokers.values():
                     if b.log_path:
@@ -3963,6 +4191,7 @@ class Smoke:
             out["in_process"] = await self.fed_forwarded()
         log(f"[federation] {self.card} {json.dumps(out)}")
         return out
+
 
     async def fed_forwarded(self) -> dict:
         """The line in this process (``fed_in_process``, sized by the size
@@ -3992,36 +4221,64 @@ class Smoke:
                 FED_LINE, dict.fromkeys(FED_LINE, spec), 42,
                 FED_PUBLISHER_NODES, n_subs=ip["subs"],
                 publishes=ip["publishes"], burst=ip["burst"],
-                clients=ip["clients"])
+                clients=ip["clients"], takeover=("B", "C", ip["takeovers"]))
             walls[fed] = time.perf_counter() - t0
         card, trie = runs["card"], runs["trie"]
+        tk = card["takeover"]
         out = {"deliveries_compared": streams_equal(
                    "federation in process", card["frames"], trie["frames"]),
+               "taken_over_frames": sum(
+                   len(card["frames"][c.split("@")[0]])
+                   for c in card["frames"] if "@" in c),
                "wall_s": walls, "k1_launches": card["k1_launches"],
-               "nodes": card["matchers"]}
+               "nodes": card["matchers"], "takeover": tk}
         for key in ("forwards", "retained", "expected_routes"):
             if card[key] != trie[key]:
                 raise AssertionError(f"federation in process: {key} "
                                      f"{card[key]} vs {trie[key]}")
-        for c in card["matchers"].values():
-            c["device_share"] = ((c["batched_topics"] - c["bypassed_topics"]
-                                  - c["engine_host_topics"])
-                                 / max(c["batched_topics"] + c["cache_hits"],
-                                       1))
+        for run in (card["matchers"], tk["matchers"]):
+            for c in run.values():
+                c["device_share"] = ((c["batched_topics"]
+                                      - c["bypassed_topics"]
+                                      - c["engine_host_topics"])
+                                     / max(c["batched_topics"]
+                                           + c["cache_hits"], 1))
         log(f"[federation] in process, bypass off: {self.card} "
             f"{json.dumps(out)}")
-        for node, c in card["matchers"].items():
-            hedges = sum(v for k, v in c.items() if k.startswith("hedges_"))
-            if (c["batches"] < 1 or c["bypassed_topics"] or c["shadow_probes"]
-                    or hedges or c["breaker_trips"]
-                    or c["device_share"] < sz["device_share"]):
-                raise AssertionError(f"federation in process: card node "
-                                     f"{node}'s matcher: {c}")
-        batches = sum(c["batches"] for c in card["matchers"].values())
-        if self.device.type == "cuda" and card["k1_launches"] < batches:
-            raise AssertionError(
-                f"federation in process: {card['k1_launches']} K1 launches "
-                f"for {batches} batches: {out}")
+        sessions = {f: {n: {k: v for k, v in c.items()
+                            if k in ("takeovers", "takeovers_degraded",
+                                     "digest_mismatches", "restore_errors",
+                                     "sync_faults")}
+                        for n, c in runs[f]["takeover"]["sessions"].items()}
+                    for f in runs}
+        if (sessions["card"] != sessions["trie"]
+                or sum(c["takeovers"] for c in sessions["card"].values())
+                != ip["takeovers"]
+                or any(c["takeovers_degraded"] or c["digest_mismatches"]
+                       or c["restore_errors"] or c["sync_faults"]
+                       for c in sessions["card"].values())):
+            raise AssertionError(f"federation in process: the takeovers' "
+                                 f"session counters {sessions}")
+        for what, run in (("", card["matchers"]),
+                          (" after the takeover", tk["matchers"])):
+            for node, c in run.items():
+                hedges = sum(v for k, v in c.items()
+                             if k.startswith("hedges_"))
+                if (c["batches"] < 1 or c["bypassed_topics"]
+                        or c["shadow_probes"] or hedges or c["breaker_trips"]
+                        or c["device_share"] < sz["device_share"]):
+                    raise AssertionError(f"federation in process{what}: "
+                                         f"card node {node}'s matcher: {c}")
+        # the new owner's served batches after the takeover came from
+        # K1, as every batch of the run: one launch per batch at least
+        for what, k1, run in (("", card["k1_launches"], card["matchers"]),
+                              (" after the takeover", tk["k1_launches"],
+                               tk["matchers"])):
+            batches = sum(c["batches"] for c in run.values())
+            if self.device.type == "cuda" and k1 < batches:
+                raise AssertionError(
+                    f"federation in process{what}: {k1} K1 launches for "
+                    f"{batches} batches: {out}")
         return out
 
     async def fed_boot(self, brokers: dict, which) -> dict:
@@ -4045,36 +4302,69 @@ class Smoke:
             out[brokers[k].name] = boot
         return out
 
-    async def fed_converge(self, brokers: dict, expected: dict) -> dict:
+    async def fed_converge(self, brokers: dict, expected: dict,
+                           ledgers: dict | None = None,
+                           acks0: dict | None = None) -> dict:
         """Wait until every node of both federations has each link up and
         holds the routes its peers advertise (``expected``, from
-        ``fed_routes``), read from its ``/metrics``; returns the seconds
-        and the routes held."""
+        ``fed_routes``), read from its ``/metrics``; with ``ledgers``
+        (federation -> sessions), also until every node's session ledger
+        holds that federation's sessions and every node's peers have
+        acknowledged its resync (its replication acks since ``acks0``,
+        node -> acks at the mark, at least its owned sessions times its
+        links). Returns the seconds until the routes and until the
+        ledgers converged, and the routes held."""
         sz = self.sizes["federation"]
         t0 = time.perf_counter()
         deadline = time.monotonic() + sz["converge_s"]
+        routes_s = ledger_s = None
+        shown = time.monotonic()
         while True:
             held = {fed: {} for fed, _n in brokers}
+            ledger = {fed: {} for fed, _n in brokers}
             for (fed, node), b in brokers.items():
                 page = b.scrape()
                 held[fed][node] = [metric(page, "maxmq_cluster_routes_held"),
                                    metric(page, "maxmq_cluster_links_up")]
-            if all(fed_converged(h, expected) for h in held.values()):
-                return {"converge_s": time.perf_counter() - t0,
+                acks = (metric(page, "maxmq_cluster_session_sync_acks_total")
+                        - (acks0 or {}).get((fed, node), 0))
+                ledger[fed][node] = [
+                    metric(page, "maxmq_cluster_session_ledger"),
+                    acks >= metric(page, "maxmq_cluster_session_local")
+                    * len(FED_LINE[node])]
+            if routes_s is None and all(fed_converged(h, expected)
+                                        for h in held.values()):
+                routes_s = time.perf_counter() - t0
+            if ledger_s is None and (ledgers is None or all(
+                    v == [ledgers[fed], True]
+                    for fed, nodes in ledger.items()
+                    for v in nodes.values())):
+                ledger_s = time.perf_counter() - t0
+            if routes_s is not None and ledger_s is not None:
+                return {"converge_s": routes_s, "ledger_s": ledger_s,
                         "routes_held": held}
+            if time.monotonic() - shown > 10:
+                shown = time.monotonic()
+                log(f"[federation] converging, {time.perf_counter() - t0:.1f}"
+                    f" s: [ledger, resync acked] {json.dumps(ledger)}")
             if time.monotonic() > deadline:
                 raise AssertionError(
                     f"the federations did not converge in "
                     f"{sz['converge_s']} s: [routes held, links up] "
-                    f"{held}, routes expected {expected}")
+                    f"{held}, routes expected {expected}; [ledger, resync "
+                    f"acked] {ledger}, sessions expected {ledgers}")
             await asyncio.sleep(0.1)
 
     async def fed_traffic(self, kit, feds: dict, brokers: dict, traffic,
-                          what: str) -> dict:
+                          what: str, launched: bool = True,
+                          burst: int | None = None) -> dict:
         """``traffic`` through the trie federation, then the card one;
         every subscriber's frames equal (without the ``mq-trace``
         property); each node's forward counters equal its twin's; on each
-        card node no hedge, trip or degrade and K1 launched. Recorded, not
+        card node no hedge, trip or degrade and, where ``launched``, K1
+        launched (the takeover rung's two short runs of 128 publishes may
+        leave a node's every batch to the host bypass; ``burst``, the
+        frames a fence ends, by default the size table's). Recorded, not
         held: each card node's launches that served publishes (less the
         shadow probes), the share of its matched topics the card answered
         (the host bypass serves the rest), and both federations' sampled
@@ -4085,7 +4375,7 @@ class Smoke:
         for fed in ("trie", "card"):
             starts[fed] = feds[fed].marks()
             t0 = time.perf_counter()
-            await feds[fed].bursts(kit, traffic, sz["burst"])
+            await feds[fed].bursts(kit, traffic, burst or sz["burst"])
             walls[fed] = time.perf_counter() - t0
         frames = streams_equal(
             f"federation {what}",
@@ -4127,6 +4417,17 @@ class Smoke:
                                         "maxmq_matcher_breaker_trips_total"),
                 "degrades": metric(card,
                                    "maxmq_broker_publish_trie_degraded_total"),
+                # the node's garbage collections over the run: seconds
+                # paused and full collections; its journal's largest
+                # group commit; the hedges it had before the run
+                "gc_paused_s": delta("maxmq_matcher_gc_paused_seconds_total"),
+                "gc_full": delta("maxmq_matcher_gc_full_collections_total"),
+                "journal_largest_batch": metric(
+                    card, "maxmq_storage_largest_batch_ops"),
+                "hedges_before": {lab: v for (n, lab), v
+                                  in before["card", node].items()
+                                  if n == "maxmq_matcher_fallbacks_total"
+                                  and v and 'reason="overflow"' not in lab},
                 # the batcher's device round trip (its EWMA), which the
                 # bypass holds the host's cost against
                 "device_rtt_ms": metric(
@@ -4147,7 +4448,8 @@ class Smoke:
             if rec["hedges"] or rec["breaker_trips"] or rec["degrades"]:
                 raise AssertionError(f"federation {what}: card node {node}'s "
                                      f"matcher: {rec}")
-            if self.device.type == "cuda" and rec["k1_launches"] < 1:
+            if (launched and self.device.type == "cuda"
+                    and rec["k1_launches"] < 1):
                 raise AssertionError(f"federation {what}: card node {node} "
                                      f"launched no sig_match_fixed: {rec}")
             out["nodes"][node] = rec
@@ -4174,36 +4476,273 @@ class Smoke:
                                      f"{nodes}")
             await asyncio.sleep(0.2)
 
-    async def federation_run(self, kit, topics, plan, brokers, feds,
-                             expected: dict) -> dict:
-        """Phase 16's two federations: boots, convergence, traffic, the
-        restart of B, stops."""
+    def fed_sessions(self, pages: dict, what: str) -> dict:
+        """Each node's session counters (``FED_SESSION_COUNTERS`` and the
+        replication's ops, flushes and acks) on ``pages`` ((federation,
+        node) -> ``/metrics``): the takeovers equal between the twins;
+        none degraded, no digest mismatch, restore error or sync fault.
+        Returns the card nodes' counters."""
+        out = {}
+        for node in FED_LINE:
+            got = {fed: {k: metric(pages[fed, node],
+                                   f"maxmq_cluster_session_{k}_total")
+                         for k in (*FED_SESSION_COUNTERS, "sync_ops",
+                                   "sync_flushes", "sync_acks")}
+                   for fed in ("card", "trie")}
+            card, trie = got["card"], got["trie"]
+            if (card["takeovers"] != trie["takeovers"]
+                    or any(c[k] for c in (card, trie)
+                           for k in ("takeovers_degraded",
+                                     "digest_mismatches", "restore_errors",
+                                     "sync_faults"))):
+                raise AssertionError(f"federation {what}: node {node}'s "
+                                     f"session counters {got}")
+            out[node] = card
+        return out
+
+    async def fed_replicas(self, dbs: dict, cids) -> float:
+        """Wait until, in both federations, A's and C's replicas of B's
+        sessions ``cids`` agree with B's own window, read from the three
+        stores: each replica's digest (``cluster_sessions``) and inflight
+        rows (``cluster_inflight``) those of B's ``inflight`` rows (the
+        predicate the reference's split-brain scenario awaits, on the
+        journals); returns the seconds it took."""
         sz = self.sizes["federation"]
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + sz["converge_s"]
+        while True:
+            bad = []
+            for fed in ("trie", "card"):
+                live: dict = {cid: set() for cid in cids}
+                for key in read_store(dbs[fed, "B"], "inflight"):
+                    cid, _, pid = key.rpartition("|")
+                    if cid in live:
+                        live[cid].add(int(pid))
+                for node in ("A", "C"):
+                    ledger = read_store(dbs[fed, node], "cluster_sessions")
+                    rows: dict = {cid: set() for cid in cids}
+                    for key in read_store(dbs[fed, node],
+                                          "cluster_inflight"):
+                        cid, _, pid = key.rpartition("|")
+                        if cid in rows and not pid.startswith("r"):
+                            rows[cid].add(int(pid))
+                    for cid, pids in live.items():
+                        x = 0
+                        for pid in pids:
+                            x ^= pid
+                        if (ledger.get(cid, {}).get("dig") != [len(pids), x]
+                                or rows[cid] != pids):
+                            bad.append((fed, node, cid))
+            if not bad:
+                return time.perf_counter() - t0
+            if time.monotonic() > deadline:
+                raise AssertionError(f"replicas of B's sessions not "
+                                     f"converged: {bad[:8]}")
+            await asyncio.sleep(0.1)
+
+    def settle_topic(self) -> str:
+        """A topic not published before in this run (no cached answer)."""
+        self.settles = getattr(self, "settles", 0) + 1
+        return f"settle/{self.settles}"
+
+    async def fed_publish_once(self, kit, feds: dict) -> None:
+        """One QoS 0 publish to a ``settle_topic`` in each federation from
+        its first publisher, awaited at every '#' probe (every node
+        matched it)."""
+        topic = self.settle_topic()
+        for f in feds.values():
+            probes = [c for side in f.sides.values()
+                      for cid, c in side.subs.items()
+                      if cid.startswith("tcp-probe-")]
+            marks = [len(c.frames) for c in probes]
+            pub = next(p for side in f.sides.values()
+                       for p in side.pubs.values())
+            pub.send([pub.packet(kit.PT.PUBLISH, topic=topic,
+                                 payload=b"settle").encode()])
+            await asyncio.gather(*(c.until(lambda c=c, n=n:
+                                           len(c.frames) > n)
+                                   for c, n in zip(probes, marks)))
+
+    async def fed_seed(self, kit, feds: dict, brokers: dict,
+                       node: str) -> None:
+        """A restarted node's first match at once, before its peers' links
+        come back: a QoS 1 publish to a ``settle_topic`` from a publisher
+        on ``node`` (``settle-<node>``) in each federation, one at a time,
+        until the card node's batcher holds a device round-trip estimate
+        (``/metrics`` ``maxmq_matcher_device_rtt_seconds`` above 0: its
+        second batch; the first sample is discarded). A fresh batcher
+        sends its batches to the card until then; one sent while the
+        engine's refresh runs (after a resync moved sessions away)
+        hedges (F25)."""
+        for _ in range(8):
+            if metric(brokers["card", node].scrape(),
+                      "maxmq_matcher_device_rtt_seconds"):
+                return
+            topic = self.settle_topic()
+            for f in feds.values():
+                pub = await f.sides[node].publisher(kit, f"settle-{node}")
+                await pub.publish(topic, b"seed", qos=1)
+        raise AssertionError(f"card node {node}'s batcher holds no device "
+                             "round trip after 8 publishes")
+
+    async def fed_settle(self, kit, feds: dict, brokers: dict) -> dict:
+        """After a takeover or a restart, before the traffic: let every
+        card node's engine catch up with the subscriptions that the
+        takeovers installed or evicted while no traffic runs. An engine
+        refreshes at its next match (``OverlayedEngine.overlay_for``), in
+        the background, and a node matched while its refresh and re-warm
+        run answers late (deadline hedges). So, in rounds: while a card
+        node is behind its index (``/metrics``
+        ``maxmq_matcher_tables_behind``) and none is refreshing
+        (``maxmq_matcher_refreshing``), one QoS 0 publish to a topic not
+        sent before (``settle/<n>``: no cached answer) from each
+        federation's first publisher, which the '#' probes route to
+        every node, awaited at every probe (no fence: a second publish
+        would be matched while the first one's refresh runs; a node's
+        batcher may answer one topic from the trie, and its shadow
+        probe, every 64 bypassed batches, reaches the engine); while one
+        is refreshing, nothing. Last, every node's journal drained
+        (``maxmq_storage_queue_depth`` 0: the resync's replica rows
+        committed). Returns the seconds and the rounds."""
+        sz = self.sizes["federation"]
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + sz["converge_s"]
+        rounds = 0
+        while True:
+            behind, refreshing, journal, hedged = {}, {}, {}, {}
+            for (fed, node), b in brokers.items():
+                page = b.scrape()
+                journal[fed, node] = metric(page, "maxmq_storage_queue_depth")
+                if fed == "card":
+                    behind[node] = metric(page, "maxmq_matcher_tables_behind")
+                    refreshing[node] = metric(page,
+                                              "maxmq_matcher_refreshing")
+                    hedged[node] = metric(page,
+                                          "maxmq_matcher_fallbacks_total",
+                                          reason="deadline")
+            if not any(behind.values()) and not any(refreshing.values()):
+                if not any(journal.values()):
+                    return {"s": time.perf_counter() - t0, "rounds": rounds}
+            if time.monotonic() > deadline:
+                raise AssertionError(f"card nodes' engines behind "
+                                     f"{behind}, refreshing {refreshing}, "
+                                     f"deadline hedges {hedged}; journal "
+                                     f"ops queued {journal}")
+            if any(refreshing.values()) or not any(behind.values()):
+                await asyncio.sleep(0.1)
+                continue
+            rounds += 1
+            await self.fed_publish_once(kit, feds)
+
+    async def fed_arrivals(self, kit, feds: dict, entries, dst: str,
+                           subscribe=()) -> dict:
+        """``Federation.arrive`` of ``entries`` at ``dst`` in the trie
+        federation, then the card one; each client then pings, so its
+        resent window has arrived. The frames each taken-over client
+        got at its new owner (the resent inflight, packet ids and DUP
+        flags as sent; a v5 frame without its ``mq-trace`` property, F20)
+        equal between the federations; returns how many and the seconds
+        each federation's arrivals took."""
+        got, walls = {}, {}
+        for fed in ("trie", "card"):
+            t0 = time.perf_counter()
+            await feds[fed].arrive(kit, entries, dst, STARTED_EXPIRY,
+                                   subscribe)
+            side = feds[fed].sides[dst]
+            await asyncio.gather(*(side.subs[e[1]].ping() for e in entries))
+            walls[fed] = time.perf_counter() - t0
+            got[fed] = {e[1]: [without_trace(fr) if e[2] == 5 else fr
+                               for fr in side.subs[e[1]].frames]
+                        for e in entries}
+        return {"resent_compared": streams_equal(
+                    f"federation takeovers at {dst}", got["card"],
+                    got["trie"]),
+                "arrive_s": walls}
+
+    async def federation_run(self, kit, topics, plan, corpus, brokers,
+                             feds, dbs, n_sessions: int, live,
+                             dead) -> dict:
+        """Phase 16's two federations: boots, convergence, traffic, the
+        live takeover, the restart of B with the dead-owner takeover,
+        stops."""
+        sz = self.sizes["federation"]
+        n, tk = sz["publishes"], sz["takeover_publishes"]
         out = {}
         t0 = time.perf_counter()
         out["boot"] = await self.fed_boot(brokers, list(brokers))
         log(f"[federation] boots: {self.card} {json.dumps(out['boot'])}")
-        out["converge"] = await self.fed_converge(brokers, expected)
+        out["converge"] = await self.fed_converge(
+            brokers, fed_local_routes(kit, corpus, plan),
+            dict.fromkeys(feds, n_sessions))
+        log(f"[federation] converged after the boots: {self.card} "
+            f"routes {out['converge']['converge_s']:.2f} s, ledgers "
+            f"{out['converge']['ledger_s']:.2f} s")
         for f in feds.values():
             await f.resume(kit, plan)
-        n = sz["publishes"]
         out["traffic"] = await self.fed_traffic(
             kit, feds, brokers, publish_frames(kit, topics[:n], 47,
                                                publishers=2), "traffic")
         out["telemetry"] = await self.fed_telemetry(brokers)
-        # the rung: B restarted in both federations
+        # the live takeover: B's subscribers leave it, half the rung's
+        # publishes park at B for them, they reconnect at C (B pulled
+        # for their fresh state), the routes follow, the other half
         t1 = time.perf_counter()
-        marks = {k: b.scrape() for k, b in brokers.items()}
+        frames, owners = publish_frames(kit, topics[n:n + tk], 49,
+                                        publishers=2)
+        half = len(frames) // 2
+        for f in feds.values():
+            await f.leave(live)
+        out["takeover"] = {"parked": await self.fed_traffic(
+            kit, feds, brokers, (frames[:half], owners[:half]),
+            "while B's subscribers are away", launched=False)}
+        out["takeover"].update(await self.fed_arrivals(kit, feds, live, "C"))
+        plan = [("C" if e in live else e[0], *e[1:]) for e in plan]
+        out["takeover"]["converge"] = await self.fed_converge(
+            brokers, fed_local_routes(kit, corpus, plan))
+        out["takeover"]["settle"] = await self.fed_settle(
+            kit, feds, brokers)
+        out["takeover"]["traffic"] = await self.fed_traffic(
+            kit, feds, brokers, (frames[half:], owners[half:]),
+            "after the live takeover", launched=False)
+        pages = {k: b.scrape() for k, b in brokers.items()}
+        out["takeover"]["sessions"] = self.fed_sessions(
+            pages, "after the live takeover")
+        out["takeover"]["s"] = time.perf_counter() - t1
+        # the rung: B stopped in both federations once its corpus
+        # sessions' replicas converged; those sessions taken over at A
+        # from the dead owner; B restarted
+        t1 = time.perf_counter()
         for fed, f in feds.items():
             await f.close(nodes=("B",))
         await asyncio.gather(*(brokers[fed, "B"].drained(
             sz["stop_s"], keep=len(FED_LINE["B"])) for fed in feds))
+        replicas_s = await self.fed_replicas(dbs, [e[1] for e in dead])
+        marks = {k: b.scrape() for k, b in brokers.items()}
         stops = await asyncio.gather(*(brokers[fed, "B"].stop(sz["stop_s"])
                                        for fed in feds))
-        out["rung"] = {"stop_s": dict(zip(feds, stops)),
-                       "boot": await self.fed_boot(
-                           brokers, [(fed, "B") for fed in feds])}
-        out["rung"]["converge"] = await self.fed_converge(brokers, expected)
+        out["rung"] = {"replicas_s": replicas_s,
+                       "stop_s": dict(zip(feds, stops))}
+        out["rung"]["takeover"] = await self.fed_arrivals(
+            kit, feds, dead, "A", [kit.Subscription(filter=FENCE_TOPIC)])
+        corpus = dict(corpus, A=corpus["A"] + [(e[1], e[5][0]) for e in dead],
+                      B=[c for c in corpus["B"]
+                         if c[0] not in {e[1] for e in dead}])
+        out["rung"]["boot"] = await self.fed_boot(
+            brokers, [(fed, "B") for fed in feds])
+        # B's first match before A's link (in its reconnect backoff)
+        # brings the resync that evicts the sessions taken over at A
+        await self.fed_seed(kit, feds, brokers, "B")
+        acks0 = {(fed, node): metric(marks[fed, node],
+                                     "maxmq_cluster_session_sync_acks_total")
+                 for fed in feds for node in ("A", "C")}
+        out["rung"]["converge"] = await self.fed_converge(
+            brokers, fed_local_routes(kit, corpus, plan),
+            {fed: n_sessions + sum(len(side.pubs)
+                                   for side in f.sides.values())
+             for fed, f in feds.items()}, acks0)
+        log(f"[federation] converged after B's restart: {self.card} "
+            f"routes {out['rung']['converge']['converge_s']:.2f} s, ledgers "
+            f"{out['rung']['converge']['ledger_s']:.2f} s")
         # B came back as a new incarnation (its boot epoch bumped), and
         # its peers replaced the old one's routes with its fresh snapshot
         for (fed, node), b in brokers.items():
@@ -4217,14 +4756,41 @@ class Smoke:
                                      "B's restart")
         for f in feds.values():
             await f.resume(kit, plan, nodes=("B",))
+        out["rung"]["settle"] = await self.fed_settle(kit, feds, brokers)
         out["rung"]["restart_s"] = time.perf_counter() - t1
+        # in fenced bursts of ``rung_burst``: every publish reaches every
+        # node (the '#' probes), so each node forms a batch a burst at
+        # least; with the bypass on, K1 launches on a node's shadow probe,
+        # one every 64 bypassed batches, and 512 publishes in bursts of 512
+        # can leave a node fewer than 64 batches (replication's work per
+        # delivery coalesces more of them)
         out["rung"]["traffic"] = await self.fed_traffic(
-            kit, feds, brokers, publish_frames(kit, topics[n:], 48,
-                                               publishers=2), "after B's restart")
+            kit, feds, brokers, publish_frames(kit, topics[n + tk:], 48,
+                                               publishers=2),
+            "after B's restart", burst=sz["rung_burst"])
         for f in feds.values():
             await f.close()
         await asyncio.gather(*(b.drained(sz["stop_s"], keep=len(FED_LINE[k[1]]))
                                for k, b in brokers.items()))
+        pages = {k: b.scrape() for k, b in brokers.items()}
+        out["sessions"] = self.fed_sessions(pages, "at the end")
+        out["takeovers"] = {
+            "live": out["takeover"]["sessions"]["C"]["takeovers"],
+            "dead_owner": out["sessions"]["A"]["takeovers"]}
+        if sum(c["takeovers"] for c in out["sessions"].values()) \
+                != 2 * sz["takeovers"]:
+            raise AssertionError(f"federation: takeovers "
+                                 f"{out['sessions']}, want "
+                                 f"{2 * sz['takeovers']}")
+        out["takeover_ms"] = {
+            node: hist_quantiles(pages["card", node], {},
+                                 "maxmq_broker_publish_stage_seconds",
+                                 qs=(0.5, 1.0), stage="takeover")
+            for node in ("A", "C")}
+        log(f"[federation] sessions: {self.card} takeovers "
+            f"{json.dumps(out['takeovers'])}, takeover p50/max ms "
+            f"{json.dumps(out['takeover_ms'])}, per node "
+            f"{json.dumps(out['sessions'])}")
         stops = await asyncio.gather(*(b.stop(sz["stop_s"])
                                        for b in brokers.values()))
         out["stop_s"] = {b.name: s for b, s in zip(brokers.values(), stops)}
@@ -5799,10 +6365,18 @@ class Smoke:
                    surfaces_launches=surfaces["launches"],
                    started_launches=started["k1_launches"],
                    federation_launches=None if federation is None else {
-                       node: federation["traffic"]["nodes"][node][
-                           "k1_launches"]
-                       + federation["rung"]["traffic"]["nodes"][node][
-                           "k1_launches"] for node in FED_LINE},
+                       node: sum(run["nodes"][node]["k1_launches"]
+                                 for run in fed_runs(federation))
+                       for node in FED_LINE},
+                   takeover_launches=None if federation is None else {
+                       "live": {node: federation["takeover"]["traffic"][
+                           "nodes"][node]["served_launches"]
+                           for node in FED_LINE},
+                       "dead_owner": {node: federation["rung"]["traffic"][
+                           "nodes"][node]["served_launches"]
+                           for node in FED_LINE},
+                       "in_process": federation["in_process"]["takeover"][
+                           "k1_launches"]},
                    headline={k: {f: v[f] for f in
                                  ("kernel_ms", "kernel_ms_256", "plain_ms",
                                   "bound_ms", "bound_by", "launches")}

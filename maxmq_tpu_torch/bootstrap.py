@@ -12,10 +12,10 @@ Copy of the JAX package's ``bootstrap.py``. ``build_matcher``,
 card unless the caller names another device (``"cpu"``), and without CUDA
 and without a device the device engines raise — nothing is moved to the
 CPU on its own. Cluster mode (``cluster_node_id``) runs the federation
-without federated sessions: the session replication
-(``cluster_session_replication = true``, the default) and the worker pool
-(``workers > 1``) are not ported yet, and a config asking for either fails
-at start, naming the port's slice that brings them (``SESSIONS_SLICE``).
+with its federated sessions (``cluster_session_replication = true``, the
+default). The worker pool (``workers > 1``) is not ported yet: a config
+asking for it fails at start, naming the port's slice that brings it
+(``POOL_SLICE``).
 """
 
 from __future__ import annotations
@@ -42,10 +42,9 @@ BANNER = r"""
         MQTT broker, PyTorch/CUDA port
 """
 
-# what a config asks for that this package does not run yet: federated
-# sessions (``cluster_session_replication``) and the worker pool
-SESSIONS_SLICE = ("port slice 13, federated sessions and the worker "
-                  "pool")
+# what a config asks for that this package does not run yet: the
+# delivery-worker pool (``workers > 1``, ``MAXMQ_WORKER_ID``)
+POOL_SLICE = "port slice 13b, the delivery-worker pool"
 
 
 def capabilities_from_config(conf: Config) -> Capabilities:
@@ -213,9 +212,7 @@ def build_cluster(conf: Config, broker: Broker, logger: Logger | None = None):
     """Attach the federation manager (ADR 013) when ``cluster_node_id``
     is set: bridge links to every ``cluster_peers`` entry, the
     aggregated route table, and $cluster/* inbound handling. The links
-    start with broker.serve(). The manager refuses session replication
-    (``cluster_session_replication = true``), which is not ported yet,
-    naming the slice that brings it."""
+    start with broker.serve()."""
     if not conf.cluster_node_id:
         return None
     from .cluster import ClusterManager
@@ -349,9 +346,14 @@ def _register_device_counts(registry: Registry, matcher) -> None:
     matcher ran, beside its batches. With a batcher, also the topics of
     its batches and its shadow probes: bypassed batches sent to the
     device only to time it (one launch each at most), whose answers
-    serve no publish."""
+    serve no publish; how far the engine's tables lag its index, and
+    whether its background refresh runs; and the process's garbage
+    collection pauses and full collections."""
+    import gc
+
     from .matching.dense_kernel import dense_walk_words
     from .matching.sig_kernel import sig_match_fixed
+    from .matching.supervisor import gc_paused_s
 
     for fn in (sig_match_fixed, dense_walk_words):
         registry.counter_func(
@@ -368,6 +370,30 @@ def _register_device_counts(registry: Registry, matcher) -> None:
             "Bypassed batches duplicated to the device to refresh the "
             "round-trip estimate (their answers are dropped)",
             lambda: matcher.shadow_probes)
+    registry.counter_func(
+        "maxmq_matcher_gc_paused_seconds_total",
+        "Seconds this process spent in garbage collections, which the "
+        "matcher's deadline leaves out once",
+        gc_paused_s)
+    registry.counter_func(
+        "maxmq_matcher_gc_full_collections_total",
+        "Full (oldest-generation) garbage collections of this process",
+        lambda: gc.get_stats()[2]["collections"])
+    engine = getattr(getattr(matcher, "inner", matcher), "engine", None)
+    if hasattr(engine, "index") and hasattr(engine, "tables"):
+        registry.gauge_func(
+            "maxmq_matcher_tables_behind",
+            "Subscription changes of the index that the engine's device "
+            "tables do not hold yet (a dispatch starts the background "
+            "refresh that catches up)",
+            lambda: engine.index.sub_version - engine.tables.version)
+        registry.gauge_func(
+            "maxmq_matcher_refreshing",
+            "1 while the engine's background refresh (recompile, bucket "
+            "re-warm, decode prewarm) runs",
+            lambda: int(any(t is not None and t.is_alive() for t in (
+                getattr(engine, "_bg_thread", None),
+                getattr(engine, "_warm_thread", None)))))
 
 
 def new_logger_from_config(conf: Config) -> Logger:
@@ -463,7 +489,10 @@ async def run_server(conf: Config, logger: Logger,
     boot.info("server started", tcp=conf.mqtt_tcp_address,
               matcher=conf.matcher or "trie", device=matcher_device(broker),
               restore_s=broker.boot_seconds.get("restore", 0.0),
-              compile_s=broker.boot_seconds.get("compile", 0.0))
+              compile_s=broker.boot_seconds.get("compile", 0.0),
+              replica_restore_s=getattr(
+                  getattr(broker.cluster, "sessions", None), "boot_seconds",
+                  {}).get("restore", 0.0))
     if ready is not None:
         ready.set()
 
@@ -505,7 +534,7 @@ async def _maybe_run_pool(conf: Config, logger, ready, stop) -> bool:
                 else f"workers = {conf.workers}")
         raise NotImplementedError(
             f"{what}: the delivery-worker pool is not ported to "
-            f"maxmq_tpu_torch yet ({SESSIONS_SLICE})")
+            f"maxmq_tpu_torch yet ({POOL_SLICE})")
     return False
 
 

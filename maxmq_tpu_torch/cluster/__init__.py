@@ -1,11 +1,11 @@
-"""Cluster federation layer (ADR 013 + 017): bridge links, aggregated
-route propagation, cross-node publish forwarding, and the cluster
-observability plane (cross-node trace propagation, telemetry gossip,
-clock-skew estimation) over N broker processes.
+"""Cluster federation layer (ADR 013 + 016 + 017): bridge links,
+aggregated route propagation, cross-node publish forwarding, federated
+sessions (epoch-safe takeover, replicated inflight, cluster-wide
+``$share``), and the cluster observability plane (cross-node trace
+propagation, telemetry gossip, clock-skew estimation) over N broker
+processes.
 
-Copy of the JAX package's ``cluster`` package without federated sessions
-(``SessionEntry``, ``SessionFederation``), which come with the next port
-slice."""
+Copy of the JAX package's ``cluster`` package."""
 
 from .bridge import BRIDGE_ID_PREFIX, BridgeLink
 from .manager import ClusterManager, DedupWindow
@@ -15,6 +15,7 @@ from .routes import (IncrementalCover, RouteTable, RouteWireError,
                      ShareLedger, decode_delta, decode_snapshot,
                      decode_snapshot_preds, encode_delta,
                      encode_snapshot, filter_subsumes, minimal_cover)
+from .sessions import SessionEntry, SessionFederation
 from .telemetry import WIRE_CAPS, ClusterTelemetry
 
 __all__ = [
@@ -24,6 +25,6 @@ __all__ = [
     "ShareLedger", "decode_delta", "decode_snapshot",
     "decode_snapshot_preds", "encode_delta", "encode_snapshot",
     "filter_subsumes", "minimal_cover",
-    "ClusterTelemetry",
+    "SessionEntry", "SessionFederation", "ClusterTelemetry",
     "WIRE_CAPS",
 ]

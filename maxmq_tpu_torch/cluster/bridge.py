@@ -1,7 +1,6 @@
 """Outbound bridge link to one cluster peer (ADR 013).
 
-Copy of the JAX package's ``cluster/bridge.py``; the session-federation
-send (``send_session``) comes with the port's federated sessions.
+Copy of the JAX package's ``cluster/bridge.py``.
 
 A bridge is an ordinary MQTT v3.1.1 client connection (built on
 ``mqtt_client.MQTTClient``) from this node to a peer broker, carrying
@@ -136,6 +135,7 @@ class BridgeLink:
         self.forwards_acked = 0
         self.forward_ack_failures = 0
         self.control_sent = 0
+        self.session_sent = 0       # ADR-016 session-federation messages
         # ADR 018: parked QoS1 forwards awaiting retry-after-heal
         # [(envelope topic, payload, journal key), ...]; the key set
         # mirrors it for O(1) already-parked checks
@@ -699,6 +699,42 @@ class BridgeLink:
         store = self._fwd_store()
         if store is not None:
             store.delete(FWD_BUCKET, key)
+
+    def send_session(self, topic: str, payload: bytes,
+                     on_ack=None) -> bool:
+        """Enqueue one ADR-016 session-federation message. Budget-exempt
+        like route control (dropping a session update would silently
+        desync the ledger), but sent at QoS1 when ``on_ack`` is given:
+        the peer broker's PUBACK is the replication acknowledgement the
+        sync barrier couples publisher acks to. ``on_ack(ok)`` runs on
+        the loop once the ack lands (or the link dies — ok=False, so a
+        barrier never waits on a dead connection's ack)."""
+        client = self.client
+        if not self.connected or client is None:
+            return False
+        pid = 0
+        if on_ack is not None:
+            pid = client._alloc_id()
+            fut = client._await_ack(PT.PUBACK, pid)
+
+            def _done(f, cb=on_ack):
+                cb(not f.cancelled() and f.exception() is None)
+
+            fut.add_done_callback(_done)
+        wire = self._encode_publish(topic, payload,
+                                    1 if on_ack is not None else 0,
+                                    False, pid)
+        try:
+            self.outbound.put_nowait(wire, len(wire))
+        except asyncio.QueueFull:
+            if pid:
+                f = client._acks.pop((PT.PUBACK, pid), None)
+                if f is not None and not f.done():
+                    f.cancel()
+            return False
+        self.session_sent += 1
+        self.items_sent += 1    # ADR 020: audited by the heartbeat
+        return True
 
     def send_control(self, topic: str, payload: bytes,
                      retain: bool = False,

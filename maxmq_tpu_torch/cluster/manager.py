@@ -1,10 +1,6 @@
 """ClusterManager: the federation brain wired into one broker (ADR 013).
 
-Copy of the JAX package's ``cluster/manager.py`` without federated
-sessions: ``session_replication=True`` raises (the session federation,
-``cluster/sessions.py``, comes with the next port slice, together with
-the worker pool), and ``sessions`` stays None, so every session hook
-below is skipped exactly as the reference skips it with replication off.
+Copy of the JAX package's ``cluster/manager.py``.
 
 Links N broker processes into one logical broker: outbound
 :class:`~.bridge.BridgeLink` per seed peer, an aggregated
@@ -121,15 +117,6 @@ class ClusterManager:
         if share_balance not in ("weighted", "pin"):
             raise ValueError(f"unknown cluster_share_balance "
                              f"{share_balance!r} (want weighted/pin)")
-        # federated sessions (ADR 016) are not ported yet: asking for
-        # them fails here rather than run a federation without them
-        if session_replication:
-            from ..bootstrap import SESSIONS_SLICE
-            raise NotImplementedError(
-                f"cluster session replication is not ported to "
-                f"maxmq_tpu_torch yet ({SESSIONS_SLICE}); set "
-                f"session_replication=False "
-                f"(cluster_session_replication = false)")
         self.broker = broker
         self.node_id = node_id
         self.link_qos = min(max(link_qos, 0), 1)
@@ -173,7 +160,18 @@ class ClusterManager:
         self._refresh_pending = False
         self._retry_pending = False
         self._started = False
+        # federated sessions (ADR 016): replication + takeover +
+        # cluster-wide $share, registered as a broker hook so the
+        # QoS/subscription/disconnect events feed replication
         self.sessions = None
+        if session_replication:
+            from .sessions import SessionFederation
+            self.sessions = SessionFederation(
+                self, sync=session_sync,
+                sync_timeout_ms=session_sync_timeout_ms,
+                takeover_timeout_ms=session_takeover_timeout_ms,
+                replica_expiry_s=replica_expiry_s)
+            broker.add_hook(self.sessions)
         # cluster observability plane (ADR 017): telemetry gossip,
         # clock-skew probes, and the trace span-return leg. Always
         # constructed — skew/trace handling have no periodic cost;

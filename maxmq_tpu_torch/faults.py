@@ -10,7 +10,8 @@ record that fails to restore, a journal write or group commit that
 fails, a disk that errors, fills, fails its fsync or stalls under the
 journal (``hooks/faultstore.py``), the named crash points, and the
 cluster federation's sites: a bridge link that fails to connect, a route
-apply that fails, and the directed network partitions (``partition``,
+apply that fails, a session replication send or apply and a takeover's
+state handoff that fail or hang, and the directed network partitions (``partition``,
 ``heal``) and WAN link shapes (``ShapeSpec``, ``shape``, ``unshape``)
 between nodes. Sites cost one dict lookup on an (almost always) empty
 dict when nothing is armed.
@@ -71,6 +72,10 @@ CLUSTER_SHAPE = "cluster.shape"        # directed inter-node WAN link
                                        # shape (keyed "src->dst": delay/
                                        # jitter/rate/loss, not binary)
 CLUSTER_LINK = "cluster.link"          # bridge link connect/pump
+CLUSTER_SESSION_SYNC = "cluster.session_sync"  # session replication send/
+                                       # apply (keyed per peer)
+CLUSTER_TAKEOVER = "cluster.takeover"  # CONNECT takeover/state handoff
+                                       # (keyed per prior owner)
 CLUSTER_ROUTE_APPLY = "cluster.route_apply"  # route snapshot/delta apply
 FILTER_EVAL = "filter.eval"            # content-plane batch evaluation
                                        # (trips fail OPEN: the flush

@@ -20,9 +20,8 @@ ladder, fan-out ledger, content plane, matcher and tracer) and the
 matcher-side registrations (the supervisor's fallbacks and breaker, the
 service client's transport, the pool, the signature engine's kernel
 widths), and the cluster manager's registrations (the federation's
-routes, forwards, links and peers, and its telemetry plane). The
-federated sessions' registrations come with the port's federated
-sessions.
+routes, forwards, links and peers, its federated sessions and its
+telemetry plane).
 """
 
 from __future__ import annotations
@@ -657,6 +656,71 @@ def _register_cluster_metrics(registry: Registry, broker) -> None:
         "cardinality bound",
         lambda: _member_series(lambda st: st.rtt_ns / 1e6))
     _register_telemetry_metrics(registry, mgr)
+    _register_session_metrics(registry, mgr)
+
+
+def _register_session_metrics(registry: Registry, mgr) -> None:
+    """ADR-016 federated-session observability: ledger size, takeover
+    outcomes (incl. every degradation rung), replication-barrier
+    health, and the cluster-wide $share group count."""
+    sess = getattr(mgr, "sessions", None)
+    if sess is None:
+        return
+    for name, attr, help_ in (
+            ("ledger", "ledger_size",
+             "Sessions tracked in the cluster ledger (local + remote)"),
+            ("local", "local_sessions",
+             "Sessions this node currently owns"),
+            ("share_groups", "share_groups",
+             "Cluster-wide $share (group, filter) pairs with live "
+             "members")):
+        registry.gauge_func(f"maxmq_cluster_session_{name}", help_,
+                            lambda a=attr: getattr(sess, a))
+    for name, help_ in (
+            ("takeovers", "Remote sessions taken over locally at "
+             "CONNECT (epoch-fenced)"),
+            ("takeovers_degraded", "Takeovers degraded to fresh-"
+             "session-with-counted-loss (fault/partition)"),
+            ("takeovers_stale", "Takeovers that timed out pulling "
+             "fresh state and installed the replicated ledger copy"),
+            ("sessions_lost", "Local sessions claimed away by a "
+             "higher fencing token (client got SessionTakenOver)"),
+            ("state_transfers", "Full session-state handoffs received "
+             "during takeover"),
+            ("claims_rejected", "Stale claims fenced off by a higher "
+             "local token"),
+            ("purges", "Cluster-wide session purges applied"),
+            ("relays", "Session messages relayed onward (transitive "
+             "replication)"),
+            ("sync_flushes", "Replication flushes put on the wire"),
+            ("sync_ops", "Inflight-record replication ops sent"),
+            ("sync_acks", "Replication messages acknowledged by peers"),
+            ("sync_degraded", "Replication barriers released without "
+             "full peer durability (lag/partition/timeout)"),
+            ("sync_timeouts", "Replication barriers released by the "
+             "sync timeout"),
+            ("sync_faults", "Injected cluster.session_sync faults "
+             "tripped"),
+            ("sync_send_failures", "Session messages a link refused "
+             "to enqueue"),
+            ("sync_resyncs", "Per-link resyncs healing a refused "
+             "replication send on a live link"),
+            ("sync_barrier_waits", "Publisher acks that waited on a "
+             "replication barrier"),
+            ("digest_mismatches", "Takeovers whose installed inflight "
+             "window disagreed with the owner's digest"),
+            ("restore_errors", "Ledger journal rows that failed to "
+             "parse at restore"),
+            ("trace_ops_applied", "Replicated inflight ops applied "
+             "that carried ADR-017 trace identity"),
+            ("replica_expiries", "Dead-owner replicas purged by the "
+             "replica-side expiry timer (ADR 018)"),
+            ("wills_fired", "Transferred wills fired here for a dead "
+             "owner's sessions (ADR 018)"),
+            ("wills_cleared", "Replica wills cleared by a peer's "
+             "willfire broadcast (the exactly-once stand-down)")):
+        registry.counter_func(f"maxmq_cluster_session_{name}_total",
+                              help_, lambda n=name: getattr(sess, n))
 
 
 def _register_telemetry_metrics(registry: Registry, mgr) -> None:

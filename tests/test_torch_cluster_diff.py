@@ -10,7 +10,11 @@ CPU, in process over local TCP, from numpy seeds:
 - a mixed pair: one port node peered with one JAX-package node (either
   way round) against an all-JAX pair. The brokers share no object, only
   bytes on the socket, so this holds the ``$cluster/*`` wire compatible:
-  routes and forwards go both ways.
+  routes and forwards go both ways, and so do the federated sessions'
+  replication and a live takeover.
+Every run has its federated sessions at the default configuration and,
+after its traffic, a live session takeover (``takeover``) with more
+traffic after it.
 
 Each run is ``chip_smoke.fed_in_process``: the subscribers are
 ``subscriber_plan``'s raw TCP clients spread over the nodes (no '#' probe,
@@ -45,10 +49,16 @@ def assert_same(got: dict, want: dict, what: str) -> None:
 @pytest.mark.parametrize("seed", [11, 12])
 async def test_line_port_equals_jax_on_tries(seed):
     want = await run_federation(FED_LINE, dict.fromkeys(FED_LINE, JAX), seed,
-                                ("A", "C"))
+                                ("A", "C"), takeover=("B", "C", 4))
     got = await run_federation(FED_LINE, dict.fromkeys(FED_LINE, TRIE), seed,
-                               ("A", "C"))
+                               ("A", "C"), takeover=("B", "C", 4))
     assert_same(got, want, "port line vs JAX line")
+    # four of B's subscribers taken over live at C: the same session
+    # counters as the JAX line's, the taken-over clients' frames at both
+    # nodes equal (in ``frames``)
+    assert got["takeover"]["sessions"] == want["takeover"]["sessions"]
+    assert got["takeover"]["sessions"]["C"]["takeovers"] == 4
+    assert sum(1 for c in got["frames"] if c.endswith("@B")) == 4
     # C's publishes reached A over two hops through B, which relayed them
     assert got["forwards"]["B"]["forwards_sent"] > 0
     assert got["forwards"]["A"]["forwards_delivered"] > 0
@@ -60,10 +70,11 @@ test_line_port_equals_jax_on_tries._async_timeout = 150
 @pytest.mark.parametrize("seed", [21])
 async def test_line_sig_on_cpu_equals_trie(seed):
     want = await run_federation(FED_LINE, dict.fromkeys(FED_LINE, TRIE), seed,
-                                ("A", "C"))
+                                ("A", "C"), takeover=("B", "C", 4))
     got = await run_federation(FED_LINE, dict.fromkeys(FED_LINE, SIG), seed,
-                               ("A", "C"))
+                               ("A", "C"), takeover=("B", "C", 4))
     assert_same(got, want, "port sig line vs port trie line")
+    assert got["takeover"]["matchers"]["C"]["batches"] > 0
     # the host bypass is off: the engine answered every node's batches,
     # B's forwarded publishes included
     for node in FED_LINE:
@@ -79,11 +90,16 @@ async def test_mixed_pair_equals_a_jax_pair(port_node):
     """One port node and one JAX node over TCP: routes and forwards go
     both ways, and the frames equal an all-JAX pair's."""
     want = await run_federation(PAIR, dict.fromkeys(PAIR, JAX), 31,
-                                ("A", "B"))
+                                ("A", "B"), takeover=("A", "B", 3))
     specs = dict.fromkeys(PAIR, JAX)
     specs[port_node] = TRIE
-    got = await run_federation(PAIR, specs, 31, ("A", "B"))
+    got = await run_federation(PAIR, specs, 31, ("A", "B"),
+                               takeover=("A", "B", 3))
     assert_same(got, want, f"mixed pair (port {port_node}) vs JAX pair")
+    # A's subscribers taken over live at B across the two packages: the
+    # claim, the state pull and the install go over the session wire
+    assert got["takeover"]["sessions"] == want["takeover"]["sessions"]
+    assert got["takeover"]["sessions"]["B"]["takeovers"] == 3
     for node in PAIR:
         assert got["forwards"][node]["forwards_sent"] > 0
         assert got["forwards"][node]["forwards_delivered"] > 0

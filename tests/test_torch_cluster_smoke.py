@@ -12,12 +12,15 @@ from maxmq_tpu.cluster.routes import minimal_cover
 
 FED_CPU_SIZES = {"subs": {"mixed_100k": 3_000},
                  "federation": {"corpus": "mixed_100k", "clients": 16,
-                                "publishes": 256, "rung_publishes": 64,
+                                "publishes": 256, "takeover_publishes": 64,
+                                "rung_publishes": 64, "rung_burst": 8,
+                                "takeovers": 4,
                                 "burst": 64, "max_batch": 4_096,
                                 "boot_s": 150.0, "stop_s": 30.0,
                                 "converge_s": 60.0, "telemetry_s": 15.0,
                                 "in_process": {"subs": 3_000, "clients": 16,
-                                               "publishes": 128, "burst": 64},
+                                               "publishes": 128, "burst": 64,
+                                               "takeovers": 4},
                                 "device_share": 0.5}}
 
 
@@ -35,7 +38,20 @@ def test_federation_phase_rehearses_on_cpu():
     assert set(out["rung"]["boot"]) == {"trie-B", "card-B"}
     assert all(len(v) == 3 for v in out["telemetry"].values())
     for node, counts in out["stores"].items():
-        assert counts["clients"] > 1_000 and counts["inflight"] > 0, node
+        assert counts["clients"] > 900 and counts["inflight"] > 0, node
+        # every node's ledger journal holds every session of the line
+        assert counts["cluster_sessions"] >= out["ledger_sessions"], node
+        assert counts["cluster_inflight"] > 0, node
+    # both takeover rungs: B's sessions taken over live at C and from the
+    # dead owner at A, equal between the federations, none degraded
+    assert out["takeovers"] == {"live": 4, "dead_owner": 4}
+    assert out["takeover"]["resent_compared"] > 0
+    assert out["rung"]["takeover"]["resent_compared"] > 0
+    for run in (out["converge"], out["rung"]["converge"]):
+        assert run["ledger_s"] >= 0 and run["converge_s"] >= 0
+    assert sum(c["takeovers"] for c in out["sessions"].values()) == 8
+    assert not any(c["takeovers_degraded"] or c["digest_mismatches"]
+                   for c in out["sessions"].values())
     # the sampled latencies reached /metrics, and the in-process line's
     # engines answered every node's topics with the bypass off
     lat = out["traffic"]["nodes"]["A"]["latency_ms"]["card"]
@@ -43,6 +59,12 @@ def test_federation_phase_rehearses_on_cpu():
     assert out["in_process"]["deliveries_compared"] > 100
     for node, counts in out["in_process"]["nodes"].items():
         assert counts["device_share"] > 0.5, (node, counts)
+    # the in-process line's live takeover: the new owner's engine served
+    # the taken-over sessions' publishes
+    tk = out["in_process"]["takeover"]
+    assert tk["sessions"]["C"]["takeovers"] == 4
+    assert tk["matchers"]["C"]["batches"] > 0
+    assert out["in_process"]["taken_over_frames"] > 0
 
 
 def test_fed_plan_spreads_the_subscribers_and_probes():
@@ -56,7 +78,7 @@ def test_fed_plan_spreads_the_subscribers_and_probes():
     assert [(n, c, [s.filter for s in subs]) for n, c, _v, _a, _o, subs
             in fed[7:]] == [(n, f"tcp-probe-{n}", ["#"]) for n in "ABC"]
     assert len(chip_smoke.fed_plan(kit, plan, probes=False)) == 7
-    assert "cluster_session_replication = false" in chip_smoke.fed_config(
+    assert "cluster_session" not in chip_smoke.fed_config(
         "B", {"A": 1, "B": 2, "C": 3})
     assert 'cluster_peers = "A@127.0.0.1:1,C@127.0.0.1:3"' in \
         chip_smoke.fed_config("B", {"A": 1, "B": 2, "C": 3})

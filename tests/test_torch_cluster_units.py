@@ -8,7 +8,7 @@ streams, ``ShareLedger`` owners in pin and weighted modes, ``DedupWindow``,
 ``Membership``, ``parse_peers`` and ``valid_node_id`` with their errors,
 the fault registry's WAN shapes (``ShapeSpec`` draws and departures) and
 the keys ``partition``, ``heal``, ``shape`` and ``unshape`` arm, and the
-manager's refusal of federated sessions."""
+manager's session federation, attached with the reference's settings."""
 
 import numpy as np
 import pytest
@@ -406,27 +406,52 @@ def test_shape_and_unshape_arm_the_reference_keys(seed, both_registries):
     assert not t_faults.any_shaped()
 
 
-# -- the manager's refusal ---------------------------------------------------------
+# -- the manager's session federation -----------------------------------------
+
+
+def scalars(obj) -> dict:
+    return {k: v for k, v in vars(obj).items()
+            if isinstance(v, (int, float, str))}
 
 
 def test_manager_refuses_federated_sessions():
-    """Session replication (the reference's default) fails at
-    construction, naming the next slice; bad identities fail first, as in
-    the reference; with replication off the manager holds no sessions."""
-    broker = Broker(BrokerOptions(device="cpu"))
-    with pytest.raises(NotImplementedError, match="slice 13"):
-        ClusterManager(broker, "n1", [PeerSpec("n2", "h", 1)])
+    """Bad identities and settings fail first, as in the reference; session
+    replication (the reference's default) attaches the port's
+    ``SessionFederation`` as a broker hook with the reference's settings
+    (sync policy, timeouts, replica expiry, every counter), and with
+    replication off the manager holds no sessions."""
+    from maxmq_tpu_torch.cluster import SessionFederation
+
     with pytest.raises(ValueError):
-        ClusterManager(broker, "has/slash", [])
+        ClusterManager(Broker(BrokerOptions(device="cpu")), "has/slash", [])
     with pytest.raises(ValueError):
-        ClusterManager(broker, "n1", [], fwd_durability="sometimes")
-    mgr = ClusterManager(broker, "n1", [PeerSpec("n2", "h", 1)],
-                         session_replication=False)
-    assert mgr.sessions is None and not mgr.fwd_coupled
+        ClusterManager(Broker(BrokerOptions(device="cpu")), "n1", [],
+                       fwd_durability="sometimes")
+    with pytest.raises(ValueError):
+        ClusterManager(Broker(BrokerOptions(device="cpu")), "n1", [],
+                       session_sync="sometimes")
+    for kw in ({}, {"session_sync": "always", "session_sync_timeout_ms": 90,
+                    "session_takeover_timeout_ms": 40,
+                    "replica_expiry_s": 7.5}):
+        broker = Broker(BrokerOptions(device="cpu"))
+        mgr = ClusterManager(broker, "n1", [PeerSpec("n2", "h", 1)], **kw)
+        jbroker = JBroker()
+        ref = j_manager.ClusterManager(
+            jbroker, "n1", [j_members.PeerSpec("n2", "h", 1)], **kw)
+        assert isinstance(mgr.sessions, SessionFederation)
+        assert mgr.sessions in broker.hooks
+        assert [type(h).__name__ for h in broker.hooks] == \
+            [type(h).__name__ for h in jbroker.hooks]
+        assert {k: v for k, v in scalars(mgr.sessions).items()
+                if k not in ("relays_held", "relays_dropped")} == \
+            scalars(ref.sessions)
+        assert mgr.sessions.relays_held == mgr.sessions.relays_dropped == 0
+        assert scalars(mgr) == scalars(ref)
+        assert mgr.fwd_coupled == ref.fwd_coupled
+    mgr = ClusterManager(Broker(BrokerOptions(device="cpu")), "n1",
+                         [PeerSpec("n2", "h", 1)], session_replication=False)
     ref = j_manager.ClusterManager(JBroker(), "n1",
                                    [j_members.PeerSpec("n2", "h", 1)],
                                    session_replication=False)
-    assert ({k: v for k, v in vars(mgr).items() if isinstance(v, (int, float,
-                                                                  str))}
-            == {k: v for k, v in vars(ref).items()
-                if isinstance(v, (int, float, str))})
+    assert mgr.sessions is None and not mgr.fwd_coupled
+    assert scalars(mgr) == scalars(ref)

@@ -540,13 +540,17 @@ def test_start_on_card_serves_publishes(cuda_card, tmp_path):
 
 @pytest.mark.gpu
 def test_federation_sig_on_card_matches_trie_federation(cuda_card):
-    """Two port brokers federated in process over TCP (federated sessions
-    off): every node's ``build_matcher`` sig stack on the card, its host
-    bypass off, against the same pair on its tries; each subscriber's
-    frames, each node's forward counters and retained set equal; every
-    card node matched in batches with nothing bypassed, and K1 launched
-    at least once for each batch, so K1 answered the forwarded publishes
-    the frames hold."""
+    """Two port brokers federated in process over TCP, their federated
+    sessions at the default configuration: every node's ``build_matcher``
+    sig stack on the card, its host bypass off, against the same pair on
+    its tries; four of A's subscribers taken over live at B after the
+    traffic (session present, their parked window resent), more traffic
+    after it; each subscriber's frames (the taken-over ones' at both
+    nodes), each node's forward counters and retained set equal; no
+    takeover degraded; every card node matched in batches with nothing
+    bypassed, and K1 launched at least once for each batch, before the
+    takeover and after it, so K1 answered the forwarded publishes and the
+    taken-over sessions' publishes the frames hold."""
     import asyncio
 
     from maxmq_tpu_torch import cluster
@@ -557,15 +561,25 @@ def test_federation_sig_on_card_matches_trie_federation(cuda_card):
     def run(matcher):
         return asyncio.run(chip_smoke.fed_in_process(
             pair, dict.fromkeys(pair, (bk, cluster, matcher, None)), 41,
-            ("A", "B"), n_subs=3_000, publishes=1_024, burst=256))
+            ("A", "B"), n_subs=3_000, publishes=1_024, burst=256,
+            takeover=("A", "B", 4)))
 
     got, want = run("sig"), run(None)
     for key in ("frames", "forwards", "retained", "expected_routes"):
         assert got[key] == want[key], key
     assert sum(len(v) for v in got["frames"].values()) > 200
+    assert sum(1 for c in got["frames"] if c.endswith("@A")) == 4
+    tk = got["takeover"]
+    assert tk["sessions"]["B"]["takeovers"] == 4
+    assert not any(c["takeovers_degraded"] or c["digest_mismatches"]
+                   for c in tk["sessions"].values()), tk
+    assert tk["matchers"]["B"]["batches"] > 0
+    for run_ in (got, tk):
+        for node, counts in run_["matchers"].items():
+            assert not counts["bypassed_topics"], (node, counts)
+            assert not any(v for k, v in counts.items()
+                           if k.startswith("hedges_")), (node, counts)
+        assert run_["k1_launches"] >= sum(c["batches"] for c in
+                                          run_["matchers"].values()), run_
     for node, counts in got["matchers"].items():
-        assert counts["batches"] > 0 and not counts["bypassed_topics"], node
-        assert not any(v for k, v in counts.items()
-                       if k.startswith("hedges_")), (node, counts)
-    assert got["k1_launches"] >= sum(c["batches"] for c in
-                                     got["matchers"].values()), got
+        assert counts["batches"] > 0, node

@@ -425,14 +425,15 @@ def test_start_path_stands_alone(tmp_path):
 
 
 CLUSTER_MODULES = ("__init__", "membership", "routes", "bridge", "telemetry",
-                   "manager")
+                   "manager", "sessions")
 
 
 def test_cluster_package_stands_alone():
     """The cluster federation's modules exist in the port, are in the AST
     scan's reach, and two port brokers federate in a fresh interpreter
-    (a publish crosses the bridge link) without JAX or the JAX package
-    being imported."""
+    with their federated sessions on (a publish crosses the bridge link,
+    and the subscriber's session is taken over at the other node) without
+    JAX or the JAX package being imported."""
     for m in CLUSTER_MODULES:
         path = PACKAGE / "cluster" / f"{m}.py"
         assert path.is_file(), m
@@ -459,10 +460,10 @@ def test_cluster_package_stands_alone():
             for n, p in (("A", "B"), ("B", "A")):
                 mgr = ClusterManager(
                     brokers[n], n, [PeerSpec(p, "127.0.0.1", ports[p])],
-                    session_replication=False, backoff_initial_s=0.05)
+                    backoff_initial_s=0.05)
                 brokers[n].attach_cluster(mgr)
                 await mgr.start()
-            sub = MQTTClient(client_id="s")
+            sub = MQTTClient(client_id="s", clean_start=False)
             await sub.connect("127.0.0.1", ports["B"])
             await sub.subscribe("iso/#")
             for _ in range(400):
@@ -473,6 +474,16 @@ def test_cluster_package_stands_alone():
             await pub.connect("127.0.0.1", ports["A"])
             await pub.publish("iso/x", b"ok")
             print("GOT", (await sub.next_message(timeout=10)).payload)
+            await sub.disconnect()
+            for _ in range(400):
+                if "s" in brokers["B"].cluster.sessions.ledger:
+                    break
+                await asyncio.sleep(0.025)
+            again = MQTTClient(client_id="s", clean_start=False)
+            await again.connect("127.0.0.1", ports["A"])
+            print("PRESENT", again.connack.session_present,
+                  brokers["A"].cluster.sessions.takeovers)
+            await again.disconnect()
             for b in brokers.values():
                 await b.close()
 
@@ -487,4 +498,5 @@ def test_cluster_package_stands_alone():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "GOT b'ok'" in proc.stdout, proc.stdout
+    assert "PRESENT True 1" in proc.stdout, proc.stdout
     assert "FORBIDDEN []" in proc.stdout, proc.stdout

@@ -9,7 +9,8 @@ shim (``hooks/faultstore.py``) held against the JAX package's, on the CPU:
   the test): after every step the backend's contents, the overlay reads,
   which barriers resolved, the breaker's state and every counter are equal;
 - the reference's own journal scenarios, ``tests/test_disk_faults.py``
-  (all but the cluster mesh case, which needs cluster mode) and the journal
+  (all 14, the session-replication crash point on a two-node mesh and the
+  registry-versus-call-sites check included) and the journal
   cases of ``tests/test_storage.py`` (from ``:262``), loaded with the port's
   package in place of the JAX package's, each with its own assertions.
 """
@@ -185,12 +186,7 @@ def test_fault_sites_equal_the_reference():
 # -- the reference's scenarios -----------------------------------------------
 
 DISK = port_module("test_disk_faults.py", "torch_port_disk_faults")
-# the mesh case needs federated sessions (the next port slice); the
-# registry-versus-call-sites case is held below against the port's own
-# call sites
-DISK_CASES = scenario_cases(
-    DISK, 1, 455, skip=("test_replica_flush_crash_point_trips_on_mesh",
-                        "test_crash_point_registry_matches_call_sites"))
+DISK_CASES = scenario_cases(DISK, 1, 455)
 SYSTEM = port_module("test_broker_system.py", "torch_port_broker_system")
 STORAGE = port_module(
     "test_storage.py", "torch_port_storage",
@@ -201,7 +197,7 @@ STORAGE_CASES = scenario_cases(STORAGE, 262, 630)
 
 
 def test_every_journal_scenario_is_ported():
-    assert len(DISK_CASES) == 12 and len(STORAGE_CASES) == 15
+    assert len(DISK_CASES) == 14 and len(STORAGE_CASES) == 15
 
 
 @pytest.fixture
@@ -238,12 +234,12 @@ async def test_storage_journal_scenario_on_the_port(name, kwargs, tmp_path,
 
 def test_crash_points_have_call_sites_in_the_port():
     """The reference's registry-versus-call-sites check on the port: every
-    crash point but the cluster's session-replication flush (federated
-    sessions are not ported yet) has a call site, and every call site is
+    crash point has a call site (the session-replication flush in
+    ``cluster/sessions.py`` included), and every call site is
     registered."""
     called = set()
     for py in Path(port_faults.__file__).parent.rglob("*.py"):
         if py.name != "faults.py":
             called |= set(re.findall(r'crash_point\(\s*"([a-z_]+)"',
                                      py.read_text()))
-    assert called == set(port_faults.CRASH_POINTS) - {"replica_flush"}
+    assert called == set(port_faults.CRASH_POINTS)

@@ -190,13 +190,23 @@ async def test_build_broker_wiring_equals_the_reference(name, tmp_path):
 
 
 async def test_build_broker_refuses_cluster_and_the_engine_device():
-    """Cluster mode fails at start naming its slice; a device engine with
-    no device named and no CUDA raises instead of taking the CPU."""
+    """Cluster mode at the default config builds the manager with its
+    session federation, as the reference's does; a device engine with no
+    device named and no CUDA raises instead of taking the CPU."""
     import torch
 
-    with pytest.raises(NotImplementedError, match="slice 13"):
-        t_boot.build_broker(conf_of("port", mqtt_tcp_address="",
-                                    cluster_node_id="n1"), quiet("port"))
+    got = {}
+    for pkg in PKGS:
+        b = build(pkg, conf_of(pkg, mqtt_tcp_address="", matcher="trie",
+                               cluster_node_id="n1",
+                               cluster_peers="n2@127.0.0.1:1"))
+        sess = b.cluster.sessions
+        assert sess is not None and sess in b.hooks
+        got[pkg] = (type(sess).__name__, sess.sync, sess.sync_timeout,
+                    sess.takeover_timeout, sess.replica_expiry,
+                    b.cluster.fwd_coupled)
+    assert got["port"] == got["ref"]
+    assert got["port"][1] == "batched"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             t_boot.build_broker(conf_of("port", mqtt_tcp_address="",
@@ -207,7 +217,7 @@ async def test_worker_pool_fails_at_start(monkeypatch):
     for env, kw in ((None, {"workers": 2}), ("3", {})):
         if env is not None:
             monkeypatch.setenv("MAXMQ_WORKER_ID", env)
-        with pytest.raises(NotImplementedError, match="slice 13"):
+        with pytest.raises(NotImplementedError, match="slice 13b"):
             await t_boot.run_server(conf_of("port", **kw), quiet("port"),
                                     device="cpu")
 
@@ -288,8 +298,9 @@ test_start_session_on_the_port._async_timeout = 150
 async def test_server_started_line_names_the_device(tmp_path):
     """The start line names where matching runs and the boot's restore and
     compile seconds; a broker built for the CPU registers the kernel
-    launch counters and the batcher's batched topics and shadow probes
-    beside the reference's families."""
+    launch counters, the batcher's batched topics and shadow probes, the
+    engine's tables lag (0 after the boot compile), its refresh flag and
+    the process's collection pauses beside the reference's families."""
     import io
 
     buf = io.StringIO()
@@ -313,7 +324,13 @@ async def test_server_started_line_names_the_device(tmp_path):
     names = {n for n, _l in chip_smoke.metric_series(full.registry.expose())}
     assert names - base == {"maxmq_matcher_kernel_launches_total",
                             "maxmq_matcher_batched_topics_total",
-                            "maxmq_matcher_shadow_probes_total"}
+                            "maxmq_matcher_shadow_probes_total",
+                            "maxmq_matcher_tables_behind",
+                            "maxmq_matcher_refreshing",
+                            "maxmq_matcher_gc_paused_seconds_total",
+                            "maxmq_matcher_gc_full_collections_total"}
+    page = chip_smoke.metric_series(full.registry.expose())
+    assert chip_smoke.metric(page, "maxmq_matcher_tables_behind") == 0
     assert t_boot.matcher_device(out[0]) == "cpu"
 
 
@@ -828,12 +845,14 @@ async def wait_until(pred, timeout: float, what: str) -> None:
 
 
 async def test_start_children_run_a_federation(tmp_path):
-    """Two ``start --device cpu`` children peered over TCP with
-    ``cluster_session_replication = false``: each builds its manager
-    (the reference's ``test_bootstrap_builds_cluster_from_config``, as a
+    """Two ``start --device cpu`` children peered over TCP at the default
+    ``cluster_session_replication = true``: each builds its manager (the
+    reference's ``test_bootstrap_builds_cluster_from_config``, as a
     process), a publish on A reaches a subscriber on B, each serves
     ``/cluster/metrics`` with both nodes' series after a telemetry
-    interval, and both exit 0 on SIGTERM."""
+    interval, the subscriber's session is taken over at A with
+    session-present = 1 and its subscription serving there, and both exit
+    0 on SIGTERM."""
     import urllib.request
 
     from maxmq_tpu_torch.mqtt_client import MQTTClient
@@ -847,7 +866,6 @@ async def test_start_children_run_a_federation(tmp_path):
             procs[node], _p = start_child(
                 d, f'cluster_node_id = "{node}"\n'
                    f'cluster_peers = "{peer}@127.0.0.1:{ports[peer]}"\n'
-                   "cluster_session_replication = false\n"
                    "cluster_telemetry_interval_s = 0.5\n"
                    "cluster_link_keepalive = 0.5\n",
                 port=ports[node])
@@ -864,7 +882,7 @@ async def test_start_children_run_a_federation(tmp_path):
         for node in "AB":
             await wait_until(lambda n=node: "maxmq_cluster_links_up 1"
                              in page(n, "/metrics"), 90, f"{node} links")
-        sub = MQTTClient(client_id="fed-sub")
+        sub = MQTTClient(client_id="fed-sub", clean_start=False)
         await sub.connect("127.0.0.1", ports["B"])
         await sub.subscribe(("fed/#", 1))
         await wait_until(lambda: "maxmq_cluster_routes_held 1"
@@ -878,8 +896,20 @@ async def test_start_children_run_a_federation(tmp_path):
                 lambda n=node: all(f'node="{m}"' in page(n, "/cluster/metrics")
                                    for m in "AB"), 30, f"{node} telemetry")
         assert "maxmq_cluster_forwards_sent_total 1" in page("A", "/metrics")
-        await pub.disconnect()
         await sub.disconnect()
+        await wait_until(lambda: "maxmq_cluster_session_ledger 2"
+                         in page("A", "/metrics"), 30, "A's ledger")
+        again = MQTTClient(client_id="fed-sub", clean_start=False)
+        await again.connect("127.0.0.1", ports["A"])
+        assert again.connack.session_present is True
+        await pub.publish("fed/y", b"taken over", qos=1)
+        assert (await again.next_message(timeout=10)).payload == \
+            b"taken over"
+        metrics_a = page("A", "/metrics")
+        assert "maxmq_cluster_session_takeovers_total 1" in metrics_a
+        assert "maxmq_cluster_session_takeovers_degraded_total 0" in metrics_a
+        await pub.disconnect()
+        await again.disconnect()
         for node in "AB":
             procs[node].send_signal(signal.SIGTERM)
         for node in "AB":
@@ -930,7 +960,6 @@ async def test_federated_exposition_equals_the_reference():
                     pkg, mqtt_tcp_address=f"127.0.0.1:{ports[node]}",
                     matcher="trie", cluster_node_id=node,
                     cluster_peers=f"{peer}@127.0.0.1:{ports[peer]}",
-                    cluster_session_replication=False,
                     cluster_link_keepalive=0.5)
                 nodes[node] = build(pkg, conf)
                 assert nodes[node].cluster.node_id == node
@@ -973,28 +1002,78 @@ async def test_federated_exposition_equals_the_reference():
 test_federated_exposition_equals_the_reference._async_timeout = 120
 
 
+async def serves_as_a_federated_node(proc, port: int) -> None:
+    """A ``start`` child at the default ``cluster_session_replication =
+    true`` with its one peer down: it accepts, a persistent session enters
+    its ledger (``/metrics``), and it exits 0 on SIGTERM."""
+    import urllib.request
+
+    from maxmq_tpu_torch.mqtt_client import MQTTClient
+
+    def page() -> str:
+        url = f"http://127.0.0.1:{proc.metrics_port}/metrics"
+        try:
+            with urllib.request.urlopen(url, timeout=10) as r:
+                return r.read().decode()
+        except OSError:
+            return ""
+
+    await wait_until(lambda: proc.poll() is not None
+                     or "maxmq_cluster_session_ledger 0" in page(), 90,
+                     "the node's /metrics")
+    assert proc.poll() is None, proc.communicate(timeout=10)
+    deadline = time.monotonic() + 60
+    while True:
+        try:
+            _r, w = await asyncio.open_connection("127.0.0.1", port)
+            w.close()
+            break
+        except OSError:
+            assert time.monotonic() < deadline, "never accepted"
+            await asyncio.sleep(0.1)
+    c = MQTTClient(client_id="fed-one", clean_start=False)
+    await c.connect("127.0.0.1", port)
+    await c.subscribe(("one/#", 1))
+    await wait_until(lambda: "maxmq_cluster_session_local 1" in page(), 30,
+                     "the session in the ledger")
+    await c.disconnect()
+    proc.send_signal(signal.SIGTERM)
+
+
 @pytest.mark.parametrize("case", ["no_device", "cluster", "workers"])
-def test_start_child_refuses(case, tmp_path):
+async def test_start_child_refuses(case, tmp_path):
+    """Without CUDA and without ``--device`` start exits 2; the worker pool
+    still refuses, naming slice 13b; a cluster node at the default config
+    (federated sessions on) now serves."""
     import torch
 
+    want_rc = 0
     if case == "no_device":
         if torch.cuda.is_available():
             pytest.skip("a card is present: start would run on it")
         proc, _p = start_child(tmp_path, args=())
         want_rc, want = 2, "no CUDA device is available"
     elif case == "cluster":
-        proc, _p = start_child(tmp_path, 'cluster_node_id = "n1"\n')
-        want_rc, want = 1, "slice 13"
+        proc, port = start_child(
+            tmp_path, 'cluster_node_id = "n1"\n'
+                      f'cluster_peers = "n2@127.0.0.1:'
+                      f'{chip_smoke.free_port()}"\n')
+        want = "server stopped"
     else:
         proc, _p = start_child(tmp_path, "workers = 2\n")
-        want_rc, want = 1, "slice 13"
+        want_rc, want = 1, "slice 13b"
     try:
+        if case == "cluster":
+            await serves_as_a_federated_node(proc, port)
         _out, err = proc.communicate(timeout=90)
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.communicate(timeout=30)
     assert proc.returncode == want_rc and want in err, err[-2000:]
+
+
+test_start_child_refuses._async_timeout = 200
 
 
 # -- the reference's SIGKILL drills on the port --------------------------------
