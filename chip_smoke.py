@@ -239,7 +239,40 @@ Phases, each of which raises on failure:
    at C included), forward counters and retained sets equal, every card
    node at least half its topics on the device and K1 launched once a
    batch or more, before the takeover and after it;
-17. each kernel's SASS opcode counts (``cuobjdump -sass``, where the
+17. the worker pool (run after phase 16, before phase 12): phase 15's
+   store, each session with its ledger row as the pool's journal owner w0
+   writes it (F28), copied for two pools started as ``python -m
+   maxmq_tpu_torch start`` with ``workers = 2`` (phase 15's settings,
+   each pool its own ``worker_link_dir`` and ``pool_metrics_address``,
+   the tracer sampling every 32nd inbound publish, every other pool
+   setting the default), booted at once: the card pool (``matcher =
+   "sig"``, no ``--device``: the parent's matcher sidecar on the card,
+   the workers its ``matcher = "service"`` clients) and the trie pool
+   (``--device cpu``). w0 restores the store; the phase awaits w1's
+   ledger (w0's resync acked), resumes the compared subscribers through
+   the pool's one port, each on worker ``k % 2`` in both pools (a
+   connection that SO_REUSEPORT hands the other worker is closed before
+   its CONNECT: ``$share`` picks depend on the members' workers, F29),
+   awaits the routes and the sidecar's tables (it refreshes as the
+   reseed arrives, F27), places the v5 publisher on w0 and the v3.1.1 one
+   on w1, and sends phase 15's 1,024 publishes in fenced bursts of 768,
+   trie pool first. Every subscriber's frames equal (without the
+   ``mq-trace`` property, F20); the sidecar's answers to the traffic's
+   topics (one OP_MATCH request on its socket, after the traffic) equal
+   to the CPU trie's; both workers nodes on ``/cluster/metrics`` and only
+   w0 with the journal's series; ``nvidia-smi`` lists no worker and not
+   the trie pool's parent among the card's holders; no hedge, trip or
+   degrade at w0 (its ``/metrics``) or at any worker over its life (its
+   ``pool worker stopping`` line), no K1 launch in a worker; on the card
+   K1 launches that served publishes (the sidecar's, less its shadow
+   probes, from the pool endpoint); SIGTERM stops each pool, every
+   worker with rc 0 and no socket left; the two w0 stores equal record
+   for record, the ledger and replica buckets included (w1's boot epoch
+   left out: it keeps no store). Printed: the boot split, the ledger's,
+   the routes' and the sidecar's convergence, the sidecar's launches
+   (served, shadow), batches and bypassed topics and the card's share,
+   w0's match p50 / p99 and commits, deliveries/s, stop seconds;
+18. each kernel's SASS opcode counts (``cuobjdump -sass``, where the
    toolkit has it), the kernels line (JSON), the card line, and the
    result line.
 
@@ -258,8 +291,10 @@ and reads them after; its launches ride the kernels line under
 count over the traffic, from its ``/metrics``) under ``started_launches``,
 and phase 16's card nodes' (each child's count over its four traffic
 runs) under ``federation_launches``, with the takeover rungs' served
-launches and the in-process takeover's under ``takeover_launches``. The dense and NFA decodes are Python, as the
-reference's.
+launches and the in-process takeover's under ``takeover_launches``, and
+phase 17's card pool's sidecar's (its parent's count over the traffic,
+from the pool endpoint) under ``pool_launches`` (served, and shadow
+probes). The dense and NFA decodes are Python, as the reference's.
 The corpora are made here from seed 42 (a copy of the benchmark's corpus
 generator, and the ``dense_2k`` generator); the script imports nothing
 of the JAX package.
@@ -332,11 +367,14 @@ WATCHDOG_S = 1_100
 # queue) and the burst after B's restart (64 fenced bursts: each card
 # node forms 64 batches at least, so its shadow probe launches K1), the
 # nodes' ``matcher_max_batch`` (phase 15's), and its waits for
-# a boot, a stop, the routes' and ledgers' convergence and the telemetry.
+# a boot, a stop, the routes' and ledgers' convergence and the telemetry;
+# phase 17's corpus, compared subscribers, publishes and burst (phase
+# 15's), the pools' ``matcher_max_batch`` and its waits for a boot, a stop
+# and a convergence.
 # The service requests, the headline batches, the decode batch, the
 # cluster batches, the broker phase's publishes, phase 15's publishes and
-# phase 16's are the depth that was cut to keep the whole run under 800 s
-# (the host side of
+# phase 16's (its first run's and its in-process line's) are the depth
+# that was cut to keep the whole run under 900 s (the host side of
 # the service phases, and full collections of the heap there, grow with
 # the topics sent; the signature and dense headlines' host decodes ran
 # ~10,000 and ~6,000 topics/s on an H100 host).
@@ -372,16 +410,19 @@ SIZES = {"subs": {"mixed_100k": 100_000, "hash_plus_100k": 100_000,
                      "crash_publishes": 512, "crash_after": 64,
                      "boot_s": 600.0, "stop_s": 30.0},
          "federation": {"corpus": "mixed_100k", "clients": 64,
-                        "publishes": 1_024, "takeover_publishes": 256,
+                        "publishes": 512, "takeover_publishes": 256,
                         "rung_publishes": 512, "rung_burst": 8,
                         "takeovers": 16,
                         "burst": 512, "max_batch": 4_096, "boot_s": 600.0,
                         "stop_s": 30.0, "converge_s": 120.0,
                         "telemetry_s": 15.0,
                         "in_process": {"subs": 100_000, "clients": 64,
-                                       "publishes": 256, "burst": 512,
+                                       "publishes": 128, "burst": 512,
                                        "takeovers": 8},
-                        "device_share": 0.5}}
+                        "device_share": 0.5},
+         "pool": {"corpus": "mixed_100k", "clients": 64, "publishes": 1_024,
+                  "burst": 768, "max_batch": 4_096, "boot_s": 600.0,
+                  "stop_s": 30.0, "converge_s": 120.0}}
 # engine counters of topics NOT served by the device path, per engine
 SIG_COUNTERS = ("host_matches", "fallbacks", "trie_routed")
 DENSE_COUNTERS = ("fallbacks",)
@@ -921,11 +962,21 @@ class WireClient:
         self.writer.write(frame)
         return await asyncio.wait_for(fut, self.timeout)
 
-    async def open(self, port: int) -> bytes:
+    async def open(self, port: int, accept=None) -> bytes:
         """Connect and CONNECT (a v5 session expiry and outbound alias
-        maximum where given); returns the CONNACK frame."""
-        self.reader, self.writer = await asyncio.open_connection(
-            "127.0.0.1", port)
+        maximum where given); returns the CONNACK frame. ``await
+        accept(writer)`` where given judges each TCP connection before the
+        CONNECT: one it refuses is closed and another opened (phase 17
+        places a client on a chosen worker of a pool so)."""
+        for _ in range(256):
+            self.reader, self.writer = await asyncio.open_connection(
+                "127.0.0.1", port)
+            if accept is None or await accept(self.writer):
+                break
+            self.writer.close()
+            await self.writer.wait_closed()
+        else:
+            raise AssertionError(f"{self.cid}: 256 connections refused")
         self.closed.clear()
         self._task = asyncio.get_running_loop().create_task(self._read())
         pk = self.packet(self.kit.PT.CONNECT, clean_start=self.clean,
@@ -1210,10 +1261,14 @@ class BrokerSide:
                     spent += time.perf_counter() - t0
         return spent
 
-    def streams(self, start: dict | None = None) -> dict:
-        """Each subscriber's PUBLISH frames (from ``start``'s counts)."""
+    def streams(self, start: dict | None = None,
+                untraced: bool = False) -> dict:
+        """Each subscriber's PUBLISH frames (from ``start``'s counts);
+        ``untraced``: each v5 frame ``without_trace``."""
         start = start or {}
-        return {cid: c.frames[start.get(cid, 0):]
+        return {cid: ([without_trace(f) for f in c.frames[start.get(cid, 0):]]
+                      if untraced and c.version == 5
+                      else c.frames[start.get(cid, 0):])
                 for cid, c in self.subs.items()}
 
     async def close(self) -> None:
@@ -1689,26 +1744,29 @@ def write_corpus_store(path: str, sessions, owner: str = "") -> None:
             raise AssertionError(f"{path}{suffix} left after close")
 
 
-async def resume_subscribers(kit, side: BrokerSide, plan) -> None:
+async def resume_subscribers(kit, side: BrokerSide, plan,
+                             place=None) -> None:
     """The plan's online clients back on their stored sessions (clean
     start off; the broker must report the session present); the offline
-    ones stay away."""
+    ones stay away. ``place(cid)`` where given is the ``accept`` of each
+    client's connection (``WireClient.open``)."""
     for cid, version, alias_max, offline, _subs in plan:
         if offline:
             continue
         c = side.subs[cid] = WireClient(
             kit, cid, version, alias_max, clean=False,
             expiry=STARTED_EXPIRY if version >= 5 else None)
-        connack = await c.open(side.port)
+        connack = await c.open(side.port,
+                               None if place is None else place(cid))
         if not connack[2] & 1:
             raise AssertionError(f"{cid}: its stored session is not "
                                  "present")
 
 
-def read_store(path: str, bucket: str) -> dict:
-    """A store file's records of one bucket, key -> parsed JSON (the
-    file may belong to a running broker: SQLite's WAL lets this read
-    beside its writer)."""
+def read_store(path: str, bucket: str, raw: bool = False) -> dict:
+    """A store file's records of one bucket, key -> parsed JSON (with
+    ``raw``, the stored text) (the file may belong to a running broker:
+    SQLite's WAL lets this read beside its writer)."""
     import sqlite3
 
     conn = sqlite3.connect(path, timeout=30)
@@ -1717,38 +1775,70 @@ def read_store(path: str, bucket: str) -> dict:
                             (bucket,)).fetchall()
     finally:
         conn.close()
-    return {k: json.loads(v) for k, v in rows}
+    return dict(rows) if raw else {k: json.loads(v) for k, v in rows}
+
+
+# the client id prefix of a cluster bridge link's session (the port's
+# ``cluster.bridge.BRIDGE_ID_PREFIX``)
+LINK_CLIENT_PREFIX = "$maxmq-cluster/"
+
+
+def link_record(key: str) -> bool:
+    """Whether a store key (``<client id>`` or ``<client id>|...``)
+    belongs to a bridge link's own session: a node that stops while a
+    peer's link is still up keeps that link's clean session record, since
+    the link's teardown runs after its journal stopped, and one whose peer
+    closed the link first does not (F30), so which of two twins' stores
+    holds it depends on the order their processes stopped in."""
+    return key.startswith(LINK_CLIENT_PREFIX)
 
 
 def stores_equal(a: str, b: str, normal=None,
-                 buckets=STORE_BUCKETS) -> dict:
+                 buckets=STORE_BUCKETS, links: bool = True) -> dict:
     """Two store files equal bucket by bucket (``buckets``), record for
     record, each record's wall-clock fields (``WALL_CLOCK_FIELDS``) left
     out and each record passed through ``normal`` where given (records
     that are no JSON object, as a PUBREC-pending row's ``1``, as they
-    are); returns each bucket's records compared."""
+    are); returns each bucket's records compared. With ``links`` False
+    the bridge links' own session records (``link_record``) are left out
+    of the comparison and counted under ``links_left`` (each store's).
+    Records whose stored text is the same in both are equal as they are
+    (both parse and normalize alike): only the others are parsed."""
     out = {}
+    left = [0, 0]
+
+    def parsed(text):
+        rec = json.loads(text)
+        if not isinstance(rec, dict):
+            return rec
+        for field in WALL_CLOCK_FIELDS.get(bucket, ()):
+            rec.pop(field, None)
+        return rec if normal is None else normal(rec)
+
     for bucket in buckets:
-        recs = []
-        for path in (a, b):
-            rows = read_store(path, bucket)
-            for key, rec in rows.items():
-                if not isinstance(rec, dict):
-                    continue
-                for field in WALL_CLOCK_FIELDS.get(bucket, ()):
-                    rec.pop(field, None)
-                if normal is not None:
-                    rows[key] = normal(rec)
-            recs.append(rows)
-        if recs[0] != recs[1]:
-            bad = sorted(k for k in set(recs[0]) | set(recs[1])
-                         if recs[0].get(k) != recs[1].get(k))
+        raws = []
+        for i, path in enumerate((a, b)):
+            rows = read_store(path, bucket, raw=True)
+            if not links:
+                for key in [k for k in rows if link_record(k)]:
+                    del rows[key]
+                    left[i] += 1
+            raws.append(rows)
+        recs = [{k: parsed(v) for k, v in rows.items()
+                 if raws[1 - i].get(k) != v}
+                for i, rows in enumerate(raws)]
+        if set(raws[0]) != set(raws[1]) or recs[0] != recs[1]:
+            bad = sorted(k for k in set(raws[0]) | set(raws[1])
+                         if k not in raws[0] or k not in raws[1]
+                         or recs[0].get(k) != recs[1].get(k))
             k = bad[0]
             raise AssertionError(
                 f"stores {os.path.basename(a)} and {os.path.basename(b)} "
                 f"differ in {bucket}: {len(bad)} records, first "
                 f"{k!r}: {recs[0].get(k)} vs {recs[1].get(k)}")
-        out[bucket] = len(recs[0])
+        out[bucket] = len(raws[0])
+    if not links:
+        out["links_left"] = left
     return out
 
 
@@ -2031,6 +2121,222 @@ async def resume_in_store_order(kit, port: int, cid: str, version: int,
     return len(got)
 
 
+# -- phase 17: the worker pool's processes ------------------------------
+
+def child_pids(parent: int, name: bytes = b"maxmq_tpu_torch") -> list:
+    """The live processes whose parent is ``parent`` and whose command
+    line holds ``name`` (a pool parent's workers), by pid."""
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read().rsplit(")", 1)[1].split()
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read()
+        except (OSError, IndexError):
+            continue
+        if int(stat[1]) == parent and stat[0] != "Z" and name in cmd:
+            out.append(int(d))
+    return sorted(out)
+
+
+def tcp_inodes(local_port: int, remote_port: int | None = None) -> list:
+    """The socket inodes of ``/proc/net/tcp`` bound to ``local_port``:
+    its listening sockets (state LISTEN), or with ``remote_port`` the
+    connection from that peer port."""
+    out = []
+    with open("/proc/net/tcp") as f:
+        for line in f.readlines()[1:]:
+            parts = line.split()
+            local = int(parts[1].split(":")[1], 16)
+            remote = int(parts[2].split(":")[1], 16)
+            if local != local_port:
+                continue
+            if (remote_port is None and parts[3] == "0A") or \
+                    remote == remote_port:
+                out.append(parts[9])
+    return out
+
+
+def socket_owner(inode: str, pids) -> int | None:
+    """Which of ``pids`` holds the socket ``inode``."""
+    target = f"socket:[{inode}]"
+    for pid in pids:
+        with contextlib.suppress(OSError):
+            for fd in os.listdir(f"/proc/{pid}/fd"):
+                with contextlib.suppress(OSError):
+                    if os.readlink(f"/proc/{pid}/fd/{fd}") == target:
+                        return pid
+    return None
+
+
+def connection_owner(port: int, writer, pids) -> int | None:
+    """Which worker of ``pids`` holds the broker side of the client
+    connection ``writer`` to ``port`` (the kernel's SO_REUSEPORT pick;
+    None until the worker has accepted it)."""
+    local = writer.get_extra_info("sockname")[1]
+    inodes = tcp_inodes(port, remote_port=local)
+    return socket_owner(inodes[0], pids) if inodes else None
+
+
+async def accepted_by(port: int, writer, pids, timeout: float = 10.0):
+    """``connection_owner`` once a worker has accepted the connection."""
+    deadline = time.monotonic() + timeout
+    while True:
+        owner = connection_owner(port, writer, pids)
+        if owner is not None:
+            return owner
+        if time.monotonic() > deadline:
+            raise AssertionError(f"no worker of {pids} accepted the "
+                                 f"connection to {port}")
+        await asyncio.sleep(0.005)
+
+
+# phase 17's pool: its workers and their mesh, as ``worker_conf`` names them
+POOL_WORKERS = 2
+POOL_NODES = tuple(f"w{i}" for i in range(POOL_WORKERS))
+POOL_LINE = {n: tuple(p for p in POOL_NODES if p != n) for n in POOL_NODES}
+
+
+def pool_routes(sessions, placement: dict) -> dict:
+    """The routes each worker of phase 17's pool holds once it converges,
+    from where its sessions are (``placement``: client id -> worker of
+    the online compared subscribers; every other session stays at w0,
+    which restored it): each worker holds the cover of the other's
+    filters."""
+    local = {n: fed_local_filters([s for s in sessions
+                                   if placement.get(s[0], "w0") == n])
+             for n in POOL_NODES}
+    return fed_routes(local, POOL_LINE)
+
+
+def pool_record(rec: dict) -> dict:
+    """A stored record of a pool's journal as ``stores_equal`` compares
+    two pools': without the ``mq-trace`` pairs (``drop_trace``: F20), and
+    a ledger row of a session that w1 owns without its boot epoch (w1
+    keeps no store, so its epoch is its start time)."""
+    if rec.get("owner") not in (None, POOL_NODES[0]):
+        rec.pop("be", None)
+    return drop_trace(rec)
+
+
+class StartedPool(StartedBroker):
+    """One worker pool as production starts it: ``python -m
+    maxmq_tpu_torch start`` with ``workers = 2`` and phase 15's other
+    settings, its own ``worker_link_dir`` and ``pool_metrics_address``;
+    every other pool setting the default. The parent's log file holds its
+    workers' lines too (they inherit its output); ``port`` is the pool's
+    one TCP port, ``metrics_port`` worker 0's ``/metrics`` and
+    ``pool_port`` the parent's."""
+
+    def __init__(self, name: str, workdir: str, db: str, matcher: str,
+                 device: str | None = None,
+                 max_batch: int | None = None) -> None:
+        super().__init__(name, workdir, db, matcher, device, max_batch)
+        self.pool_port = free_port()
+        self.mesh = os.path.join(workdir, f"{name}-mesh")
+        # the tracer samples every FED_TRACE_STRIDE-th inbound publish
+        # (w0's match latency), so frames and stores are compared without
+        # the property it stamps (F20)
+        self.add_config(f"workers = {POOL_WORKERS}\n"
+                        f'worker_link_dir = "{self.mesh}"\n'
+                        f'pool_metrics_address = "127.0.0.1:'
+                        f'{self.pool_port}"\n'
+                        f"trace_sample_n = {FED_TRACE_STRIDE}\n")
+
+    def start(self, faults: str = "") -> None:
+        self.t_wall = time.time()
+        super().start(faults)
+
+    def workers(self) -> list:
+        """The live worker processes' pids."""
+        return child_pids(self.proc.pid)
+
+    def kill(self) -> None:
+        """SIGKILL the workers, then the parent (a parent killed first
+        would leave its workers running)."""
+        if self.proc is not None and self.proc.poll() is None:
+            for pid in self.workers():
+                with contextlib.suppress(OSError):
+                    os.kill(pid, signal.SIGKILL)
+        super().kill()
+
+    async def ready(self, timeout: float) -> dict:
+        """Wait for the pool's start line, each worker's, and every worker
+        listening on the one port; returns the boot: seconds from the
+        start to the pool's line and to each worker's, worker 0's restore
+        (``serve()``'s clock), the sidecar's device, the workers' pids and
+        every warning or error logged meanwhile."""
+        deadline = time.monotonic() + timeout
+        while True:
+            if self.proc.poll() is not None:
+                raise AssertionError(
+                    f"{self.name} pool exited {self.proc.returncode} at "
+                    f"boot:\n{self.tail()}")
+            lines = self.lines()
+            pool = next((x for x in lines
+                         if x.get("message") == "worker pool started"), None)
+            workers = {x["worker"]: x for x in lines
+                       if x.get("message") == "pool worker started"}
+            if (pool is not None and len(workers) == POOL_WORKERS
+                    and len(tcp_inodes(self.port)) >= POOL_WORKERS):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{self.name} pool not started in "
+                                     f"{timeout} s:\n{self.tail()}")
+            await asyncio.sleep(0.05)
+        pids = self.workers()
+        owners = {socket_owner(i, pids) for i in tcp_inodes(self.port)}
+        if owners != set(pids) or len(pids) != POOL_WORKERS:
+            raise AssertionError(f"{self.name} pool: workers {pids}, "
+                                 f"listening {owners}")
+        return {"boot_s": time.perf_counter() - self.t_start,
+                "pool_started_s": pool["time"] / 1e3 - self.t_wall,
+                "worker_started_s": {f"w{i}": x["time"] / 1e3 - self.t_wall
+                                     for i, x in sorted(workers.items())},
+                "w0_restore_s": workers[0]["restore_s"],
+                "device": pool["device"] or "cuda",
+                "sidecar": pool["matcher_sidecar"], "pids": pids,
+                "warnings": [x for x in lines if x.get("level")
+                             in ("warn", "error", "fatal")]}
+
+    async def stop(self, timeout: float) -> float:
+        """SIGTERM to the parent: it exits 0 within ``timeout``, each
+        worker stopped with rc 0 (the parent's ``pool worker stopped``
+        lines), no error logged while stopping, and no mesh socket
+        (``w<i>.sock``, ``matcher.sock``) left; returns the seconds."""
+        n0 = len(self.lines())
+        took = await super().stop(timeout)
+        stopped = {x["worker"]: x["rc"] for x in self.lines()[n0:]
+                   if x.get("message") == "pool worker stopped"}
+        if stopped != dict.fromkeys(range(POOL_WORKERS), 0):
+            raise AssertionError(f"{self.name} pool's workers stopped "
+                                 f"with {stopped}:\n{self.tail()}")
+        left = (sorted(f for f in os.listdir(self.mesh)
+                       if f.endswith(".sock"))
+                if os.path.isdir(self.mesh) else [])
+        if left:
+            raise AssertionError(f"{self.name} pool left {left}")
+        return took
+
+    def worker_counts(self) -> dict:
+        """Each worker's matcher counts over its life, from its last
+        ``pool worker stopping`` line."""
+        return {f"w{x['worker']}": {k: x[k] for k in (
+            "fallbacks", "breaker_trips", "degrades", "launches")}
+            for x in self.lines()
+            if x.get("message") == "pool worker stopping"}
+
+    def scrape_pool(self) -> dict:
+        import urllib.request
+
+        url = f"http://127.0.0.1:{self.pool_port}/metrics"
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return metric_series(r.read().decode())
+
+
 # -- phase 16: the cluster federation ------------------------------------
 
 # phase 16's topology: a line A - B - C with symmetric ``cluster_peers``.
@@ -2239,10 +2545,7 @@ class Federation:
         each v5 frame ``without_trace``."""
         out = {}
         for side in self.sides.values():
-            for cid, frames in side.streams(start).items():
-                out[cid] = ([without_trace(f) for f in frames]
-                            if untraced and side.subs[cid].version == 5
-                            else frames)
+            out.update(side.streams(start, untraced))
         return out
 
     async def close(self, nodes=None) -> None:
@@ -2513,12 +2816,17 @@ def collector_paused():
             gc.enable()
 
 
-def release_heap() -> None:
-    """Thaw the heap ``Smoke.phase`` froze and collect it once, after the
-    run drops what earlier phases built (engines, corpora): their garbage
-    cycles, and the device memory those hold, are freed."""
-    gc.unfreeze()
-    gc.collect()
+def rss_gib() -> float:
+    """This process's resident memory in GiB (``/proc/self/status``), or
+    0.0 where the file is missing."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) / 2**20
+    except OSError:
+        pass
+    return 0.0
 
 
 def trace_match_spans(tracer, matcher, tr, fut) -> None:
@@ -2630,6 +2938,37 @@ def kernel_sass(name: str) -> dict:
     return sass_loops(proc.stdout) if proc.returncode == 0 else {}
 
 
+def boot_beside(boot, st) -> tuple:
+    """``boot(st)`` (a coroutine function: start a phase's children and
+    wait for their boots) in a thread of its own with its own event loop,
+    so it runs beside what the caller does next: its waits read the
+    children's logs and pages with blocking calls, which would hold the
+    caller's loop. Returns (thread, box); the box gets its result under
+    "boot" or its exception under "error"."""
+    box: dict = {}
+
+    def run() -> None:
+        try:
+            box["boot"] = asyncio.run(boot(st))
+        except BaseException as exc:    # re-raised by the phase
+            box["error"] = exc
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, box
+
+
+def abort_early(pending, children) -> None:
+    """Kill the ``children`` (``StartedBroker``s) of a phase's early start
+    ``pending`` = (state, thread, box) that the phase never took over,
+    wait for its thread (it sees them die) and remove their directory."""
+    st, thread, _box = pending
+    for child in children:
+        child.kill()
+    thread.join(timeout=60)
+    shutil.rmtree(st["work"], ignore_errors=True)
+
+
 class Smoke:
     """The phases, parameterized by device and size table (``SIZES`` on
     the card) so the same code can be rehearsed on the CPU at small sizes,
@@ -2651,6 +2990,10 @@ class Smoke:
         self.dense = None          # (subscriptions, generator, TopicIndex)
         self.dense_eng = None
         self.nfa_engines = {}      # corpus -> NFAEngine, default widths
+        # phase 16's nodes started in phase 15's crash rung
+        # (``fed_start_early``) and phase 17's pools at the end of phase
+        # 16 (``pool_start_early``): (state, boot thread, its result)
+        self.fed_pending = self.pool_pending = None
         self.record = {"max_abs_err": 0, "bit_equal": True}
         self.dense_record = {"max_abs_err": 0, "bit_equal": True}
         # the card's name and power limit, printed beside phase 16's
@@ -3846,15 +4189,21 @@ class Smoke:
                     out["subscriptions"]))
                 for side in sides.values():
                     await close_clients(side)
-                for b in (card, trie):
-                    await b.drained(sz["stop_s"])
-                out["stop_s"] = {b.name: await b.stop(sz["stop_s"])
-                                 for b in (card, trie)}
+                await asyncio.gather(*(b.drained(sz["stop_s"])
+                                       for b in (card, trie)))
+                stops = await asyncio.gather(*(b.stop(sz["stop_s"])
+                                               for b in (card, trie)))
+                out["stop_s"] = {"card": stops[0], "trie": stops[1]}
                 out["stores"] = stores_equal(dbs["card"], dbs["trie"])
                 if not out["stores"]["inflight"]:
                     raise AssertionError("no inflight record to compare")
                 log(f"[started] stores equal: {json.dumps(out['stores'])} "
                     "records (clients, subscriptions, retained, inflight)")
+                if "federation" in self.sizes:
+                    # phase 16's nodes boot and converge beside the crash
+                    # rung (one card broker's kill and two boots), a
+                    # fixed ~40 s of waiting phase 16 would spend alone
+                    self.fed_start_early()
                 out["crash"] = await self.started_crash(
                     kit, gen, index, card, out["boot_commits"], plan)
             except BaseException:
@@ -4096,7 +4445,73 @@ class Smoke:
         forward and takeover counters equal to its twin's, no takeover
         degraded; after SIGTERM every node's store equal to its twin's
         (its retained and inflight records and its session ledger's
-        journal included)."""
+        journal included). In the whole run the nodes were started in
+        phase 15's crash rung (``fed_start_early``) and booted and
+        converged beside it; alone, the phase starts them itself."""
+        pending, self.fed_pending = self.fed_pending, None
+        if pending is None:
+            st, box = self.fed_prepare(), None
+        else:
+            st, thread, box = pending
+            # the boots' thread ends at the ledgers' convergence or at a
+            # failure (the nodes are killed below either way)
+            await asyncio.get_running_loop().run_in_executor(
+                None, thread.join)
+        kit, brokers, feds = st["kit"], st["brokers"], st["feds"]
+        out = st["out"]
+        out["boot_overlapped"] = box is not None
+        try:
+            with collector_paused():
+                try:
+                    if box is None:
+                        out.update(await self.fed_boot_converge(st))
+                    elif "error" in box:
+                        raise box["error"]
+                    else:
+                        out.update(box["boot"])
+                    out.update(await self.federation_run(
+                        kit, st["topics"], st["plan"], st["corpus"],
+                        brokers, feds, st["dbs"], st["n_sessions"],
+                        st["live"], st["dead"]))
+                    if "pool" in self.sizes:
+                        # the nodes have stopped: phase 17's pools boot
+                        # and converge meanwhile, beside the store
+                        # comparison and the line in this process (a fixed
+                        # ~60 s of waiting phase 17 would spend alone)
+                        self.pool_start_early()
+                    out["stores"] = {node: stores_equal(
+                        st["dbs"]["card", node], st["dbs"]["trie", node],
+                        drop_trace, STORE_BUCKETS + SESSION_BUCKETS,
+                        links=False)
+                        for node in FED_LINE}
+                    log(f"[federation] stores equal: "
+                        f"{json.dumps(out['stores'])} (clients, "
+                        "subscriptions, retained, inflight, the session "
+                        "ledger's and the replicas' rows)")
+                except BaseException:
+                    for b in brokers.values():
+                        if b.log_path:
+                            log(f"[federation] {b.name} broker log:\n"
+                                f"{b.tail()}")
+                    raise
+                finally:
+                    for f in feds.values():
+                        with contextlib.suppress(Exception):
+                            await f.close()
+                    for b in brokers.values():
+                        b.kill()
+                # in this process, as phase 12 runs: the collector paused
+                out["in_process"] = await self.fed_forwarded()
+        finally:
+            shutil.rmtree(st["work"], ignore_errors=True)
+        log(f"[federation] {self.card} {json.dumps(out)}")
+        return out
+
+    def fed_prepare(self) -> dict:
+        """Phase 16's set-up: the stores (each session with its ledger
+        row), the takeovers' sessions, the six nodes (not started yet) in
+        a directory of their own, the two ``Federation`` clients. Returns
+        the phase's state."""
         from maxmq_tpu_torch.matching.trie import TopicIndex
 
         if self.device.type == "cuda":
@@ -4109,89 +4524,106 @@ class Smoke:
         _f, gen = self.corpus_filters(name)
         nodes = list(FED_LINE)
         out = {"corpus": name}
-        with (collector_paused(),
-              tempfile.TemporaryDirectory(prefix="maxmq-fed-") as work):
-            t0 = time.perf_counter()
-            subs = [(cid, started_subscription(kit, k, sub))
-                    for k, (cid, sub) in enumerate(self.corpus_preload(name))]
-            index = TopicIndex()
-            for cid, sub in subs:
-                index.subscribe(cid, sub)
-            n, tk = sz["publishes"], sz["takeover_publishes"]
-            topics = gen(n + tk + sz["rung_publishes"], seed2=4700)
-            plan = fed_plan(kit, subscriber_plan(kit, sz["clients"], topics,
-                                                 index.subscribers))
-            corpus = {node: subs[i::len(nodes)]
-                      for i, node in enumerate(nodes)}
-            dbs, n_sessions = {}, 0
-            for node in nodes:
-                sessions = started_sessions(
-                    kit, corpus[node],
-                    [entry for n_, *entry in plan if n_ == node])
-                n_sessions += len(sessions)
-                base = os.path.join(work, f"{node}.db")
-                write_corpus_store(base, sessions, owner=node)
+        work = tempfile.mkdtemp(prefix="maxmq-fed-")
+        try:
+            with collector_paused():
+                t0 = time.perf_counter()
+                subs = [(cid, started_subscription(kit, k, sub))
+                        for k, (cid, sub)
+                        in enumerate(self.corpus_preload(name))]
+                index = TopicIndex()
+                for cid, sub in subs:
+                    index.subscribe(cid, sub)
+                n, tk = sz["publishes"], sz["takeover_publishes"]
+                topics = gen(n + tk + sz["rung_publishes"], seed2=4700)
+                plan = fed_plan(kit, subscriber_plan(
+                    kit, sz["clients"], topics, index.subscribers))
+                corpus = {node: subs[i::len(nodes)]
+                          for i, node in enumerate(nodes)}
+                dbs, n_sessions = {}, 0
+                for node in nodes:
+                    sessions = started_sessions(
+                        kit, corpus[node],
+                        [entry for n_, *entry in plan if n_ == node])
+                    n_sessions += len(sessions)
+                    base = os.path.join(work, f"{node}.db")
+                    write_corpus_store(base, sessions, owner=node)
+                    for fed in ("trie", "card"):
+                        dbs[fed, node] = os.path.join(work,
+                                                      f"{fed}-{node}.db")
+                        shutil.copyfile(base, dbs[fed, node])
+                out["routes_expected"] = fed_local_routes(kit, corpus, plan)
+                out["ledger_sessions"] = n_sessions
+                out["store_write_s"] = time.perf_counter() - t0
+                # the takeovers' sessions: B's first compared subscribers
+                # (live, to C), and B's corpus sessions that the traffic
+                # before the rung and the rung's both reach (from the dead
+                # owner, to A)
+                live = [e for e in plan if e[0] == "B"
+                        and not e[1].startswith("tcp-probe")
+                        ][:sz["takeovers"]]
+                before, after = set(), set()
+                for t in topics[:n + tk]:
+                    before.update(index.subscribers(t).subscriptions)
+                for t in topics[n + tk:]:
+                    after.update(index.subscribers(t).subscriptions)
+                dead = [("B", cid, 5, 0, False, [sub])
+                        for cid, sub in corpus["B"]
+                        if cid in before and cid in after][:sz["takeovers"]]
+                if len(live) < sz["takeovers"] or len(dead) < sz["takeovers"]:
+                    raise AssertionError(f"{len(live)} and {len(dead)} "
+                                         "sessions to take over from B")
+                device = None if self.device.type == "cuda" else "cpu"
+                brokers = {}
                 for fed in ("trie", "card"):
-                    dbs[fed, node] = os.path.join(work, f"{fed}-{node}.db")
-                    shutil.copyfile(base, dbs[fed, node])
-            out["routes_expected"] = fed_local_routes(kit, corpus, plan)
-            out["ledger_sessions"] = n_sessions
-            out["store_write_s"] = time.perf_counter() - t0
-            # the takeovers' sessions: B's first compared subscribers (live,
-            # to C), and B's corpus sessions that the traffic before the
-            # rung and the rung's both reach (from the dead owner, to A)
-            live = [e for e in plan if e[0] == "B"
-                    and not e[1].startswith("tcp-probe")][:sz["takeovers"]]
-            before, after = set(), set()
-            for t in topics[:n + tk]:
-                before.update(index.subscribers(t).subscriptions)
-            for t in topics[n + tk:]:
-                after.update(index.subscribers(t).subscriptions)
-            dead = [("B", cid, 5, 0, False, [sub]) for cid, sub in corpus["B"]
-                    if cid in before and cid in after][:sz["takeovers"]]
-            if len(live) < sz["takeovers"] or len(dead) < sz["takeovers"]:
-                raise AssertionError(f"{len(live)} and {len(dead)} sessions "
-                                     "to take over from B")
-            device = None if self.device.type == "cuda" else "cpu"
-            brokers = {}
-            for fed in ("trie", "card"):
-                for node in nodes:
-                    brokers[fed, node] = StartedBroker(
-                        f"{fed}-{node}", work, dbs[fed, node],
-                        "sig" if fed == "card" else "trie",
-                        device if fed == "card" else "cpu", sz["max_batch"])
-                ports = {n_: brokers[fed, n_].port for n_ in nodes}
-                for node in nodes:
-                    brokers[fed, node].add_config(fed_config(node, ports))
-            feds = {fed: Federation({n_: brokers[fed, n_].port
-                                     for n_ in nodes})
-                    for fed in ("trie", "card")}
-            try:
-                out.update(await self.federation_run(
-                    kit, topics, plan, corpus, brokers, feds, dbs,
-                    n_sessions, live, dead))
-                out["stores"] = {node: stores_equal(
-                    dbs["card", node], dbs["trie", node], drop_trace,
-                    STORE_BUCKETS + SESSION_BUCKETS) for node in nodes}
-                log(f"[federation] stores equal: {json.dumps(out['stores'])}"
-                    " (clients, subscriptions, retained, inflight, the "
-                    "session ledger's and the replicas' rows)")
-            except BaseException:
-                for b in brokers.values():
-                    if b.log_path:
-                        log(f"[federation] {b.name} broker log:\n{b.tail()}")
-                raise
-            finally:
-                for f in feds.values():
-                    with contextlib.suppress(Exception):
-                        await f.close()
-                for b in brokers.values():
-                    b.kill()
-            # in this process, as phase 12 runs: the collector paused
-            out["in_process"] = await self.fed_forwarded()
-        log(f"[federation] {self.card} {json.dumps(out)}")
+                    for node in nodes:
+                        brokers[fed, node] = StartedBroker(
+                            f"{fed}-{node}", work, dbs[fed, node],
+                            "sig" if fed == "card" else "trie",
+                            device if fed == "card" else "cpu",
+                            sz["max_batch"])
+                    ports = {n_: brokers[fed, n_].port for n_ in nodes}
+                    for node in nodes:
+                        brokers[fed, node].add_config(fed_config(node,
+                                                                 ports))
+                feds = {fed: Federation({n_: brokers[fed, n_].port
+                                         for n_ in nodes})
+                        for fed in ("trie", "card")}
+        except BaseException:
+            shutil.rmtree(work, ignore_errors=True)
+            raise
+        return {"kit": kit, "work": work, "out": out, "topics": topics,
+                "plan": plan, "corpus": corpus, "dbs": dbs,
+                "n_sessions": n_sessions, "live": live, "dead": dead,
+                "brokers": brokers, "feds": feds}
+
+    async def fed_boot_converge(self, st) -> dict:
+        """The six nodes of ``st`` started at once, their boots, and the
+        routes' and the session ledgers' convergence."""
+        brokers = st["brokers"]
+        out = {"boot": await self.fed_boot(brokers, list(brokers))}
+        log(f"[federation] boots: {self.card} {json.dumps(out['boot'])}")
+        out["converge"] = await self.fed_converge(
+            brokers, fed_local_routes(st["kit"], st["corpus"], st["plan"]),
+            dict.fromkeys(st["feds"], st["n_sessions"]))
+        log(f"[federation] converged after the boots: {self.card} "
+            f"routes {out['converge']['converge_s']:.2f} s, ledgers "
+            f"{out['converge']['ledger_s']:.2f} s")
         return out
 
+    def fed_start_early(self) -> None:
+        """Phase 16's set-up, and its nodes' boots and convergence beside
+        what the caller does next (``boot_beside``); ``federation`` takes
+        them over."""
+        st = self.fed_prepare()
+        self.fed_pending = (st, *boot_beside(self.fed_boot_converge, st))
+
+    def fed_abort(self) -> None:
+        """Kill the nodes ``fed_start_early`` started where phase 16 never
+        took them over (an earlier failure)."""
+        pending, self.fed_pending = self.fed_pending, None
+        if pending is not None:
+            abort_early(pending, pending[0]["brokers"].values())
 
     async def fed_forwarded(self) -> dict:
         """The line in this process (``fed_in_process``, sized by the size
@@ -4662,21 +5094,13 @@ class Smoke:
     async def federation_run(self, kit, topics, plan, corpus, brokers,
                              feds, dbs, n_sessions: int, live,
                              dead) -> dict:
-        """Phase 16's two federations: boots, convergence, traffic, the
-        live takeover, the restart of B with the dead-owner takeover,
-        stops."""
+        """Phase 16's two federations once booted and converged
+        (``fed_boot_converge``): traffic, the live takeover, the restart
+        of B with the dead-owner takeover, stops."""
         sz = self.sizes["federation"]
         n, tk = sz["publishes"], sz["takeover_publishes"]
         out = {}
         t0 = time.perf_counter()
-        out["boot"] = await self.fed_boot(brokers, list(brokers))
-        log(f"[federation] boots: {self.card} {json.dumps(out['boot'])}")
-        out["converge"] = await self.fed_converge(
-            brokers, fed_local_routes(kit, corpus, plan),
-            dict.fromkeys(feds, n_sessions))
-        log(f"[federation] converged after the boots: {self.card} "
-            f"routes {out['converge']['converge_s']:.2f} s, ledgers "
-            f"{out['converge']['ledger_s']:.2f} s")
         for f in feds.values():
             await f.resume(kit, plan)
         out["traffic"] = await self.fed_traffic(
@@ -4798,6 +5222,517 @@ class Smoke:
         return out
 
     # -- phase 14: the rest of the signature engine's device surface -----
+
+    # -- phase 17: the worker pool -----------------------------------------
+
+    async def worker_pool(self) -> dict:
+        """Phase 17: phase 15's store (``mixed_100k`` as persistent v5
+        sessions and the compared subscribers'), copied twice; two pools
+        started as production starts them (``python -m maxmq_tpu_torch
+        start`` with ``workers = 2``, booted at once): the card pool
+        (``matcher = "sig"``, no ``--device``: its parent's sidecar on the
+        card) and the trie pool (``--device cpu``), each restoring its
+        copy at w0. The ledgers' and routes' convergence, the compared
+        subscribers resumed through the one port (wherever SO_REUSEPORT
+        places them), the sidecar's tables caught up, phase 15's traffic
+        from a publisher on each worker in fenced bursts, trie pool first:
+        every subscriber's frames equal; the sidecar's answers on the
+        traffic's topics equal to the CPU trie's; the singletons, the
+        card's holders, the counts; SIGTERM and the stores equal. In the
+        whole run the pools were started at the end of phase 16
+        (``pool_start_early``) and their boots and w1's ledger ran beside
+        its store comparison and its line in this process; alone, the
+        phase starts them itself."""
+        pending, self.pool_pending = self.pool_pending, None
+        t0 = time.perf_counter()
+        if pending is None:
+            st, box = self.pool_prepare(), None
+        else:
+            st, thread, box = pending
+            # the boot's thread ends at the ledger's convergence or at a
+            # failure (the pools are killed below either way)
+            await asyncio.get_running_loop().run_in_executor(
+                None, thread.join)
+        sz = self.sizes["pool"]
+        kit = st["kit"]
+        out = st["out"]
+        out["boot_overlapped"] = box is not None
+        card, trie = pools = st["pools"]
+        sides = {p.name: BrokerSide(None, p.port) for p in pools}
+        try:
+            with collector_paused():
+                if box is None:
+                    out.update(await self.pool_boot(st))
+                elif "error" in box:
+                    raise box["error"]
+                else:
+                    out.update(box["boot"])
+                out["boot_wait_s"] = time.perf_counter() - t0
+                out.update(await self.pool_run(
+                    kit, st["topics"], st["plan"], st["sessions"],
+                    st["index"], card, trie, sides))
+                for side in sides.values():
+                    await close_clients(side)
+                # w0's connections but the sibling's bridge link
+                await asyncio.gather(*(p.drained(sz["stop_s"],
+                                                 keep=POOL_WORKERS - 1)
+                                       for p in pools))
+                stops = await asyncio.gather(*(p.stop(sz["stop_s"])
+                                               for p in pools))
+                out["stop_s"] = {p.name: t for p, t in zip(pools, stops)}
+                out["worker_counts"] = {p.name: p.worker_counts()
+                                        for p in pools}
+                for p in pools:
+                    for node, c in out["worker_counts"][p.name].items():
+                        if (c["breaker_trips"] or c["degrades"]
+                                or c["launches"] or any(
+                                    c["fallbacks"].get(r) for r in (
+                                        "error", "deadline",
+                                        "breaker_open"))):
+                            raise AssertionError(
+                                f"{p.name} pool's {node}: {c}")
+                out["stores"] = stores_equal(
+                    st["dbs"]["card"], st["dbs"]["trie"], normal=pool_record,
+                    buckets=STORE_BUCKETS + SESSION_BUCKETS, links=False)
+                if not out["stores"]["inflight"]:
+                    raise AssertionError("no inflight record to compare")
+                log(f"[pool] stores equal: {json.dumps(out['stores'])} "
+                    "records (clients, subscriptions, retained, inflight, "
+                    "ledger, replica inflight)")
+        except BaseException:
+            for p in pools:
+                if p.log_path:
+                    log(f"[pool] {p.name} pool log:\n{p.tail(8000)}")
+            raise
+        finally:
+            for side in sides.values():
+                with contextlib.suppress(Exception):
+                    await close_clients(side)
+            for p in pools:
+                p.kill()
+            shutil.rmtree(st["work"], ignore_errors=True)
+        log(f"[pool] {json.dumps(out)}")
+        return out
+
+    def pool_prepare(self) -> dict:
+        """Phase 17's set-up: phase 15's topics, compared subscribers and
+        store, each session with its ledger row as w0, the journal owner,
+        writes it (a store without them: F28), copied for the two pools
+        (not started yet) in a directory of their own. Returns the
+        phase's state."""
+        from maxmq_tpu_torch.matching.trie import TopicIndex
+
+        if self.device.type == "cuda":
+            import torch
+
+            torch.cuda.empty_cache()    # the sidecar takes the card's memory
+        sz = self.sizes["pool"]
+        name = sz["corpus"]
+        kit = port_kit()
+        _f, gen = self.corpus_filters(name)
+        work = tempfile.mkdtemp(prefix="maxmq-pool-")
+        st = {"kit": kit, "work": work, "out": {"corpus": name}}
+        try:
+            with collector_paused():
+                t0 = time.perf_counter()
+                subs = [(cid, started_subscription(kit, k, sub))
+                        for k, (cid, sub)
+                        in enumerate(self.corpus_preload(name))]
+                index = TopicIndex()
+                for cid, sub in subs:
+                    index.subscribe(cid, sub)
+                topics = gen(sz["publishes"], seed2=4500)
+                plan = subscriber_plan(kit, sz["clients"], topics,
+                                       index.subscribers)
+                sessions = started_sessions(kit, subs, plan)
+                for cid, _v, ss in sessions[len(subs):]:
+                    for sub in ss:
+                        index.subscribe(cid, sub)
+                base = os.path.join(work, "corpus.db")
+                write_corpus_store(base, sessions, owner=POOL_NODES[0])
+                dbs = {}
+                for side in ("card", "trie"):
+                    dbs[side] = os.path.join(work, f"{side}.db")
+                    shutil.copyfile(base, dbs[side])
+                st["out"]["store_write_s"] = time.perf_counter() - t0
+                st["out"]["sessions"] = len(sessions)
+                device = None if self.device.type == "cuda" else "cpu"
+                st.update(topics=topics, plan=plan, sessions=sessions,
+                          index=index, dbs=dbs, pools=(
+                              StartedPool("card", work, dbs["card"], "sig",
+                                          device, sz["max_batch"]),
+                              StartedPool("trie", work, dbs["trie"], "trie",
+                                          "cpu", sz["max_batch"])))
+        except BaseException:
+            shutil.rmtree(work, ignore_errors=True)
+            raise
+        return st
+
+    async def pool_boot(self, st) -> dict:
+        """Both pools of ``st`` started at once; their boots (no warning,
+        the sidecar in the card pool alone, on the card) and w1's ledger
+        holding the sessions w0 restored (w1 acks w0's resync), so a
+        subscriber's takeover at w1 finds its session."""
+        sz = self.sizes["pool"]
+        card, trie = pools = st["pools"]
+        for p in pools:
+            p.start()
+        boots = dict(zip((p.name for p in pools), await asyncio.gather(
+            *(p.ready(sz["boot_s"]) for p in pools))))
+        for p in pools:
+            log(f"[pool] {p.name} pool boot: {json.dumps(boots[p.name])}")
+            if boots[p.name]["warnings"]:
+                raise AssertionError(f"{p.name} pool warned at boot: "
+                                     f"{boots[p.name]['warnings']}")
+        if not boots["card"]["sidecar"] or boots["trie"]["sidecar"]:
+            raise AssertionError("the card pool runs a sidecar, the trie "
+                                 f"pool none: {boots}")
+        if (self.device.type == "cuda"
+                and not boots["card"]["device"].startswith("cuda")):
+            raise AssertionError(f"the card pool's sidecar runs on "
+                                 f"{boots['card']['device']}")
+        out = {"boot": boots}
+        n = len(st["sessions"])
+        out["ledger_s"] = await self.pool_converge(pools, ledger=n)
+        log(f"[pool] w1's ledger holds the {n} sessions "
+            f"{out['ledger_s']:.2f} s after the boots")
+        return out
+
+    def pool_start_early(self) -> None:
+        """Phase 17's set-up, and its pools' boots and w1's ledger
+        convergence beside what the caller does next (``boot_beside``);
+        ``worker_pool`` takes them over."""
+        st = self.pool_prepare()
+        self.pool_pending = (st, *boot_beside(self.pool_boot, st))
+
+    def pool_abort(self) -> None:
+        """Kill the pools ``pool_start_early`` started where phase 17
+        never took them over (an earlier failure)."""
+        pending, self.pool_pending = self.pool_pending, None
+        if pending is not None:
+            abort_early(pending, pending[0]["pools"])
+
+    async def pool_run(self, kit, topics, plan, sessions, index, card, trie,
+                       sides) -> dict:
+        """Phase 17's two booted pools: resumes, route convergence,
+        settle, traffic, checks."""
+        sz = self.sizes["pool"]
+        pools = (card, trie)
+        out = {}
+        # each online subscriber on worker k % 2 in both pools, k its
+        # rank in the plan: a $share pick depends on where the group's
+        # members are (F29), so both pools get the same placement
+        online = [e[0] for e in plan if not e[3]]
+        nodes = {cid: POOL_NODES[k % POOL_WORKERS]
+                 for k, cid in enumerate(online)}
+        for p in (trie, card):
+            await resume_subscribers(kit, sides[p.name], plan,
+                                     self.pool_place(p, nodes))
+        out["placement"] = {p.name: self.pool_placement(p, sides[p.name])
+                            for p in pools}
+        if out["placement"]["card"] != nodes:
+            raise AssertionError(f"the subscribers sit elsewhere: "
+                                 f"{out['placement']}")
+        log(f"[pool] placement: {json.dumps(out['placement'])}")
+        routes = {p.name: pool_routes(sessions, out["placement"][p.name])
+                  for p in pools}
+        if out["placement"]["card"] != out["placement"]["trie"]:
+            raise AssertionError("the pools placed the subscribers apart")
+        out["routes_s"] = await self.pool_converge(pools, routes=routes)
+        out["settle_s"] = await self.pool_settle(card)
+        log(f"[pool] routes {json.dumps(routes)} in {out['routes_s']:.2f} "
+            f"s; the sidecar's tables caught up {out['settle_s']:.2f} s "
+            "after that")
+        traffic = publish_frames(kit, topics, 46, publishers=1)
+        for p in (trie, card):
+            await self.pool_publishers(kit, p, sides[p.name], traffic[1])
+        before = {p.name: p.scrape() for p in pools}
+        pool0 = card.scrape_pool()
+        walls, starts = {}, {}
+        for p in (trie, card):
+            side = sides[p.name]
+            starts[p.name] = {c: len(s.frames) for c, s in side.subs.items()}
+            t0 = time.perf_counter()
+            await side.bursts(kit, traffic, chunk=sz["burst"])
+            walls[p.name] = time.perf_counter() - t0
+        frames = streams_equal(
+            "worker pools", sides["card"].streams(starts["card"], True),
+            sides["trie"].streams(starts["trie"], True))
+        after = {p.name: p.scrape() for p in pools}
+        pool1 = card.scrape_pool()
+        out.update(self.pool_metrics(before, after, pool0, pool1, frames,
+                                     walls, len(topics)))
+        out["cluster"] = self.pool_cluster_pages(pools)
+        out["card_holders"] = self.pool_card_holders(card, trie)
+        out["sidecar_answers"] = await self.pool_sidecar_answers(
+            card, topics, index)
+        out["compared_subscribers"] = len(plan)
+        log(f"[pool] traffic: {json.dumps(out)}")
+        return out
+
+    async def pool_converge(self, pools, ledger: int | None = None,
+                            routes: dict | None = None) -> float:
+        """Wait until, in every pool, each worker's link to the other is
+        up and, with ``ledger``, w0's resync of its sessions is acked by
+        w1 and w1's ledger (its telemetry on w0's ``/cluster/metrics``)
+        holds them all; with ``routes`` (pool -> node -> routes), until
+        each worker holds those routes (w1's from its telemetry). Returns
+        the seconds it took."""
+        sz = self.sizes["pool"]
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + sz["converge_s"]
+        while True:
+            state = {}
+            for p in pools:
+                page, fed = p.scrape(), p.scrape("/cluster/metrics")
+                st = state[p.name] = {
+                    "links_up": metric(page, "maxmq_cluster_links_up"),
+                    "w1_links_up": metric(fed, "maxmq_cluster_links_up",
+                                          node="w1")}
+                if ledger is not None:
+                    st["acked"] = metric(
+                        page, "maxmq_cluster_session_sync_acks_total") \
+                        >= metric(page, "maxmq_cluster_session_local")
+                    st["ledgers"] = [
+                        metric(page, "maxmq_cluster_session_ledger"),
+                        metric(fed, "maxmq_cluster_session_ledger",
+                               node="w1")]
+                if routes is not None:
+                    st["routes"] = {
+                        "w0": metric(page, "maxmq_cluster_routes_held"),
+                        "w1": metric(fed, "maxmq_cluster_routes_held",
+                                     node="w1")}
+            done = all(
+                st["links_up"] == st["w1_links_up"] == POOL_WORKERS - 1
+                and (ledger is None or (st["acked"] and st["ledgers"]
+                                        == [ledger, ledger]))
+                and (routes is None or st["routes"] == routes[name])
+                for name, st in state.items())
+            if done:
+                return time.perf_counter() - t0
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"the pools did not converge in {sz['converge_s']} s: "
+                    f"{state}; sessions {ledger}, routes {routes}")
+            await asyncio.sleep(0.1)
+
+    def pool_placement(self, pool, side) -> dict:
+        """Which worker SO_REUSEPORT placed each online subscriber on."""
+        pids = pool.workers()
+        worker0 = self.pool_worker0(pool, pids)
+        node = {worker0: "w0", **{p: "w1" for p in pids if p != worker0}}
+        out = {cid: node.get(connection_owner(pool.port, c.writer, pids))
+               for cid, c in sorted(side.subs.items())}
+        if None in out.values():
+            raise AssertionError(f"{pool.name} pool: subscribers on no "
+                                 f"worker: {out}")
+        return out
+
+    @staticmethod
+    def pool_worker0(pool, pids) -> int:
+        """Worker 0's pid: the worker that serves ``/metrics``."""
+        for inode in tcp_inodes(pool.metrics_port):
+            owner = socket_owner(inode, pids)
+            if owner is not None:
+                return owner
+        raise AssertionError(f"{pool.name} pool: no worker serves /metrics")
+
+    def pool_place(self, pool, nodes: dict):
+        """``place`` for ``resume_subscribers``: each client id's
+        connection accepted only on its worker of ``nodes`` (a
+        connection SO_REUSEPORT hands another worker is closed before its
+        CONNECT, and another opened)."""
+        pids = pool.workers()
+        w0 = self.pool_worker0(pool, pids)
+        pid_of = {"w0": w0, "w1": next(p for p in pids if p != w0)}
+
+        def place(cid):
+            async def accept(writer) -> bool:
+                return (await accepted_by(pool.port, writer, pids)
+                        == pid_of[nodes[cid]])
+            return accept
+        return place
+
+    async def pool_publishers(self, kit, pool, side, owners) -> None:
+        """The traffic's publishers connected, the first on w0 and the
+        next on w1 and so on (``pool_place``), so the publishes cross the
+        mesh both ways."""
+        order = list(dict.fromkeys(owners))
+        place = self.pool_place(pool, {
+            owner: POOL_NODES[k % POOL_WORKERS]
+            for k, owner in enumerate(order)})
+        for owner in order:
+            pub = side.pubs[owner] = WireClient(
+                kit, owner, 5 if owner.startswith("pub5") else 4)
+            await pub.open(pool.port, place(owner))
+
+    async def pool_settle(self, card) -> float:
+        """Wait until the card pool's sidecar holds every subscription in
+        its tables, with no refresh or bucket warm-up under way (its
+        service refreshes as the subscriptions arrive: no traffic
+        needed). Returns the seconds it took."""
+        sz = self.sizes["pool"]
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + sz["converge_s"]
+        while True:
+            page = card.scrape_pool()
+            if not (metric(page, "maxmq_matcher_tables_behind")
+                    or metric(page, "maxmq_matcher_refreshing")):
+                return time.perf_counter() - t0
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    "the card pool's sidecar did not catch up with its "
+                    "index: " + json.dumps({
+                        f"{n}{{{lab}}}": v for (n, lab), v in page.items()
+                        if n.startswith("maxmq_matcher_")}))
+            await asyncio.sleep(0.1)
+
+    def pool_metrics(self, before: dict, after: dict, pool0: dict,
+                     pool1: dict, frames: int, walls: dict,
+                     publishes: int) -> dict:
+        """The card pool's sidecar over the traffic (its endpoint: K1
+        launches, shadow probes, batches, bypassed topics; the launches
+        that served publishes and the card's share of the batched topics)
+        and both pools' w0 pages (match latency, hedges, commits)."""
+        def delta(page0, page1, name, **labels):
+            return metric(page1, name, **labels) - metric(page0, name,
+                                                          **labels)
+
+        k1 = delta(pool0, pool1, "maxmq_matcher_kernel_launches_total",
+                   kernel="sig_match_fixed")
+        shadow = delta(pool0, pool1, "maxmq_matcher_shadow_probes_total")
+        batched = delta(pool0, pool1, "maxmq_matcher_batched_topics_total")
+        bypassed = delta(pool0, pool1, "maxmq_matcher_bypassed_topics_total")
+        out = {"sidecar": {
+            "k1_launches": k1, "shadow_probes": shadow,
+            "served_launches": k1 - shadow,
+            "batches": delta(pool0, pool1, "maxmq_matcher_batches_total"),
+            "batched_topics": batched, "bypassed_topics": bypassed,
+            "device_share": (batched - bypassed) / max(batched, 1),
+            "device_rtt_ms": metric(pool1,
+                                    "maxmq_matcher_device_rtt_seconds") * 1e3,
+            "errors": delta(pool0, pool1, "maxmq_matcher_batch_errors_total")},
+            "deliveries_compared": frames, "wall_s": walls,
+            "deliveries_per_s": {k: frames / v for k, v in walls.items()},
+            "publishes_per_s": {k: publishes / v for k, v in walls.items()}}
+        stage = "maxmq_broker_publish_stage_seconds"
+        for name, page in after.items():
+            commits = metric(page, "maxmq_storage_commits_total")
+            out[name] = {
+                "w0_received": delta(before[name], page,
+                                     "maxmq_mqtt_messages_received"),
+                "w0_match_ms": hist_quantiles(page, before[name], stage,
+                                              stage="match_device"),
+                "w0_hedges": {lab: v for (n, lab), v in page.items()
+                              if n == "maxmq_matcher_fallbacks_total" and v
+                              and 'reason="overflow"' not in lab},
+                "w0_k1_launches": metric(
+                    page, "maxmq_matcher_kernel_launches_total",
+                    kernel="sig_match_fixed"),
+                "commits": commits,
+                "commit_ms_mean": metric(
+                    page, "maxmq_storage_commit_seconds_total") * 1e3
+                / max(commits, 1)}
+        card = out["card"]
+        if card["w0_hedges"] or card["w0_k1_launches"] or out["sidecar"][
+                "errors"] or out["sidecar"]["batches"] < 1:
+            raise AssertionError(f"the card pool's matching: {out}")
+        if self.device.type == "cuda" and out["sidecar"][
+                "served_launches"] < 1:
+            raise AssertionError("the card pool's sidecar served no publish "
+                                 f"batch from the card: {out}")
+        return out
+
+    def pool_cluster_pages(self, pools) -> dict:
+        """Each pool's ``/cluster/metrics`` (at w0): both workers are
+        nodes there, and only w0 (the journal owner) has the journal's
+        series; w0's ``/metrics`` has ``maxmq_storage_*``."""
+        out = {}
+        for p in pools:
+            fed = p.scrape("/cluster/metrics")
+            nodes = sorted({m.group(1) for (_n, lab) in fed
+                            for m in [re.search(r'node="([^"]+)"', lab)]
+                            if m})
+            journal = sorted({m.group(1) for (n, lab) in fed
+                              if n == "maxmq_storage_queue_depth"
+                              for m in [re.search(r'node="([^"]+)"', lab)]
+                              if m})
+            storage = any(n.startswith("maxmq_storage_")
+                          for n, _l in p.scrape())
+            if nodes != list(POOL_NODES) or journal != ["w0"] or not storage:
+                raise AssertionError(f"{p.name} pool: nodes {nodes}, "
+                                     f"journal at {journal}, w0 storage "
+                                     f"series {storage}")
+            out[p.name] = {"nodes": nodes, "journal": journal}
+        return out
+
+    def pool_card_holders(self, card, trie) -> dict:
+        """The processes on the card: no worker of either pool and not
+        the trie pool's parent has a ``/dev/nvidia*`` file open (a CUDA
+        probe opens them, a context keeps them), and among the holders of
+        a CUDA context (``nvidia-smi --query-compute-apps``) are at most
+        this process and the card pool's parent (where the tool shows
+        pids of this namespace, those two)."""
+        workers = {p.name: p.workers() for p in (card, trie)}
+        dev = {}
+        for pid in [os.getpid(), card.proc.pid, trie.proc.pid,
+                    *workers["card"], *workers["trie"]]:
+            with contextlib.suppress(OSError):
+                dev[pid] = sorted({os.readlink(f"/proc/{pid}/fd/{fd}")
+                                   for fd in os.listdir(f"/proc/{pid}/fd")
+                                   if os.readlink(f"/proc/{pid}/fd/{fd}")
+                                   .startswith("/dev/nvidia")})
+        out = {"workers": workers, "parents": {"card": card.proc.pid,
+                                               "trie": trie.proc.pid},
+               "self": os.getpid(), "dev_files": dev}
+        opened = {pid: dev.get(pid) for pid in [trie.proc.pid,
+                                                *workers["card"],
+                                                *workers["trie"]]
+                  if dev.get(pid)}
+        if opened:
+            raise AssertionError(f"processes besides the card pool's parent "
+                                 f"opened the card: {opened}")
+        if self.device.type != "cuda":
+            return out
+        res = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        apps = [line.split(",")[0].strip() for line in
+                res.stdout.splitlines() if line.strip()]
+        holders = [int(a) for a in apps if a.isdigit()]
+        out["compute_apps"] = res.stdout.strip().splitlines()
+        stray = {pid for w in workers.values() for pid in w} | {trie.proc.pid}
+        allowed = {os.getpid(), card.proc.pid}
+        if (res.returncode or stray & set(holders) or len(holders) > 2
+                or (os.getpid() in holders
+                    and not set(holders) <= allowed)):
+            raise AssertionError(f"the card's holders: {out}")
+        return out
+
+    async def pool_sidecar_answers(self, card, topics, index) -> dict:
+        """The card pool's sidecar asked for the traffic's topics over its
+        socket (one OP_MATCH request, past the bypass cap: a batch on the
+        card): every answer equal to the CPU trie over every session the
+        pool holds."""
+        from maxmq_tpu_torch.broker.workers import matcher_sock
+        from maxmq_tpu_torch.matching.service import ServiceMatcher
+
+        client = ServiceMatcher(matcher_sock(card.mesh))
+        await client.connect()
+        try:
+            uniq = list(dict.fromkeys(topics))
+            answers = await client.subscribers_batch_async(uniq)
+        finally:
+            await client.close()
+        bad = [t for t, a in zip(uniq, answers)
+               if not same_answer(a, index.subscribers(t))]
+        if bad:
+            raise AssertionError(f"the sidecar's answers differ from the "
+                                 f"trie's on {len(bad)} topics: {bad[:4]}")
+        return {"topics": len(uniq),
+                "matched": sum(bool(a.subscriptions or a.shared)
+                               for a in answers)}
 
     def surfaces_cpu(self, engine):
         """The CPU twin of an engine's live snapshot: the same compiled
@@ -5396,7 +6331,8 @@ class Smoke:
         t0 = time.perf_counter()
         with full_collections() as pauses:
             out = fn(*args)
-        log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+        log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s, "
+            f"{rss_gib():.1f} GiB resident")
         log(f"[phase] {name}: full collections {len(pauses)}, "
             f"{sum(pauses):.1f} ms, longest {max(pauses, default=0.0):.1f} "
             "ms")
@@ -6299,6 +7235,27 @@ class Smoke:
 
     # -- all phases ----------------------------------------------------
 
+    def started_phases(self) -> tuple:
+        """Phases 15, 16 and 17, each booting the next one's children
+        beside its own last part (``fed_start_early``,
+        ``pool_start_early``); a phase the size table leaves out (as the
+        CPU rehearsal of the whole run does) is None. Whatever was started
+        early and not taken over is killed on the way out."""
+        try:
+            # phase 15; it starts phase 16's nodes
+            started = self.phase("started broker", lambda: asyncio.run(
+                self.started_brokers()))
+            # phase 16; it starts phase 17's pools
+            federation = (self.phase("federation", lambda: asyncio.run(
+                self.federation())) if "federation" in self.sizes else None)
+            # phase 17
+            pool = (self.phase("worker pool", lambda: asyncio.run(
+                self.worker_pool())) if "pool" in self.sizes else None)
+        finally:
+            self.fed_abort()
+            self.pool_abort()
+        return started, federation, pool
+
     def run(self) -> dict:
         self.phase("host runtime", self.host_runtime)
         checks = {name: self.phase(f"sig check {name}",
@@ -6320,16 +7277,15 @@ class Smoke:
         for engine in self.engines.values():
             engine.close()
         self.engines.clear()
-        release_heap()
         self.phase("dense check", self.dense_kernel_vs_plain)
         dense_service = self.phase(
             "dense service", lambda: asyncio.run(self.dense_service_path()))
         dh = self.phase("dense headline", self.dense_headline)
-        # what the later phases no longer need goes, so the Python heap
-        # the NFA phases allocate into stays small
+        # what the later phases no longer need goes (what sits in garbage
+        # cycles stays: the heap is frozen, and a thaw and collection of
+        # it took 15.7-16.5 s a time for 0.3-1.6 GiB)
         self.dense = self.dense_eng = None
         self.corpora.pop("hash_plus_100k", None)
-        release_heap()
         self.phase("nfa check mixed_100k", self.nfa_check, "mixed_100k")
         self.phase("nfa service", lambda: asyncio.run(
             self.nfa_service_path()))
@@ -6339,17 +7295,11 @@ class Smoke:
             self.phase("nfa headline", self.nfa_headline)
         self.nfa_engines.clear()
         self.corpora.pop("iot_1m_share", None)
-        release_heap()
         self.phase("cluster", self.cluster)
         content = self.phase("content evaluator", self.content_evaluator)
         tracing = self.phase("matcher tracing", lambda: asyncio.run(
             self.matcher_tracing()))
-        started = self.phase("started broker", lambda: asyncio.run(
-            self.started_brokers()))
-        # phase 16 (the CPU rehearsal of the whole run leaves it out: it
-        # has a test of its own)
-        federation = (self.phase("federation", lambda: asyncio.run(
-            self.federation())) if "federation" in self.sizes else None)
+        started, federation, pool = self.started_phases()
         broker = self.phase("broker", lambda: asyncio.run(
             self.broker_phases()))
         h = heads["iot_1m_share"]
@@ -6377,6 +7327,9 @@ class Smoke:
                            for node in FED_LINE},
                        "in_process": federation["in_process"]["takeover"][
                            "k1_launches"]},
+                   pool_launches=None if pool is None else {
+                       "served": pool["sidecar"]["served_launches"],
+                       "shadow": pool["sidecar"]["shadow_probes"]},
                    headline={k: {f: v[f] for f in
                                  ("kernel_ms", "kernel_ms_256", "plain_ms",
                                   "bound_ms", "bound_by", "launches")}
@@ -6393,7 +7346,7 @@ class Smoke:
                      headline_launches=dh["launches"])
         return {"kernels": [sig, dense], "content": content,
                 "tracing": tracing, "surfaces": surfaces,
-                "started": started, "federation": federation}
+                "started": started, "federation": federation, "pool": pool}
 
 
 def main() -> int:

@@ -13,9 +13,10 @@ card unless the caller names another device (``"cpu"``), and without CUDA
 and without a device the device engines raise — nothing is moved to the
 CPU on its own. Cluster mode (``cluster_node_id``) runs the federation
 with its federated sessions (``cluster_session_replication = true``, the
-default). The worker pool (``workers > 1``) is not ported yet: a config
-asking for it fails at start, naming the port's slice that brings it
-(``POOL_SLICE``).
+default). ``workers > 1`` runs the delivery-worker pool
+(``broker/workers.py``): this process becomes the pool parent, whose
+matcher sidecar owns the card, and each worker process re-enters
+``run_server`` with ``MAXMQ_WORKER_ID`` set.
 """
 
 from __future__ import annotations
@@ -41,10 +42,6 @@ BANNER = r"""
  |_|  |_|\__,_|_|\_\_|  |_|\__\_\   |_| |_|  \___/
         MQTT broker, PyTorch/CUDA port
 """
-
-# what a config asks for that this package does not run yet: the
-# delivery-worker pool (``workers > 1``, ``MAXMQ_WORKER_ID``)
-POOL_SLICE = "port slice 13b, the delivery-worker pool"
 
 
 def capabilities_from_config(conf: Config) -> Capabilities:
@@ -458,7 +455,7 @@ async def run_server(conf: Config, logger: Logger,
     boot = logger.with_prefix("bootstrap")
     boot.debug("effective configuration", **config_as_dict(conf))
 
-    if await _maybe_run_pool(conf, logger, ready, stop):
+    if await _maybe_run_pool(conf, logger, ready, stop, device):
         return
 
     profiler = _start_profiling(conf)
@@ -523,19 +520,36 @@ async def _close_matcher(broker: Broker) -> None:
         await asyncio.get_running_loop().run_in_executor(None, engine_close)
 
 
-async def _maybe_run_pool(conf: Config, logger, ready, stop) -> bool:
-    """The delivery-worker pool (ADR 005/021) when ``workers > 1``, or a
-    pool worker when ``MAXMQ_WORKER_ID`` is set. The pool is not ported
-    yet: either fails here, at start, before anything serves. False:
-    this process runs the broker itself."""
+async def _maybe_run_pool(conf: Config, logger, ready, stop,
+                          device=None) -> bool:
+    """Delivery-worker pool (ADR 005/021): the parent runs the shared
+    matcher sidecar (on ``device``) and spawns SO_REUSEPORT workers,
+    which mesh as an in-box cluster over unix bridge links; a worker
+    subprocess re-enters run_server with MAXMQ_WORKER_ID set and takes
+    the worker branch. False: this process runs the broker itself."""
     worker_id = os.environ.get("MAXMQ_WORKER_ID")
-    if worker_id is not None or conf.workers > 1:
-        what = (f"MAXMQ_WORKER_ID={worker_id}" if worker_id is not None
-                else f"workers = {conf.workers}")
-        raise NotImplementedError(
-            f"{what}: the delivery-worker pool is not ported to "
-            f"maxmq_tpu_torch yet ({POOL_SLICE})")
+    if worker_id is not None:
+        from .broker.workers import POOL_DIR_ENV, run_worker
+        conf = pool_worker_config(conf)
+        await run_worker(conf, logger, int(worker_id),
+                         os.environ[POOL_DIR_ENV], ready=ready, stop=stop,
+                         device=device)
+        return True
+    if conf.workers > 1:
+        from .broker.workers import run_pool
+        await run_pool(conf, logger, ready=ready, stop=stop, device=device)
+        return True
     return False
+
+
+def pool_worker_config(conf: Config) -> Config:
+    """A pool worker's box config: the parent's, handed over as JSON in
+    ``MAXMQ_POOL_CONF``, where that is set; else ``conf``."""
+    pool_conf = os.environ.get("MAXMQ_POOL_CONF")
+    if not pool_conf:
+        return conf
+    import json
+    return Config(**json.loads(pool_conf))
 
 
 def _start_profiling(conf: Config):

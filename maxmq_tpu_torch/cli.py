@@ -3,7 +3,11 @@
     python -m maxmq_tpu_torch start [-c maxmq.conf] [--device cuda|cpu]
 
 boots the broker from its config (TOML file, then ``MAXMQ_*`` env) and
-runs it until SIGINT/SIGTERM, as the JAX package's ``maxmq start`` does;
+runs it until SIGINT/SIGTERM, as the JAX package's ``maxmq start`` does.
+With ``workers > 1`` it runs the worker pool: this process owns the
+matcher sidecar (on ``--device``) and spawns the workers as ``start``
+processes with the same ``--device``; a worker logs and installs its
+event loop as the box's config says (``MAXMQ_POOL_CONF``);
 
     python -m maxmq_tpu_torch matcher-service --socket PATH [--device cuda|cpu]
 
@@ -20,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import os
 import sys
 
 from . import __version__
@@ -40,9 +45,10 @@ def make_parser() -> argparse.ArgumentParser:
                        help="write cpu.prof and heap.prof on shutdown")
     start.add_argument("--no-banner", action="store_true")
     start.add_argument("--device", default=None, choices=("cuda", "cpu"),
-                       help="where the matcher engine and the content "
-                            "plane's torch evaluator run (default: cuda; "
-                            "fails without a CUDA device)")
+                       help="where the matcher engine (a worker pool's "
+                            "sidecar) and the content plane's torch "
+                            "evaluator run (default: cuda; fails without "
+                            "a CUDA device)")
 
     svc = sub.add_parser(
         "matcher-service",
@@ -81,13 +87,22 @@ def _device(command: str, requested):
 
 def cmd_start(args: argparse.Namespace) -> int:
     from .bootstrap import (BANNER, install_event_loop,
-                            new_logger_from_config, run_server)
+                            new_logger_from_config, pool_worker_config,
+                            run_server)
     from .utils.config import load_config
 
-    device = _device("start", args.device)
-    if device is None:
-        return 2
     conf = load_config(path=args.config)
+    if os.environ.get("MAXMQ_WORKER_ID") is not None:
+        # a pool worker: the parent resolved the device and owns the card
+        # (its matcher sidecar); probing CUDA here would open the card in
+        # every worker
+        conf = pool_worker_config(conf)
+        device = args.device
+    else:
+        device = _device("start", args.device)
+        if device is None:
+            return 2
+        device = device.type
     if args.profile:
         conf.profile = True
     logger = new_logger_from_config(conf)
@@ -97,7 +112,7 @@ def cmd_start(args: argparse.Namespace) -> int:
     loop = install_event_loop(conf.broker_event_loop, logger)
     logger.with_prefix("bootstrap").info("event loop installed", loop=loop)
     try:
-        asyncio.run(run_server(conf, logger, device=device.type))
+        asyncio.run(run_server(conf, logger, device=device))
     except KeyboardInterrupt:
         pass
     except Exception as exc:

@@ -1,20 +1,21 @@
 """Deterministic fault injection for the matcher degradation ladder.
 
 The registry core of the JAX package's ``faults.py``, for the sites the
-matcher service, the publish pipeline, the broker engine and its leaf
-modules run: a device call that raises or hangs, a table recompile that
-fails, a service socket that drops, a native frame-head encode that
-fails, a client writer that stalls, a connection accept that is refused,
-a content-plane evaluation or window emission that fails, a stored
-record that fails to restore, a journal write or group commit that
-fails, a disk that errors, fills, fails its fsync or stalls under the
-journal (``hooks/faultstore.py``), the named crash points, and the
-cluster federation's sites: a bridge link that fails to connect, a route
-apply that fails, a session replication send or apply and a takeover's
-state handoff that fail or hang, and the directed network partitions (``partition``,
-``heal``) and WAN link shapes (``ShapeSpec``, ``shape``, ``unshape``)
-between nodes. Sites cost one dict lookup on an (almost always) empty
-dict when nothing is armed.
+matcher service, the publish pipeline, the broker engine, its leaf
+modules and the worker pool run: a pool worker that dies, a device call
+that raises or hangs, a table recompile that fails, a service socket
+that drops, a native frame-head encode that fails, a client writer that
+stalls, a connection accept that is refused, a content-plane evaluation
+or window emission that fails, a stored record that fails to restore, a
+journal write or group commit that fails, a disk that errors, fills,
+fails its fsync or stalls under the journal (``hooks/faultstore.py``),
+the named crash points, and the cluster federation's sites: a bridge
+link that fails to connect, a route apply that fails, a session
+replication send or apply and a takeover's state handoff that fail or
+hang, and the directed network partitions (``partition``, ``heal``) and
+WAN link shapes (``ShapeSpec``, ``shape``, ``unshape``) between nodes.
+Sites cost one dict lookup on an (almost always) empty dict when nothing
+is armed.
 
 ``arm(site, mode, count)`` fires the fault for exactly the next
 ``count`` hits of that site (``count=-1`` = until disarmed), then
@@ -23,10 +24,10 @@ self-disarms. Modes:
 * ``raise`` — the site raises :class:`InjectedFault` (a
   :class:`DeviceMatchError`);
 * ``hang``  — the site blocks for ``delay_s`` seconds;
-* anything else (``drop``, ...) — ``fire`` returns True and the SITE
-  acts (the matcher service closes the client connection);
-  ``fire_detail`` hands (mode, delay_s) to loop-thread sites, which
-  await the delay themselves.
+* anything else (``drop``, ``exit``, ...) — ``fire`` returns True and
+  the SITE acts (the matcher service closes the client connection, a
+  pool worker stops itself); ``fire_detail`` hands (mode, delay_s) to
+  loop-thread sites, which await the delay themselves.
 
 Env arming (``MAXMQ_FAULTS``) reaches processes a test cannot touch by
 reference::
@@ -34,7 +35,11 @@ reference::
     MAXMQ_FAULTS="device.match:raise:3,device.match:hang:1:0.5"
 
 parses as ``site:mode[:count[:delay_s[:skip]]]``, comma-separated,
-applied in order; ``skip`` lets a fault pass its first N hits.
+applied in order; ``skip`` lets a fault pass its first N hits. Because
+each subprocess parses the env at import, the pool parent delivers
+``pool.worker`` entries to exactly ONE initial worker spawn and strips
+them everywhere else (``broker/workers.py``): a worker-kill drill means
+one death, not a pool-wide crash loop.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ class InjectedFault(DeviceMatchError):
 DEVICE_MATCH = "device.match"          # engine device-batch entry points
 DEVICE_RECOMPILE = "device.recompile"  # engine refresh()/table compile
 SERVICE_SOCKET = "service.socket"      # matcher-service client connection
+POOL_WORKER = "pool.worker"            # delivery-pool worker process
 NATIVE_ENCODE = "native.encode"        # C publish-frame head assembly
                                        # (trips fall back to the
                                        # pure-Python encoder)
@@ -502,8 +508,8 @@ any_shaped = REGISTRY.any_shaped
 arm_from_spec = REGISTRY.arm_from_spec
 fired = REGISTRY.fired
 
-# env arming: subprocess services inherit MAXMQ_FAULTS through their
-# environment
+# env arming: subprocess services and pool workers inherit MAXMQ_FAULTS
+# through their environment
 _env_spec = os.environ.get("MAXMQ_FAULTS", "")
 if _env_spec:
     REGISTRY.arm_from_spec(_env_spec)

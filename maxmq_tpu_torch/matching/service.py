@@ -112,6 +112,8 @@ class MatcherService:
                 return MicroBatcher(SigEngine(index, device=device))
         self._factory = engine_factory
         self.matcher = None               # built lazily on first serve
+        self._refresh_pending = False
+        self._last_op = 0.0
         self._server: asyncio.Server | None = None
         self._conns: set = set()        # live client writers
         self.subs_applied = 0
@@ -128,6 +130,7 @@ class MatcherService:
         self.enc_hits = 0
 
     _ENC_CAP = 4096
+    REFRESH_QUIET_S = 0.05
 
     def _result_frag(self, s) -> str:
         # a subscription change rotates every result object, so entries
@@ -250,14 +253,57 @@ class MatcherService:
                     t.add_done_callback(tasks.discard)
                 else:
                     self._apply_op(ftype, msg, owned)
+                    self._refresh_later()
         finally:
             self._conns.discard(writer)
             for cid, filters in owned.items():
                 for filt, gen in filters.items():
                     self._release(cid, filt, gen)
+            if owned:
+                self._refresh_later()
             for t in tasks:
                 t.cancel()
             writer.close()
+
+    def _refresh_later(self) -> None:
+        """Start the engine's background refresh once the subscription
+        ops pause for ``REFRESH_QUIET_S``, so the tables catch up with
+        the index off the match path: a reseed's stream of OP_SUB frames
+        starts one compile, at its end. Without this, a service reseeded
+        with a corpus compiles it at its first match, which then waits on
+        the compile (F27)."""
+        loop = asyncio.get_running_loop()
+        self._last_op = loop.time()
+        if not self._refresh_pending:
+            self._refresh_pending = True
+            loop.call_later(self.REFRESH_QUIET_S, self._refresh_now)
+
+    def _refresh_now(self) -> None:
+        """Kick the refresh once the ops are quiet; while one runs, look
+        again every ``REFRESH_QUIET_S``: ops applied during a compile are
+        in none of its tables, and ``refresh_soon`` starts no second one
+        meanwhile. (The engines that refresh in the background have
+        ``refresh_soon``; the NFA and dense engines refresh at a
+        match.)"""
+        if self._server is None or not self._server.is_serving():
+            self._refresh_pending = False
+            return
+        loop = asyncio.get_running_loop()
+        quiet = self._last_op + self.REFRESH_QUIET_S - loop.time()
+        if quiet > 0:
+            loop.call_later(quiet, self._refresh_now)
+            return
+        engine = getattr(self.matcher, "engine", self.matcher)
+        kick = getattr(engine, "refresh_soon", None)
+        if kick is None or not getattr(engine, "auto_refresh", True):
+            self._refresh_pending = False
+            return
+        kick()
+        bg = getattr(engine, "_bg_thread", None)
+        if bg is not None and bg.is_alive():
+            loop.call_later(self.REFRESH_QUIET_S, self._refresh_now)
+        else:
+            self._refresh_pending = False
 
     async def _match(self, req_id: int, topics: list[str], writer,
                      stamps: bool = False) -> None:

@@ -1003,7 +1003,29 @@ def _register_filter_metrics(registry: Registry, broker) -> None:
 
 def _register_matcher_metrics(registry: Registry, broker) -> None:
     matcher = getattr(broker, "matcher", None)
-    if matcher is not None and hasattr(matcher, "matches"):
+    if matcher is not None:
+        register_matcher_stats(registry, matcher)
+        # ANY attached matcher drives the ADR-006 pipeline; scrapes run
+        # on the metrics thread while close() may null the queue on the
+        # event loop, so bind the queue reference exactly once per read
+        registry.gauge_func(
+            "maxmq_broker_publish_pipeline_depth",
+            "Publishes queued awaiting in-order fan-out (ADR 006)",
+            lambda: (q.qsize()
+                     if (q := broker._pub_queue) is not None else 0))
+        registry.counter_func(
+            "maxmq_broker_publish_trie_degraded_total",
+            "Publishes served from the broker's own trie after a match "
+            "future failed (the rung below the ADR-011 supervisor)",
+            lambda: broker.matcher_degrades)
+
+
+def register_matcher_stats(registry: Registry, matcher) -> None:
+    """A matcher's own counts (matches, fallbacks, breaker, batches,
+    cache hits, the bypass and its round trip, the engine's host routes,
+    the service transport): a broker's attached matcher, or the worker
+    pool's sidecar batcher on the pool parent's endpoint."""
+    if hasattr(matcher, "matches"):
         registry.counter_func(
             "maxmq_matcher_matches_total",
             "Topic matches answered by the device matcher",
@@ -1051,20 +1073,6 @@ def _register_matcher_metrics(registry: Registry, broker) -> None:
         if hasattr(eng, "kernel_plan"):
             _register_kernel_width_metrics(registry, eng)
         _register_transport_metrics(registry, matcher)
-    if matcher is not None:
-        # ANY attached matcher drives the ADR-006 pipeline; scrapes run
-        # on the metrics thread while close() may null the queue on the
-        # event loop, so bind the queue reference exactly once per read
-        registry.gauge_func(
-            "maxmq_broker_publish_pipeline_depth",
-            "Publishes queued awaiting in-order fan-out (ADR 006)",
-            lambda: (q.qsize()
-                     if (q := broker._pub_queue) is not None else 0))
-        registry.counter_func(
-            "maxmq_broker_publish_trie_degraded_total",
-            "Publishes served from the broker's own trie after a match "
-            "future failed (the rung below the ADR-011 supervisor)",
-            lambda: broker.matcher_degrades)
 
 
 def _register_fallback_metrics(registry: Registry, matcher) -> None:

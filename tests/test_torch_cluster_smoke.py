@@ -4,6 +4,7 @@ federations over a line A - B - C, the "card" federation's ``sig`` nodes on
 ``--device cpu`` here; and the phase's helpers."""
 
 import asyncio
+import os
 
 import pytest
 
@@ -24,10 +25,28 @@ FED_CPU_SIZES = {"subs": {"mixed_100k": 3_000},
                                 "device_share": 0.5}}
 
 
+async def _beside_the_boots() -> None:
+    """What the whole run does while the early nodes boot (phase 15's
+    crash rung): this loop busy, then idle, while the boots' thread waits
+    on its own."""
+    for _ in range(20):
+        sum(range(200_000))
+        await asyncio.sleep(0.05)
+
+
 @pytest.mark.timeout(280)
-def test_federation_phase_rehearses_on_cpu():
-    out = asyncio.run(chip_smoke.Smoke("cpu", sizes=FED_CPU_SIZES)
-                      .federation())
+@pytest.mark.parametrize("start", ["alone", "early"])
+def test_federation_phase_rehearses_on_cpu(start):
+    smoke = chip_smoke.Smoke("cpu", sizes=FED_CPU_SIZES)
+    if start == "early":
+        # as the whole run starts them: in phase 15's crash rung, booting
+        # in a thread while that phase goes on
+        smoke.fed_start_early()
+        asyncio.run(_beside_the_boots())
+        assert smoke.fed_pending is not None
+    out = asyncio.run(smoke.federation())
+    assert smoke.fed_pending is None
+    assert out["boot_overlapped"] is (start == "early")
     assert out["routes_expected"] == {"A": 1, "B": 2, "C": 1}   # '#' probes
     for run in (out["traffic"], out["rung"]["traffic"]):
         assert run["deliveries_compared"] > 100
@@ -65,6 +84,21 @@ def test_federation_phase_rehearses_on_cpu():
     assert tk["sessions"]["C"]["takeovers"] == 4
     assert tk["matchers"]["C"]["batches"] > 0
     assert out["in_process"]["taken_over_frames"] > 0
+
+
+@pytest.mark.timeout(120)
+def test_fed_abort_stops_early_nodes():
+    """Nodes started for phase 16 that the phase never takes over (an
+    earlier failure): every node killed, the directory removed."""
+    smoke = chip_smoke.Smoke("cpu", sizes=FED_CPU_SIZES)
+    smoke.fed_start_early()
+    st, thread, box = smoke.fed_pending
+    asyncio.run(asyncio.sleep(1.0))
+    smoke.fed_abort()
+    assert smoke.fed_pending is None and not thread.is_alive()
+    assert all(b.proc.poll() is not None for b in st["brokers"].values())
+    assert not os.path.exists(st["work"]) and "error" in box
+    smoke.fed_abort()       # nothing pending: a no-op
 
 
 def test_fed_plan_spreads_the_subscribers_and_probes():

@@ -583,3 +583,27 @@ def test_federation_sig_on_card_matches_trie_federation(cuda_card):
                                           run_["matchers"].values()), run_
     for node, counts in got["matchers"].items():
         assert counts["batches"] > 0, node
+
+
+@pytest.mark.gpu
+def test_started_pool_on_card_matches_trie_pool(cuda_card):
+    """``chip_smoke.py`` phase 17 at a small size: two ``python -m
+    maxmq_tpu_torch start`` pools of two workers over copies of one
+    restored store, the card pool's sidecar on the card (no ``--device``)
+    and the trie pool on ``--device cpu``; every compared subscriber's
+    frames equal, the sidecar's answers equal to the CPU trie's, no
+    worker holding the card, no hedge, and K1 launches that served the
+    card pool's publishes."""
+    import asyncio
+
+    sizes = {"subs": {"mixed_100k": 20_000},
+             "pool": {"corpus": "mixed_100k", "clients": 16,
+                      "publishes": 512, "burst": 512, "max_batch": 4_096,
+                      "boot_s": 300.0, "stop_s": 30.0, "converge_s": 120.0}}
+    out = asyncio.run(chip_smoke.Smoke("cuda", sizes=sizes).worker_pool())
+    assert out["deliveries_compared"] > 100
+    assert out["boot"]["card"]["device"].startswith("cuda")
+    assert out["sidecar"]["served_launches"] >= 1
+    assert out["sidecar_answers"]["matched"] > 0
+    # the phase fails where a worker is among nvidia-smi's compute apps
+    assert "compute_apps" in out["card_holders"]

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from maxmq_tpu.matching import TopicIndex as RefIndex
+from maxmq_tpu.matching import trie as ref_trie
 from maxmq_tpu.matching.sig import SigEngine as RefEngine
 from maxmq_tpu.parallel import sharded as ref_sharded
 from maxmq_tpu.protocol import Subscription as RefSubscription
@@ -178,6 +179,13 @@ def cluster_corpus(seed):
     return ref, port, topics
 
 
+# whether the JAX package's trie bound its C ``SubscriberSet`` at import
+# (``maxmq_tpu/matching/trie.py:163-176``: only when
+# ``native/maxmq_decode.so`` was already built): its sharded engine chains
+# intents only then, and answers merged sets otherwise
+REF_NATIVE_SETS = ref_trie.SubscriberSet is not ref_trie._PySubscriberSet
+
+
 def sharded_pair(ref, port, shape=(2, 4)):
     want = ref_sharded.ShardedSigEngine(
         ref, mesh=ref_sharded.make_mesh(shape=shape))
@@ -203,7 +211,8 @@ def test_sharded_chained_intents_equal_reference(path):
             assert type(g) is trie.SubscriberSet     # served by the trie
             continue
         assert isinstance(g, ChainedIntents), topic
-        assert type(w).__name__ == "ChainedIntents", topic
+        if REF_NATIVE_SETS:
+            assert type(w).__name__ == "ChainedIntents", topic
         assert len(g.parts) == eng.sp
         by_iter = dict(iter(g))
         assert set(by_iter) == set(g.to_set().subscriptions)

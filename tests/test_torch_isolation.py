@@ -500,3 +500,87 @@ def test_cluster_package_stands_alone():
     assert "GOT b'ok'" in proc.stdout, proc.stdout
     assert "PRESENT True 1" in proc.stdout, proc.stdout
     assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+def test_started_pool_stands_alone(tmp_path):
+    """``broker/workers.py`` in a started pool: ``python -m
+    maxmq_tpu_torch start --device cpu`` with ``workers = 2`` and the
+    ``sig`` sidecar. The parent and each worker write their ``sys.modules``
+    at exit (a ``sitecustomize`` on their path): neither JAX nor the JAX
+    package in any of the three, and the pool module in each."""
+    import asyncio
+    import json
+    import signal
+    import time
+
+    import chip_smoke
+    from maxmq_tpu_torch.mqtt_client import MQTTClient
+
+    site, dumps = tmp_path / "site", tmp_path / "dumps"
+    site.mkdir()
+    dumps.mkdir()
+    (site / "sitecustomize.py").write_text(textwrap.dedent(f"""
+        import atexit, json, os, sys
+
+        def _dump():
+            if "maxmq_tpu_torch" not in sys.modules:
+                return
+            bad = sorted(m for m in sys.modules
+                         if m.split(".")[0] in ("jax", "jaxlib")
+                         or m == "maxmq_tpu" or m.startswith("maxmq_tpu."))
+            with open(os.path.join({str(dumps)!r}, f"{{os.getpid()}}.json"),
+                      "w") as f:
+                json.dump({{"forbidden": bad,
+                           "worker": os.environ.get("MAXMQ_WORKER_ID"),
+                           "pool": "maxmq_tpu_torch.broker.workers"
+                                   in sys.modules}}, f)
+
+        atexit.register(_dump)
+    """))
+    port = chip_smoke.free_port()
+    conf = tmp_path / "c.toml"
+    conf.write_text(f'mqtt_tcp_address = "127.0.0.1:{port}"\n'
+                    f'metrics_address = "127.0.0.1:{chip_smoke.free_port()}"\n'
+                    'mqtt_sys_topic_interval = 0\nlog_format = "json"\n'
+                    'workers = 2\nmatcher = "sig"\n'
+                    f'worker_link_dir = "{tmp_path / "mesh"}"\n')
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MAXMQ_")}
+    env["PYTHONPATH"] = os.pathsep.join((str(site), str(ROOT)))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "maxmq_tpu_torch", "start", "-c", str(conf),
+         "--no-banner", "--device", "cpu"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    async def drive() -> None:
+        deadline = time.monotonic() + 90
+        while len(chip_smoke.tcp_inodes(port)) < 2:
+            assert proc.poll() is None and time.monotonic() < deadline
+            await asyncio.sleep(0.1)
+        sub = MQTTClient(client_id="iso-sub")
+        await sub.connect("127.0.0.1", port)
+        await sub.subscribe("iso/#")
+        pub = MQTTClient(client_id="iso-pub")
+        await pub.connect("127.0.0.1", port)
+        while True:
+            await pub.publish("iso/x", b"ok")
+            try:
+                assert (await sub.next_message(timeout=0.5)).payload == b"ok"
+                break
+            except asyncio.TimeoutError:
+                assert time.monotonic() < deadline, "no delivery"
+        for c in (sub, pub):
+            await c.disconnect()
+
+    try:
+        asyncio.run(drive())
+        proc.send_signal(signal.SIGTERM)
+        _out, err = proc.communicate(timeout=90)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=30)
+    assert proc.returncode == 0, err[-2000:]
+    got = sorted((json.loads(p.read_text()) for p in dumps.glob("*.json")),
+                 key=lambda d: d["worker"] or "")
+    assert [d["worker"] for d in got] == [None, "0", "1"], got
+    assert all(d["forbidden"] == [] and d["pool"] for d in got), got

@@ -17,8 +17,10 @@ held against the JAX package's on the CPU:
 - ``matcher = "service"``: a port broker on the port's matcher service
   against a JAX broker on the JAX service, frames equal;
 - ``python -m maxmq_tpu_torch start`` as a child process: a CPU broker
-  that answers and exits 0 on SIGTERM, and the refusals (no CUDA and no
-  ``--device cpu``, cluster mode, the worker pool);
+  that answers and exits 0 on SIGTERM, the refusal without CUDA and
+  without ``--device cpu``, a cluster node, and a worker pool
+  (``workers = 2``: two worker processes on one port, a publish across
+  the worker mesh, a worker killed by a ``pool.worker`` fault respawned);
 - the reference's SIGKILL drills (``tests/test_storage_recovery.py``) on a
   child process of the port;
 - the port's repairs of faults found in the reference on the card (each
@@ -211,15 +213,6 @@ async def test_build_broker_refuses_cluster_and_the_engine_device():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             t_boot.build_broker(conf_of("port", mqtt_tcp_address="",
                                         matcher="sig"), quiet("port"))
-
-
-async def test_worker_pool_fails_at_start(monkeypatch):
-    for env, kw in ((None, {"workers": 2}), ("3", {})):
-        if env is not None:
-            monkeypatch.setenv("MAXMQ_WORKER_ID", env)
-        with pytest.raises(NotImplementedError, match="slice 13b"):
-            await t_boot.run_server(conf_of("port", **kw), quiet("port"),
-                                    device="cpu")
 
 
 def test_build_storage_equals_the_reference(tmp_path):
@@ -1042,9 +1035,9 @@ async def serves_as_a_federated_node(proc, port: int) -> None:
 
 @pytest.mark.parametrize("case", ["no_device", "cluster", "workers"])
 async def test_start_child_refuses(case, tmp_path):
-    """Without CUDA and without ``--device`` start exits 2; the worker pool
-    still refuses, naming slice 13b; a cluster node at the default config
-    (federated sessions on) now serves."""
+    """Without CUDA and without ``--device`` start exits 2; a cluster node
+    at the default config (federated sessions on) and a worker pool
+    (``workers = 2``) now serve, each exiting 0 on SIGTERM."""
     import torch
 
     want_rc = 0
@@ -1060,20 +1053,155 @@ async def test_start_child_refuses(case, tmp_path):
                       f'{chip_smoke.free_port()}"\n')
         want = "server stopped"
     else:
-        proc, _p = start_child(tmp_path, "workers = 2\n")
-        want_rc, want = 1, "slice 13b"
+        proc, port = start_pool(tmp_path)
+        want = "pool worker stopped"
     try:
         if case == "cluster":
             await serves_as_a_federated_node(proc, port)
+        elif case == "workers":
+            await serves_as_a_pool(proc, port, tmp_path)
         _out, err = proc.communicate(timeout=90)
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.communicate(timeout=30)
     assert proc.returncode == want_rc and want in err, err[-2000:]
+    if case == "workers":
+        assert_pool_stopped(err, tmp_path / "mesh", 2)
 
 
 test_start_child_refuses._async_timeout = 200
+
+
+# -- python -m maxmq_tpu_torch start with workers = 2 --------------------------
+
+def start_pool(tmp_path, env=None):
+    """A ``start --device cpu`` child with ``workers = 2`` (its mesh
+    sockets under ``tmp_path/mesh``, its pool endpoint on a free port)."""
+    pool_port = chip_smoke.free_port()
+    proc, port = start_child(
+        tmp_path, f'workers = 2\nworker_link_dir = "{tmp_path / "mesh"}"\n'
+                  f'pool_metrics_address = "127.0.0.1:{pool_port}"\n',
+        env=env)
+    proc.pool_port = pool_port
+    return proc, port
+
+
+def pool_page(proc) -> str:
+    import urllib.request
+
+    url = f"http://127.0.0.1:{proc.pool_port}/metrics"
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.read().decode()
+    except OSError:
+        return ""
+
+
+async def pool_workers(proc, port: int, n: int = 2) -> list:
+    """The pool's worker pids once each holds a listening socket on the
+    one TCP port."""
+    def owners():
+        pids = chip_smoke.child_pids(proc.pid)
+        return sorted({chip_smoke.socket_owner(i, pids)
+                       for i in chip_smoke.tcp_inodes(port)} - {None})
+
+    await wait_until(lambda: proc.poll() is not None or len(owners()) == n,
+                     90, "every worker listening on the port")
+    assert proc.poll() is None, proc.communicate(timeout=10)
+    return owners()
+
+
+async def placed(port: int, cid: str, pid: int, pids: list):
+    """A client connected to ``port`` and placed (by SO_REUSEPORT) on
+    worker ``pid``: reconnects until the kernel picks that worker."""
+    from maxmq_tpu_torch.mqtt_client import MQTTClient
+
+    for _ in range(64):
+        c = MQTTClient(client_id=cid)
+        await c.connect("127.0.0.1", port)
+        if chip_smoke.connection_owner(port, c.writer, pids) == pid:
+            return c
+        await c.disconnect()
+    raise AssertionError(f"no connection of 64 reached worker {pid}")
+
+
+async def crosses_the_mesh(port: int, pids: list, tag: str) -> None:
+    """A subscriber on one worker receives a publish from a client on the
+    other (publishes repeat until the route is up at the publisher's)."""
+    sub = await placed(port, f"{tag}-sub", pids[0], pids)
+    await sub.subscribe(("pool/#", 1))
+    pub = await placed(port, f"{tag}-pub", pids[1], pids)
+    deadline = time.monotonic() + 30
+    while True:
+        await pub.publish("pool/x", tag.encode(), qos=1)
+        try:
+            msg = await sub.next_message(timeout=0.5)
+            break
+        except asyncio.TimeoutError:
+            assert time.monotonic() < deadline, "no publish crossed"
+    assert msg.payload == tag.encode()
+    for c in (sub, pub):
+        await c.disconnect()
+
+
+async def serves_as_a_pool(proc, port: int, tmp_path) -> None:
+    """Two worker processes accept on the one port, a publish crosses the
+    worker mesh, and the parent stops them on SIGTERM."""
+    pids = await pool_workers(proc, port)
+    assert len(pids) == 2 and proc.pid not in pids
+    for i in range(2):
+        assert (tmp_path / "mesh" / f"w{i}.sock").exists()
+    await crosses_the_mesh(port, pids, "crossed")
+    proc.send_signal(signal.SIGTERM)
+
+
+def assert_pool_stopped(err: str, mesh, workers: int) -> list:
+    """The parent's log: the pool started, each worker (its own JSON
+    lines: it logs as the box's config says) started and stopped with rc
+    0; and no mesh socket left."""
+    lines = [json.loads(x) for x in err.splitlines() if x.startswith("{")]
+    msgs = [x["message"] for x in lines]
+    assert msgs.count("worker pool started") == 1
+    started = sorted(x["worker"] for x in lines
+                     if x["message"] == "pool worker started")
+    assert sorted(set(started)) == list(range(workers)), started
+    stopped = {x["worker"]: x["rc"] for x in lines
+               if x["message"] == "pool worker stopped"}
+    assert stopped == dict.fromkeys(range(workers), 0), stopped
+    assert not mesh.exists() or not list(mesh.glob("*.sock"))
+    return started
+
+
+async def test_started_pool_respawns_a_worker_killed_by_a_fault(tmp_path):
+    """``MAXMQ_FAULTS=pool.worker:exit:1``: the first worker stops itself
+    once at start, the parent respawns it (the fault reaches that one
+    spawn only), ``maxmq_pool_worker_restarts_total 1`` is on the pool's
+    endpoint, and a later publish crosses the mesh."""
+    proc, port = start_pool(tmp_path,
+                            env={"MAXMQ_FAULTS": "pool.worker:exit:1"})
+    try:
+        await wait_until(
+            lambda: proc.poll() is not None
+            or "maxmq_pool_worker_restarts_total 1" in pool_page(proc),
+            90, "the respawn on the pool endpoint")
+        pids = await pool_workers(proc, port)
+        await crosses_the_mesh(port, pids, "after-respawn")
+        assert "maxmq_pool_worker_restarts_total 1" in pool_page(proc)
+        proc.send_signal(signal.SIGTERM)
+        _out, err = proc.communicate(timeout=90)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=30)
+    assert proc.returncode == 0, err[-2000:]
+    assert assert_pool_stopped(err, tmp_path / "mesh", 2) == [0, 0, 1]
+    exits = [json.loads(x) for x in err.splitlines()
+             if '"pool worker exited; restarting"' in x]
+    assert [(x["worker"], x["rc"]) for x in exits] == [(0, 0)]
+
+
+test_started_pool_respawns_a_worker_killed_by_a_fault._async_timeout = 200
 
 
 # -- the reference's SIGKILL drills on the port --------------------------------
